@@ -1,0 +1,32 @@
+"""torbi_tpu_torch: the PyTorch/CUDA port of torbi_tpu.
+
+Batched Viterbi decoding of time-varying categorical distributions on an
+NVIDIA H100, with hand-written CUDA kernels for the banded forward pass,
+the dense forward pass and the backtrace (``csrc/``, built with nvcc at
+first use). The JAX package ``torbi_tpu`` is the reference it is held
+against; this package imports neither it nor JAX.
+
+Entry points decode on CUDA unless the caller asks for the CPU
+(``gpu='cpu'``), where the kernels' plain PyTorch versions run.
+"""
+
+###############################################################################
+# Configuration
+###############################################################################
+
+
+from .config.defaults import *  # noqa: F401,F403
+
+
+###############################################################################
+# Module imports
+###############################################################################
+
+
+from .viterbi import decode  # noqa: E402
+from .core import from_probabilities  # noqa: E402
+from . import models  # noqa: E402
+from . import ops  # noqa: E402
+from . import utils  # noqa: E402
+
+__version__ = '0.1.0'

@@ -1,0 +1,38 @@
+"""Pitch posteriorgram decoding model.
+
+The flagship workload: 1440-state pitch posteriorgrams as produced by penn.
+An own copy of ``torbi_tpu/models/pitch.py::transition_matrix`` (with penn's
+constants inlined), so this package needs neither penn nor the JAX package:
+a band-diagonal matrix ``clip(max_bins_per_frame - |i - j|, 0)``,
+row-normalized.
+"""
+import numpy as np
+
+# penn constants (penn/config/defaults.py of maxrmorrison/penn)
+PITCH_BINS = 1440
+CENTS_PER_BIN = 5            # cents
+OCTAVE = 1200                # cents
+MAX_OCTAVES_PER_SECOND = 35.92
+HOPSIZE = 80                 # samples
+SAMPLE_RATE = 8000           # Hz
+
+
+def bins_per_octave():
+    return OCTAVE / CENTS_PER_BIN
+
+
+def max_bins_per_frame():
+    max_octaves_per_frame = MAX_OCTAVES_PER_SECOND * HOPSIZE / SAMPLE_RATE
+    return max_octaves_per_frame * bins_per_octave() + 1
+
+
+def transition_matrix(pitch_bins=PITCH_BINS, dtype=np.float32):
+    """Band-diagonal pitch transition matrix (probability space, numpy)
+
+    transition[i, j] = clip(max_bins_per_frame - |i - j|, 0), row-normalized
+    """
+    xx, yy = np.meshgrid(
+        np.arange(pitch_bins), np.arange(pitch_bins), indexing='ij')
+    transition = np.clip(max_bins_per_frame() - np.abs(xx - yy), 0, None)
+    transition = transition / transition.sum(axis=1, keepdims=True)
+    return transition.astype(dtype)

@@ -1,0 +1,242 @@
+"""Backend dispatch for Viterbi decoding.
+
+Counterpart of ``torbi_tpu/ops/dispatch.py::decode``. One decode takes one
+of four routes:
+
+- ``backend='scan'``: the plain PyTorch recursion with an int32 trellis
+  (ops/scan.py);
+- a constant transition (a width-0 band over a finite floor, such as the
+  uniform default): a closed form of parallel torch passes, no kernel;
+- a banded transition: the banded forward kernel, then the backtrace kernel;
+- any other transition: the dense forward kernel, then the backtrace kernel.
+
+CUDA kernels take runtime shapes, so the JAX package's frame and batch
+buckets, state padding, packed mod-M input, ``shard_map`` mesh and
+time-sharded route have no counterpart here. On a CPU device the kernel
+routes run the kernels' plain versions.
+"""
+import numpy as np
+import torch
+
+from . import band as band_ops
+from .backtrace import backtrace_posteriors
+from .dense import viterbi_forward_dense
+from .scan import decode_scan
+from ..utils.cache import identity_cached as _identity_cached
+from ..utils.convert import resolve_device, to_tensor
+
+FP32_TINY = float(np.finfo(np.float32).tiny)
+
+# The band matrix depends only on the transition, so it is built once per
+# (live, unmodified) transition tensor
+_band_matrix_cache = {}
+
+
+def _round_up(value, multiple):
+    return ((value + multiple - 1) // multiple) * multiple
+
+
+def resolve_backend(backend=None):
+    """Resolve None/'auto' to a concrete backend: 'kernel' or 'scan'"""
+    import torbi_tpu_torch
+
+    backend = backend or torbi_tpu_torch.BACKEND
+    if backend == 'auto':
+        return 'kernel'
+    if backend in ('kernel', 'scan'):
+        return backend
+    if backend in ('lse', 'timesharded'):
+        raise NotImplementedError(
+            f"backend='{backend}' is not ported yet (ROADMAP.md, queue A, "
+            'item A10: the smoothed-max, associative and time-sharded '
+            'modes)')
+    raise ValueError(
+        f"unknown backend {backend!r}; expected 'auto', 'kernel' or 'scan'")
+
+
+def convert(observation, log_input, apply_epsilon):
+    """The probability->log conversion and the reference's epsilon step
+    ``log(exp(x) + tiny)``, as elementwise torch ops in that order. Works
+    in place on the one copy it makes; returns the input when there is
+    nothing to convert."""
+    if not log_input:
+        observation = torch.log(observation)
+        if apply_epsilon:
+            observation.exp_().add_(FP32_TINY).log_()
+    elif apply_epsilon:
+        observation = torch.exp(observation)
+        observation.add_(FP32_TINY).log_()
+    return observation
+
+
+def _band_matrix(transition, band):
+    return _identity_cached(
+        _band_matrix_cache, transition,
+        lambda: band_ops.build_band_matrix(transition, band[0], band[1]),
+        extra_key=band)
+
+
+def _decode_constant(observation, batch_frames, initial, floor):
+    """Closed-form decode for a constant transition (every candidate is
+    ``floor``), bitwise equal to the banded recursion.
+
+    Forward: post[t][s] = fl(obs[t][s] + m_t) with the scalar per-row carry
+    m_t = fl(g_{t-1} + floor), g_t = max_s post[t][s]; fp rounding is
+    monotone, so max_s fl(obs[s] + c) = fl(max_s obs[s] + c) and g follows
+    a scalar recurrence over per-frame observation maxima. Backtrace: every
+    destination's backpointer is the same first argmax of
+    fl(post[t-1] + floor), so no chase is needed. Every fp add happens in
+    the order of the JAX package's closed form.
+    """
+    batch, frames, _ = observation.shape
+    device = observation.device
+    floor_t = torch.tensor(floor, dtype=torch.float32, device=device)
+    bf = batch_frames
+
+    post0 = observation[:, 0, :] + initial[None, :]     # (B, S)
+    g = post0.amax(dim=1)                                # (B,)
+    maxima = observation.amax(dim=2)                     # (B, T)
+    ms = torch.empty(
+        (batch, frames - 1), dtype=torch.float32, device=device)
+    for t in range(1, frames):
+        gm = g + floor_t                                 # m_t
+        ms[:, t - 1] = gm
+        # Freeze past each row's last valid frame
+        g = torch.where(t < bf, maxima[:, t] + gm, g)
+
+    # Backpointers: first argmax of fl(post + floor) per frame
+    pred0 = (post0 + floor_t).argmax(dim=1)
+    pred_rest = (
+        (observation[:, 1:, :] + ms[:, :, None]) + floor_t).argmax(dim=2)
+    pred = torch.cat([pred0[:, None], pred_rest], dim=1).to(torch.int32)
+
+    # Seed: first argmax of the posterior at each row's last valid frame
+    last = (bf.long() - 1).clamp(0, frames - 1)          # (B,)
+    rows = torch.arange(batch, device=device)
+    obs_last = observation[rows, last]                   # (B, S)
+    m_last = torch.nn.functional.pad(ms, (1, 1))[rows, last][:, None]
+    post_last = torch.where(
+        (last == 0)[:, None], post0, obs_last + m_last)
+    seed = post_last.argmax(dim=1).to(torch.int32)
+
+    t = torch.arange(frames, device=device)[None, :]
+    # Positions bf-1 .. T-1 hold the seed
+    return torch.where(t >= bf[:, None] - 1, seed[:, None], pred)
+
+
+def decode(observation, batch_frames, transition, initial, backend=None,
+           finite_observation=False, log_input=True, apply_epsilon=False,
+           device=None):
+    """Decode log-space inputs.
+
+    observation: (batch, frames, states) float32 log-probs (probabilities
+        when ``log_input=False``), a tensor or array anywhere; a host
+        observation is moved to ``device`` group by group (see the memory
+        guard). Its state dimension may be pre-padded to the next multiple
+        of 128 (the padding is ignored).
+    batch_frames: (batch,) int32
+    transition: (states, states) float32 log-probs (row = destination)
+    initial: (states,) float32 log-probs
+    apply_epsilon: apply the reference's exp/+tiny/log stabilization (its
+        output is finite for finite or -inf inputs, so it implies
+        ``finite_observation``)
+    device: the decode device (None is cuda:0; 'cpu' runs the kernels'
+        plain versions)
+
+    Returns (batch, frames) int32 decoded state indices on ``device``.
+    """
+    import torbi_tpu_torch
+
+    backend = resolve_backend(backend)
+    device = resolve_device(device)
+    observation = to_tensor(observation, torch.float32)
+    if observation.ndim != 3:
+        raise ValueError(
+            'observation must be (batch, frames, states), got shape '
+            f'{tuple(observation.shape)} (the packed 4-D layout of the JAX '
+            'package exists only for its TPU kernel)')
+    batch, frames, states_in = observation.shape
+    transition = to_tensor(transition, torch.float32, device).contiguous()
+    initial = to_tensor(initial, torch.float32, device).contiguous()
+    batch_frames = to_tensor(batch_frames, torch.int32, device).contiguous()
+    states = int(transition.shape[0])
+    if tuple(transition.shape) != (states, states):
+        raise ValueError(
+            f'transition must be square, got {tuple(transition.shape)}')
+    if tuple(initial.shape) != (states,):
+        raise ValueError(
+            f'initial has shape {tuple(initial.shape)}, expected ({states},)')
+    if tuple(batch_frames.shape) != (batch,):
+        raise ValueError(
+            f'batch_frames has shape {tuple(batch_frames.shape)}, expected '
+            f'({batch},)')
+    if states_in not in (states, _round_up(states, 128)):
+        raise ValueError(
+            f'observation has {states_in} states but the transition has '
+            f'{states} (pre-padded observations must pad to the next '
+            f'128 multiple with -inf)')
+    if batch == 0 or frames == 0:
+        return torch.zeros((batch, frames), dtype=torch.int32, device=device)
+    if apply_epsilon:
+        finite_observation = True
+
+    # Banded route: bit-exact when the transition structure and the
+    # finiteness preconditions allow it (ops/band.py docstring). The
+    # observation's finiteness is that of what the kernel sees, after the
+    # log conversion.
+    band = None
+    if backend == 'kernel' and torbi_tpu_torch.USE_BAND_KERNEL:
+        band = band_ops.gate_band(
+            band_ops.detect_band(transition), initial,
+            observation=None, finite_observation=True)
+        if band is not None and not finite_observation:
+            view = observation[..., :states]
+            finite = torch.isfinite(view)
+            if not log_input:
+                finite &= view > 0
+            if not bool(finite.all()):
+                band = None
+    constant = band is not None and band[1] == 0
+
+    # Memory guard: a decode holds the observation, a converted copy of it
+    # when the conversion runs (or the state padding is cut off), and the
+    # posterior stream (none on the constant route), 4 bytes each per
+    # state. Oversized batches split into independent row groups (batch
+    # rows are independent; the result is bitwise the same). A host
+    # observation is sliced before any transfer, so the device only holds
+    # the groups; a device-resident one stays whole and its groups queue
+    # on the stream, each freed as the next is decoded.
+    copies = 1 if (log_input and not apply_epsilon and states_in == states) \
+        else 2
+    row_bytes = frames * (
+        states_in * copies + (0 if constant else states)) * 4
+    budget = int(torbi_tpu_torch.DECODE_MEMORY_BUDGET)
+    if batch > 1 and batch * row_bytes > budget:
+        rows = max(1, budget // row_bytes)
+        return torch.cat([
+            decode(
+                observation[start:start + rows],
+                batch_frames[start:start + rows], transition, initial,
+                backend=backend, finite_observation=finite_observation,
+                log_input=log_input, apply_epsilon=apply_epsilon,
+                device=device)
+            for start in range(0, batch, rows)])
+
+    obs = observation.to(device)
+    if states_in != states:
+        obs = obs[..., :states]
+    obs = convert(obs, log_input, apply_epsilon).contiguous()
+
+    if backend == 'scan':
+        return decode_scan(obs, batch_frames, transition, initial)
+    if constant:
+        return _decode_constant(obs, batch_frames, initial, band[2])
+    if band is not None:
+        post_seq, posterior = band_ops.viterbi_forward_band(
+            obs, batch_frames, initial, band,
+            _band_matrix(transition, band))
+    else:
+        post_seq, posterior = viterbi_forward_dense(
+            obs, batch_frames, transition, initial)
+    return backtrace_posteriors(
+        post_seq, transition, posterior, batch_frames)
