@@ -4,15 +4,21 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel bitwise against its plain PyTorch version on the card, decodes the
-README toy, and drives the two decode paths through the public entry point
+README toy, and drives the decode paths through the public entry point
 ``from_probabilities`` with the launch counters reset just before and read
-just after:
+just after each:
 
 - the banded path (the headline): 512 sequences x 512 frames of peaked
   synthetic pitch posteriorgrams under the 1440-state pitch transition
-  taken to log(p + tiny) -- the banded forward kernel, then the backtrace;
+  taken to log(p + tiny) -- the banded forward kernel (K1), then the
+  backtrace (K3);
 - the dense path: a random dense 1440-state transition at 8 x 64, and the
-  README toy -- the dense forward kernel, then the backtrace.
+  README toy -- the dense forward kernel (K2), then K3;
+- the batch-1 paths, one pitch sequence of 10,240 frames (bench.py's batch-1
+  shape): the default auto-chunk route (entropy-chunk rows through K1 and
+  K3), the serial route with auto-chunking off (the batch-1 forward K4,
+  then the fused chase K5), a 2048-frame sequence (K4, K5), the window
+  chase (K6) on a pure -inf band, and the uniform transition's closed form.
 
 Prints the card's name and power limit, per-kernel times beside their
 bounds and their plain versions' times, a ``{"kernels": [...]}`` line and,
@@ -33,6 +39,11 @@ ROOT = Path(__file__).resolve().parent
 TINY = np.finfo(np.float32).tiny
 BATCH, FRAMES, STATES = 512, 512, 1440
 DENSE_BATCH, DENSE_FRAMES = 8, 64
+# The batch-1 shape of bench.py: one sequence of 10,240 frames, and a short
+# one below the auto-chunk threshold
+SINGLE_FRAMES, SHORT_FRAMES = 10240, 2048
+# Half-width of the pure -inf band of the window phase (the pitch band's)
+WINDOW_HALFWIDTH = 87
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and FP32 outside the
 # tensor cores (FMA counted as two operations)
@@ -105,6 +116,20 @@ def bound_ms(bytes_moved, operations):
     op_ms = operations / PEAK_FP32_PER_S * 1e3
     return (max(byte_ms, op_ms),
             'bytes' if byte_ms >= op_ms else 'operations')
+
+
+def host_ms(torch, fn, calls=10):
+    """Warm median, min and max ms of ``calls`` host-clock calls of ``fn``,
+    each ending in a synchronize"""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times), min(times), max(times)
 
 
 def valid_steps(batch_frames, frames):
@@ -301,8 +326,11 @@ def main():
 
     counters = {
         'band_forward': band.viterbi_forward_band,
+        'band_spread': band.viterbi_forward_band_spread,
         'dense_forward': dense.viterbi_forward_dense,
         'backtrace': backtrace.backtrace_posteriors,
+        'backtrace_fused1': backtrace.backtrace_fused1,
+        'backtrace_window': backtrace.backtrace_window,
     }
 
     def reset_counts():
@@ -404,12 +432,260 @@ def main():
          f'{kernels["backtrace"]["plain_ms"]:.1f}), epsilon step '
          f'{convert_ms:.3f}')
 
-    # 5. The kernels line, then the device line last
+    # 5. The batch-1 kernels against their plain versions, at the batch-1
+    # shape: one pitch sequence of 10,240 frames (bench.py's generator,
+    # seed 1)
+    single_host = synthetic_posteriorgrams(1, SINGLE_FRAMES, STATES, seed=1)
+    single = torch.from_numpy(single_host).to(device)
+    single_k = dispatch.convert(single, True, True).contiguous()
+    bf1 = torch.tensor([SINGLE_FRAMES], dtype=torch.int32, device=device)
+    steps1 = valid_steps(bf1, SINGLE_FRAMES)
+
+    # K4: the batch-1 banded forward, and K1 on the same sequence for
+    # comparison
+    post1, posterior1 = band.viterbi_forward_band_spread(
+        single_k, bf1, init, band_tuple, band_matrix)
+    post1_r, _ = band.band_spread_reference(
+        single_k, bf1, init, band_tuple, band_matrix)
+    torch.cuda.synchronize()
+    err = require_equal(torch, 'K4 band_spread', post1, post1_r)
+    del post1_r
+    k4_ms = cuda_ms(torch, lambda: band.viterbi_forward_band_spread(
+        single_k, bf1, init, band_tuple, band_matrix), iters=5)
+    k4_plain_ms = cuda_ms(torch, lambda: band.band_spread_reference(
+        single_k, bf1, init, band_tuple, band_matrix), iters=1, warmup=0)
+    k1_single_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(
+        single_k, bf1, init, band_tuple, band_matrix), iters=1)
+    k4_bytes = (2 * SINGLE_FRAMES * STATES + width * STATES + STATES) * 4
+    k4_ops = steps1 * (2 * in_range + 3 * STATES)
+    kernels['band_spread'] = dict(
+        name='band_spread', route='cuda',
+        source='torbi_tpu_torch/csrc/band_spread.cu',
+        replaces='torbi_tpu/ops/band.py:843', path='batch1-serial',
+        max_abs_err=err, ms=k4_ms, plain_ms=k4_plain_ms,
+        bound=bound_ms(k4_bytes, k4_ops), library_ms=None)
+    info(f'K4 band_spread: {k4_ms:.3f} ms ({k4_ms * 1e3 / steps1:.3f} '
+         f'us/frame), plain {k4_plain_ms:.1f} ms; K1 on the same sequence '
+         f'{k1_single_ms:.3f} ms ({k1_single_ms * 1e3 / steps1:.3f} '
+         f'us/frame)')
+
+    # K5: the fused batch-1 chase on K4's stream, and K3 for comparison
+    idx1 = backtrace.backtrace_fused1(post1, trans, posterior1, bf1)
+    idx1_r = backtrace.backtrace_fused1_reference(
+        post1, trans, posterior1, bf1)
+    torch.cuda.synchronize()
+    err = require_equal(torch, 'K5 backtrace_fused1', idx1, idx1_r)
+    k5_ms = cuda_ms(torch, lambda: backtrace.backtrace_fused1(
+        post1, trans, posterior1, bf1), iters=5)
+    k5_plain_ms = cuda_ms(torch, lambda: backtrace.backtrace_fused1_reference(
+        post1, trans, posterior1, bf1), iters=1, warmup=0)
+    k3_single_ms = cuda_ms(torch, lambda: backtrace.backtrace_posteriors(
+        post1, trans, posterior1, bf1), iters=1)
+    k5_bytes = (steps1 * STATES + STATES + STATES * STATES
+                + SINGLE_FRAMES) * 4
+    k5_ops = (steps1 + 1) * 2 * STATES
+    kernels['backtrace_fused1'] = dict(
+        name='backtrace_fused1', route='cuda',
+        source='torbi_tpu_torch/csrc/backtrace_batch1.cu',
+        replaces='torbi_tpu/ops/backtrace.py:652', path='batch1-serial',
+        max_abs_err=err, ms=k5_ms, plain_ms=k5_plain_ms,
+        bound=bound_ms(k5_bytes, k5_ops), library_ms=None)
+    info(f'K5 backtrace_fused1: {k5_ms:.3f} ms ({k5_ms * 1e3 / steps1:.3f} '
+         f'us/step), plain {k5_plain_ms:.1f} ms; K3 on the same stream '
+         f'{k3_single_ms:.3f} ms ({k3_single_ms * 1e3 / steps1:.3f} us/step)')
+    del post1, posterior1
+
+    # K6: the window chase on a pure -inf band (the triangular transition
+    # of tests/test_autochunk.py at the pitch band's half-width), against
+    # its plain version and K5
+    bins = np.arange(STATES)
+    tri = np.clip(WINDOW_HALFWIDTH + 1.0
+                  - np.abs(bins[:, None] - bins[None, :]), 0, None)
+    with np.errstate(divide='ignore'):
+        pure_host = np.log(
+            (tri / tri.sum(axis=1, keepdims=True)).astype(np.float32))
+    pure = torch.from_numpy(pure_host.astype(np.float32)).to(device)
+    pure_band = band.detect_band(pure)
+    if pure_band is None or pure_band[2] is not None:
+        fail(f'unexpected band {pure_band} for the pure -inf band')
+    pure_matrix = band.build_band_matrix(pure, pure_band[0], pure_band[1])
+    wpost, wposterior = band.viterbi_forward_band_spread(
+        single_k, bf1, init, pure_band, pure_matrix)
+    idx6 = backtrace.backtrace_window(
+        wpost, pure, wposterior, bf1, pure_band)
+    idx6_r = backtrace.backtrace_window_reference(
+        wpost, pure, wposterior, bf1, pure_band)
+    torch.cuda.synchronize()
+    err = require_equal(torch, 'K6 backtrace_window', idx6, idx6_r)
+    if not torch.equal(
+            idx6, backtrace.backtrace_fused1(wpost, pure, wposterior, bf1)):
+        fail('K6 differs from K5 on the pure -inf band')
+    info('K6 backtrace_window: equal to K5 on the pure -inf band')
+    k6_ms = cuda_ms(torch, lambda: backtrace.backtrace_window(
+        wpost, pure, wposterior, bf1, pure_band), iters=5)
+    k6_plain_ms = cuda_ms(
+        torch, lambda: backtrace.backtrace_window_reference(
+            wpost, pure, wposterior, bf1, pure_band), iters=1, warmup=0)
+    # The window of each chase step, cut to [0, states), along this run's
+    # path: the stream and transition values the step needs
+    lo_w, width_w = pure_band[0], pure_band[1]
+    path_states = idx6[0, 1:].long()
+    window = int((torch.clamp(path_states + lo_w + width_w, max=STATES)
+                  - torch.clamp(path_states + lo_w, min=0)).sum())
+    k6_bytes = (2 * window + STATES + SINGLE_FRAMES) * 4
+    k6_ops = 2 * window + 2 * STATES
+    kernels['backtrace_window'] = dict(
+        name='backtrace_window', route='cuda',
+        source='torbi_tpu_torch/csrc/backtrace_batch1.cu',
+        replaces='torbi_tpu/ops/backtrace.py:458', path='batch1-window',
+        max_abs_err=err, ms=k6_ms, plain_ms=k6_plain_ms,
+        bound=bound_ms(k6_bytes, k6_ops), library_ms=None)
+    info(f'K6 backtrace_window: {k6_ms:.3f} ms ({k6_ms * 1e3 / steps1:.3f} '
+         f'us/step), plain {k6_plain_ms:.1f} ms')
+    del wpost, wposterior
+
+    # 6. The batch-1 paths through from_probabilities, counters reset just
+    # before and read just after each
+    from torbi_tpu_torch.ops import autochunk
+
+    def run_path(label, fn, frames=SINGLE_FRAMES):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        info(f'{label} launches: {counts}')
+        if tuple(out.shape) != (1, frames) or out.dtype != torch.int32:
+            fail(f'{label} result is {out.dtype} {tuple(out.shape)}')
+        if int(out.min()) < 0 or int(out.max()) >= STATES:
+            fail(f'{label} result holds indices out of range')
+        return out, counts
+
+    def single_call(obs_in=single, trans_in=trans, **kwargs):
+        return torbi_tpu_torch.from_probabilities(
+            obs_in, transition=trans_in, initial=init, log_probs=True,
+            gpu=0, **kwargs)
+
+    def require_same(label, got, expected, what):
+        if not torch.equal(got, expected):
+            fail(f'{label} differs from {what} in '
+                 f'{int((got != expected).sum())} positions')
+        info(f'{label} equals {what}')
+
+    single_paths = {}
+
+    # The default route: entropy-chunk rows through K1 and K3
+    chunked, chunk_counts = run_path('batch-1 auto-chunk path', single_call)
+    if chunk_counts['band_forward'] < 1 or chunk_counts['backtrace'] < 1:
+        fail('the auto-chunk path did not launch K1 and K3')
+    if chunk_counts['band_spread'] or chunk_counts['backtrace_fused1']:
+        fail('the auto-chunk path launched a batch-1 kernel')
+    entropy = autochunk.framewise_entropy(single, STATES, True).cpu().numpy()
+    plan = autochunk.plan_splits(
+        entropy, SINGLE_FRAMES, torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
+    if plan is None:
+        fail('no auto-chunk plan for the peaked pitch sequence')
+    starts, lengths = plan
+    info(f'auto-chunk plan: {len(starts)} rows, longest chunk '
+         f'{int(lengths.max())} frames, starts {starts.tolist()}')
+    per_chunk = torch.cat([
+        single_call(single[:, start:start + length], backend='scan')
+        for start, length in zip(starts.tolist(), lengths.tolist())], dim=1)
+    require_same('auto-chunk path', chunked, per_chunk,
+                 'the plain scan route decoded chunk by chunk on its plan')
+    single_paths['auto-chunk'] = host_ms(torch, single_call)
+    # Where the route's time goes: K1 and K3 on its chunk rows, timed alone
+    longest = int(lengths.max())
+    gather = torch.from_numpy(np.minimum(
+        starts[:, None] + np.arange(longest)[None, :],
+        SINGLE_FRAMES - 1)).to(device)
+    rows = dispatch.convert(single[0][gather], True, True).contiguous()
+    row_frames = torch.from_numpy(lengths).to(device)
+    rows_k1_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(
+        rows, row_frames, init, band_tuple, band_matrix), iters=3)
+    rows_post, rows_posterior = band.viterbi_forward_band(
+        rows, row_frames, init, band_tuple, band_matrix)
+    rows_k3_ms = cuda_ms(torch, lambda: backtrace.backtrace_posteriors(
+        rows_post, trans, rows_posterior, row_frames), iters=3)
+    info(f'auto-chunk rows ({len(starts)} x {longest} x {STATES}): K1 '
+         f'{rows_k1_ms:.3f} ms, K3 {rows_k3_ms:.3f} ms (CUDA events)')
+    del rows, rows_post, rows_posterior
+
+    # The serial routes, auto-chunking off: K4 then K5; then the window
+    # chase on the pure band
+    knobs = ('BATCH1_AUTO_CHUNK', 'BACKTRACE_BATCH1_FUSED',
+             'BACKTRACE_BATCH1_WINDOW')
+    saved = {name: getattr(torbi_tpu_torch, name) for name in knobs}
+    try:
+        torbi_tpu_torch.BATCH1_AUTO_CHUNK = False
+        serial, serial_counts = run_path('batch-1 serial path', single_call)
+        if (serial_counts['band_spread'] < 1
+                or serial_counts['backtrace_fused1'] < 1):
+            fail('the serial batch-1 path did not launch K4 and K5')
+        require_same('serial batch-1 path', serial,
+                     single_call(backend='scan'),
+                     'the plain scan route on the card')
+        info(f'auto-chunk and serial paths differ in '
+             f'{int((chunked != serial).sum())} of {SINGLE_FRAMES} frames')
+        single_paths['serial K4+K5'] = host_ms(torch, single_call)
+
+        torbi_tpu_torch.BACKTRACE_BATCH1_FUSED = False
+        torbi_tpu_torch.BACKTRACE_BATCH1_WINDOW = True
+        windowed, window_counts = run_path(
+            'batch-1 window path', lambda: single_call(trans_in=pure))
+        if (window_counts['backtrace_window'] < 1
+                or window_counts['band_spread'] < 1):
+            fail('the window path did not launch K4 and K6')
+        require_same('window path', windowed,
+                     single_call(trans_in=pure, backend='scan'),
+                     'the plain scan route on the card')
+        single_paths['serial K4+K6 (pure band)'] = host_ms(
+            torch, lambda: single_call(trans_in=pure))
+    finally:
+        for name, value in saved.items():
+            setattr(torbi_tpu_torch, name, value)
+
+    # A sequence below the auto-chunk threshold takes K4 and K5 by default
+    short = single[:, :SHORT_FRAMES].contiguous()
+    short_out, short_counts = run_path(
+        'batch-1 short path', lambda: single_call(short), SHORT_FRAMES)
+    if (short_counts['band_spread'] < 1
+            or short_counts['backtrace_fused1'] < 1):
+        fail('the 2048-frame path did not launch K4 and K5')
+    require_same('short path', short_out, single_call(short, backend='scan'),
+                 'the plain scan route on the card')
+    short_ms = host_ms(torch, lambda: single_call(short))
+
+    # The uniform transition: the constant closed form, no kernel
+    def uniform_call(**kwargs):
+        return torbi_tpu_torch.from_probabilities(
+            single, log_probs=True, gpu=0, **kwargs)
+
+    uniform, uniform_counts = run_path('batch-1 uniform path', uniform_call)
+    if any(uniform_counts.values()):
+        fail('the constant closed form launched a kernel')
+    require_same('uniform path', uniform, uniform_call(backend='scan'),
+                 'the plain scan route on the card')
+    single_paths['uniform closed form'] = host_ms(torch, uniform_call)
+
+    for label, (median_ms, low, high) in single_paths.items():
+        info(f'batch-1 {label}: {median_ms:.3f} ms/call warm median of 10 '
+             f'(min {low:.3f}, max {high:.3f}), '
+             f'{SINGLE_FRAMES / median_ms * 1e3:.0f} timesteps/s, '
+             f'1 x {SINGLE_FRAMES} x {STATES}, on {card}')
+    info(f'batch-1 short (1 x {SHORT_FRAMES}) K4+K5: {short_ms[0]:.3f} '
+         f'ms/call warm median of 10, '
+         f'{SHORT_FRAMES / short_ms[0] * 1e3:.0f} timesteps/s')
+
+    # 7. The kernels line, then the device line last
+    path_counts = {
+        'banded': band_counts, 'dense': dense_counts,
+        'batch1-serial': serial_counts, 'batch1-window': window_counts}
     lines = []
-    for name in ('band_forward', 'dense_forward', 'backtrace'):
+    for name in ('band_forward', 'band_spread', 'dense_forward', 'backtrace',
+                 'backtrace_fused1', 'backtrace_window'):
         entry = dict(kernels[name])
         bound, bound_by = entry.pop('bound')
-        counts = dense_counts if entry['path'] == 'dense' else band_counts
+        counts = path_counts[entry['path']]
         lines.append(dict(
             name=entry['name'], route=entry['route'],
             source=entry['source'], replaces=entry['replaces'],

@@ -2,8 +2,10 @@
 
 Batched Viterbi decoding of time-varying categorical distributions on an
 NVIDIA H100, with hand-written CUDA kernels for the banded forward pass,
-the dense forward pass and the backtrace (``csrc/``, built with nvcc at
-first use). The JAX package ``torbi_tpu`` is the reference it is held
+the dense forward pass and the backtrace, and for one sequence on its own
+a batch-1 banded forward pass and two batch-1 chases (``csrc/``, built
+with nvcc at first use). Long single sequences decode as entropy-chunk
+rows (``ops/autochunk.py``), as in the JAX package. The JAX package ``torbi_tpu`` is the reference it is held
 against; this package imports neither it nor JAX.
 
 Entry points decode on CUDA unless the caller asks for the CPU
@@ -25,6 +27,7 @@ from .config.defaults import *  # noqa: F401,F403
 
 from .viterbi import decode  # noqa: E402
 from .core import from_probabilities  # noqa: E402
+from .chunk import chunk  # noqa: E402
 from . import models  # noqa: E402
 from . import ops  # noqa: E402
 from . import utils  # noqa: E402

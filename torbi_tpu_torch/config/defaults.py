@@ -1,12 +1,29 @@
 """Default configuration values.
 
-The knob names are those of ``torbi_tpu/config/defaults.py``, so a user of
-the JAX package finds the same switches here. Only the decoding knobs this
-package reads are present; the TPU-only ones (kernel layouts, frame tiles,
-frame and batch buckets, sharding and the batch-1 TPU kernel flavours) have
-no meaning for kernels that take runtime shapes on one CUDA device. Every
-constant is promoted to a ``torbi_tpu_torch.<NAME>`` attribute at import.
+The knob names and defaults are those of ``torbi_tpu/config/defaults.py``,
+so a user of the JAX package finds the same switches here. Only the
+decoding knobs this package reads are present; the TPU-only ones (kernel
+layouts, frame tiles, frame and batch buckets, sharding) have no meaning for
+kernels that take runtime shapes on one CUDA device. The batch-1 knobs pick
+the same routes as in the JAX package, onto this package's own kernels:
+auto-chunking (ops/autochunk.py), the batch-1 banded forward (K4) and the
+fused (K5) or windowed (K6) batch-1 chase. Every constant is promoted to a
+``torbi_tpu_torch.<NAME>`` attribute at import.
 """
+
+
+###############################################################################
+# Chunking
+###############################################################################
+
+
+# Entropy chunking of long sequences (chunk.py): when set to a positive
+# integer, sequences split at adjacent low-entropy frame pairs at least this
+# many frames apart. None disables.
+MIN_CHUNK_SIZE = None
+
+# Normalized-entropy cutoff for choosing split points
+ENTROPY_THRESHOLD = 0.5
 
 
 ###############################################################################
@@ -29,6 +46,41 @@ USE_BAND_KERNEL = True
 # banded kernel is preferred over the dense kernel
 BAND_MAX_FRACTION = 0.5
 
+# Batch-1 banded forward: True sends a single banded sequence (width > 0)
+# through K4 (csrc/band_spread.cu), which spreads the one sequence's
+# destinations over a cluster of CTAs on several SMs; False keeps K1, which
+# runs one sequence on one SM. Same values either way.
+BAND_BATCH1_SPREAD = True
+
+# Batch-1 chase over the band window only (K6, csrc/backtrace_batch1.cu):
+# each step reduces the `width` sources around the band instead of every
+# state. Taken only when BACKTRACE_BATCH1_FUSED is off and the band has no
+# floor: with a finite floor a path can leave the window (ROADMAP.md B6),
+# so a floor band keeps the full-width chase.
+BACKTRACE_BATCH1_WINDOW = False
+
+# Batch-1 full-width chase (K5, csrc/backtrace_batch1.cu): one CTA chases
+# the single sequence with the stream rows staged ahead in shared memory.
+# Takes precedence over BACKTRACE_BATCH1_WINDOW; False (with the window
+# off) keeps K3.
+BACKTRACE_BATCH1_FUSED = True
+
+# Batch-1 auto-chunking: a single long banded sequence (width > 0) decodes
+# as parallel chunk rows split at adjacent low-entropy frame pairs, the
+# reference's chunked mode applied at decode time (ops/autochunk.py). The
+# result is bitwise the oracle run per chunk, and equals the full-sequence
+# path whenever the split frames are near-deterministic. Diffuse
+# observations yield no plan and decode serially; False pins the serial
+# full-sequence decode for every input.
+BATCH1_AUTO_CHUNK = True
+
+# Single-sequence frame count below which auto-chunking is never considered
+BATCH1_AUTO_CHUNK_MIN_FRAMES = 4096
+
+# Target frames per auto-chunk row: a 10,240-frame sequence becomes 8 rows
+# of about 1280 frames
+BATCH1_CHUNK_FRAMES = 1280
+
 # Split a decode batch into independent sub-calls when its estimated
 # device footprint exceeds this: (obs_copies * states_in + states) * 4
 # bytes per (row, frame) cell, where obs_copies is 2 when the
@@ -37,5 +89,7 @@ BAND_MAX_FRACTION = 0.5
 # constant-transition path (it keeps none). Half of an 80 GB H100: the rest
 # is left for the caller's own device-resident batch (which a
 # device-resident input keeps alive while its groups decode), the
-# transition and band matrices, and the caching allocator's slack.
+# transition and band matrices, and the caching allocator's slack. The
+# auto-chunk route declines a sequence whose observation takes more than
+# 2/5 of it.
 DECODE_MEMORY_BUDGET = 40_000_000_000

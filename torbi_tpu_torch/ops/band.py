@@ -12,7 +12,8 @@ source counted again at ``floor + posterior[i]`` is dominated by its in-band
 candidate (the floor is the global minimum), so the floor contributes one
 max of the posterior per frame. The forward pass streams the posterior of
 every frame; the backtrace (ops/backtrace.py) recovers the backpointers
-along the chosen path only.
+along the chosen path only. One sequence on its own (batch 1) takes the
+K4 kernel, ``viterbi_forward_band_spread``, with the same values.
 
 Exactness preconditions (``gate_band`` enforces them; dispatch falls back to
 the dense kernel otherwise): a pure -inf exterior needs an all-finite
@@ -28,6 +29,11 @@ from ..csrc import build
 from ..utils.cache import identity_cached as _identity_cached
 
 NEG_INF = float('-inf')
+
+# K4 holds two copies of the posterior and a ring of staged observation
+# rows in each CTA's shared memory; up to this many states they fit.
+# Dispatch sends a larger single sequence to K1
+SPREAD_MAX_STATES = 8192
 
 # Detection and gating results cached per live, unmodified tensor
 _detect_cache = {}
@@ -214,10 +220,70 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
 viterbi_forward_band.launches = 0
 
 
+def band_spread_reference(observation, batch_frames, initial, band,
+                          band_matrix):
+    """Plain PyTorch version of the batch-1 banded forward kernel (K4):
+    ``band_forward_reference`` on the one sequence"""
+    if observation.shape[0] != 1:
+        raise ValueError(
+            f'the batch-1 forward takes one sequence, got batch '
+            f'{observation.shape[0]}')
+    return band_forward_reference(
+        observation, batch_frames, initial, band, band_matrix)
+
+
+def viterbi_forward_band_spread(observation, batch_frames, initial, band,
+                                band_matrix):
+    """Batch-1 banded forward pass: the K4 kernel (csrc/band_spread.cu),
+    which spreads one sequence over a cluster of CTAs, on CUDA tensors; its
+    plain version on CPU tensors. Arguments and results as in
+    ``band_forward_reference`` with batch 1."""
+    lo, width, floor = band
+    if width == 0 and floor is None:
+        raise ValueError(
+            'band width 0 requires a finite floor (constant transition)')
+    device = observation.device
+    if device.type == 'cpu':
+        return band_spread_reference(
+            observation, batch_frames, initial, band, band_matrix)
+    _, frames, states = observation.shape
+    build.check('observation', observation, (1, frames, states),
+                torch.float32, device)
+    build.check('batch_frames', batch_frames, (1,), torch.int32, device)
+    build.check('initial', initial, (states,), torch.float32, device)
+    build.check('band_matrix', band_matrix, (width, states), torch.float32,
+                device)
+    post_seq = torch.empty_like(observation)
+    if frames:
+        lib = _spread_library()
+        with torch.cuda.device(device):
+            code = lib.band_spread(
+                build.pointer(observation), build.pointer(batch_frames),
+                build.pointer(initial), build.pointer(band_matrix),
+                build.pointer(post_seq), frames, states, lo, width,
+                0.0 if floor is None else floor, int(floor is not None),
+                build.stream(device))
+        build.raise_on_error(lib, 'band_spread', code)
+        viterbi_forward_band_spread.launches += 1
+    return post_seq, post_seq[:, -1]
+
+
+viterbi_forward_band_spread.launches = 0
+
+
 def _library():
     lib = build.library('band_forward')
     lib.band_forward.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.band_forward.restype = ctypes.c_int
+    return lib
+
+
+def _spread_library():
+    lib = build.library('band_spread')
+    lib.band_spread.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.band_spread.restype = ctypes.c_int
     return lib

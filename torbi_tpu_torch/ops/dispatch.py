@@ -1,14 +1,28 @@
 """Backend dispatch for Viterbi decoding.
 
-Counterpart of ``torbi_tpu/ops/dispatch.py::decode``. One decode takes one
-of four routes:
+Counterpart of ``torbi_tpu/ops/dispatch.py::decode``, with its order of
+decisions. One decode takes one of these routes:
 
 - ``backend='scan'``: the plain PyTorch recursion with an int32 trellis
   (ops/scan.py);
 - a constant transition (a width-0 band over a finite floor, such as the
   uniform default): a closed form of parallel torch passes, no kernel;
-- a banded transition: the banded forward kernel, then the backtrace kernel;
-- any other transition: the dense forward kernel, then the backtrace kernel.
+- a banded transition: the banded forward kernel, then a chase kernel;
+- any other transition: the dense forward kernel (K2), then the backtrace
+  kernel (K3).
+
+A banded transition at batch > 1 takes K1, then K3. One banded sequence
+(batch 1, band width > 0) routes as in the JAX package:
+
+1. auto-chunking first: a sequence of ``BATCH1_AUTO_CHUNK_MIN_FRAMES`` or
+   more frames decodes as entropy-chunk rows through K1 and K3
+   (ops/autochunk.py) when ``BATCH1_AUTO_CHUNK`` is set and a plan pays;
+2. otherwise the forward pass is K4 (``BAND_BATCH1_SPREAD``, up to
+   ``band.SPREAD_MAX_STATES`` states) or K1;
+3. then the chase: K5 (``BACKTRACE_BATCH1_FUSED``, up to
+   ``backtrace.FUSED1_MAX_STATES`` states), else K6
+   (``BACKTRACE_BATCH1_WINDOW``, only for a band with no floor whose
+   window fits, as the JAX gate measures it), else K3.
 
 CUDA kernels take runtime shapes, so the JAX package's frame and batch
 buckets, state padding, packed mod-M input, ``shard_map`` mesh and
@@ -18,8 +32,11 @@ routes run the kernels' plain versions.
 import numpy as np
 import torch
 
+from . import autochunk
 from . import band as band_ops
-from .backtrace import backtrace_posteriors
+from .backtrace import (
+    FUSED1_MAX_STATES, backtrace_fused1, backtrace_posteriors,
+    backtrace_window, window_rows)
 from .dense import viterbi_forward_dense
 from .scan import decode_scan
 from ..utils.cache import identity_cached as _identity_cached
@@ -74,6 +91,24 @@ def _band_matrix(transition, band):
         _band_matrix_cache, transition,
         lambda: band_ops.build_band_matrix(transition, band[0], band[1]),
         extra_key=band)
+
+
+def _batch1_chase(band, states):
+    """The chase of a single banded sequence: 'fused' (K5), 'window' (K6)
+    or None (K3), as the JAX dispatcher's _use_fused_chase and
+    _use_window_chase choose. The window chase also needs a band without a
+    floor: with a finite floor the path can leave the window."""
+    import torbi_tpu_torch
+
+    if (torbi_tpu_torch.BACKTRACE_BATCH1_FUSED
+            and states <= FUSED1_MAX_STATES):
+        return 'fused'
+    if (not torbi_tpu_torch.BACKTRACE_BATCH1_FUSED
+            and torbi_tpu_torch.BACKTRACE_BATCH1_WINDOW
+            and band[2] is None
+            and window_rows(band[1]) <= _round_up(states, 128) // 128):
+        return 'window'
+    return None
 
 
 def _decode_constant(observation, batch_frames, initial, floor):
@@ -198,6 +233,20 @@ def decode(observation, batch_frames, transition, initial, backend=None,
                 band = None
     constant = band is not None and band[1] == 0
 
+    # Batch-1 auto-chunking: a single long banded sequence decodes as
+    # entropy-chunk rows (ops/autochunk.py); None falls through to the
+    # serial decode
+    if (batch == 1 and band is not None and band[1] > 0
+            and backend == 'kernel'
+            and frames >= int(torbi_tpu_torch.BATCH1_AUTO_CHUNK_MIN_FRAMES)
+            and bool(torbi_tpu_torch.BATCH1_AUTO_CHUNK)):
+        chunked = autochunk.decode_chunked(
+            observation, batch_frames, transition, initial, states=states,
+            band=band, band_matrix=_band_matrix(transition, band),
+            log_input=log_input, apply_epsilon=apply_epsilon, device=device)
+        if chunked is not None:
+            return chunked
+
     # Memory guard: a decode holds the observation, a converted copy of it
     # when the conversion runs (or the state padding is cut off), and the
     # posterior stream (none on the constant route), 4 bytes each per
@@ -231,12 +280,24 @@ def decode(observation, batch_frames, transition, initial, backend=None,
         return decode_scan(obs, batch_frames, transition, initial)
     if constant:
         return _decode_constant(obs, batch_frames, initial, band[2])
-    if band is not None:
-        post_seq, posterior = band_ops.viterbi_forward_band(
-            obs, batch_frames, initial, band,
-            _band_matrix(transition, band))
-    else:
+    if band is None:
         post_seq, posterior = viterbi_forward_dense(
             obs, batch_frames, transition, initial)
+        return backtrace_posteriors(
+            post_seq, transition, posterior, batch_frames)
+    single = batch == 1
+    spread = (single and torbi_tpu_torch.BAND_BATCH1_SPREAD
+              and states <= band_ops.SPREAD_MAX_STATES)
+    forward = (band_ops.viterbi_forward_band_spread if spread
+               else band_ops.viterbi_forward_band)
+    post_seq, posterior = forward(
+        obs, batch_frames, initial, band, _band_matrix(transition, band))
+    chase = _batch1_chase(band, states) if single else None
+    if chase == 'fused':
+        return backtrace_fused1(
+            post_seq, transition, posterior, batch_frames)
+    if chase == 'window':
+        return backtrace_window(
+            post_seq, transition, posterior, batch_frames, band)
     return backtrace_posteriors(
         post_seq, transition, posterior, batch_frames)
