@@ -18,7 +18,10 @@ just after each:
   shape): the default auto-chunk route (entropy-chunk rows through K1 and
   K3), the serial route with auto-chunking off (the batch-1 forward K4,
   then the fused chase K5), a 2048-frame sequence (K4, K5), the window
-  chase (K6) on a pure -inf band, and the uniform transition's closed form.
+  chase (K6) on a pure -inf band, a band too wide for K4's shared memory
+  (K1, K5), and the uniform transition's closed form. The auto-chunk route
+  is timed on a new observation every call (its plan computed each time),
+  from a host array, and with its plan cached.
 
 Prints the card's name and power limit, per-kernel times beside their
 bounds and their plain versions' times, a ``{"kernels": [...]}`` line and,
@@ -44,6 +47,9 @@ DENSE_BATCH, DENSE_FRAMES = 8, 64
 SINGLE_FRAMES, SHORT_FRAMES = 10240, 2048
 # Half-width of the pure -inf band of the window phase (the pitch band's)
 WINDOW_HALFWIDTH = 87
+# A band over the pitch floor too wide for K4's shared memory at 1440 states
+# (width 261), and the frames of the phases that check that limit
+WIDE_HALFWIDTH, EDGE_FRAMES = 130, 256
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and FP32 outside the
 # tensor cores (FMA counted as two operations)
@@ -130,6 +136,18 @@ def host_ms(torch, fn, calls=10):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
     return statistics.median(times), min(times), max(times)
+
+
+def triangular_log(states, halfwidth, tiny):
+    """log(p + tiny) of a triangular band transition of the given
+    half-width (tests/test_autochunk.py's): tiny 0 gives a pure -inf band,
+    TINY a band over the pitch transition's floor"""
+    bins = np.arange(states)
+    tri = np.clip(halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]),
+                  0, None)
+    with np.errstate(divide='ignore'):
+        return np.log((tri / tri.sum(axis=1, keepdims=True)).astype(np.float32)
+                      + np.float32(tiny)).astype(np.float32)
 
 
 def valid_steps(batch_frames, frames):
@@ -469,6 +487,40 @@ def main():
          f'{k1_single_ms:.3f} ms ({k1_single_ms * 1e3 / steps1:.3f} '
          f'us/frame)')
 
+    # K4's shared-memory limit: the widest band that band.spread_fits
+    # admits at 1440 states runs bitwise against the plain version; one
+    # offset wider the kernel refuses, so dispatch and kernel agree
+    wide_host = triangular_log(STATES, WIDE_HALFWIDTH, TINY)
+    wide = torch.from_numpy(wide_host).to(device)
+    wide_band = band.detect_band(wide)
+    if band.spread_fits(STATES, wide_band[1]):
+        fail(f'the band {wide_band} fits K4; expected it too wide')
+    edge = max(w for w in range(1, wide_band[1])
+               if band.spread_fits(STATES, w))
+    edge_lo = -(edge // 2)
+    edge_obs = single_k[:, :EDGE_FRAMES].contiguous()
+    bf_edge = torch.tensor([EDGE_FRAMES], dtype=torch.int32, device=device)
+    edge_args = (edge_obs, bf_edge, init, (edge_lo, edge, wide_band[2]),
+                 band.build_band_matrix(wide, edge_lo, edge))
+    edge_post, _ = band.viterbi_forward_band_spread(*edge_args)
+    edge_post_r, _ = band.band_spread_reference(*edge_args)
+    torch.cuda.synchronize()
+    err = max(err, require_equal(
+        torch, f'K4 band_spread (width {edge}, its widest at {STATES} states)',
+        edge_post, edge_post_r))
+    kernels['band_spread']['max_abs_err'] = err
+    del edge_post, edge_post_r
+    try:
+        band.viterbi_forward_band_spread(
+            edge_obs, bf_edge, init, (edge_lo, edge + 1, wide_band[2]),
+            band.build_band_matrix(wide, edge_lo, edge + 1))
+        torch.cuda.synchronize()
+    except RuntimeError as error:
+        info(f'K4 refuses width {edge + 1}: {error}')
+    else:
+        fail(f'K4 launched a band of width {edge + 1}, which '
+             f'band.spread_fits refuses')
+
     # K5: the fused batch-1 chase on K4's stream, and K3 for comparison
     idx1 = backtrace.backtrace_fused1(post1, trans, posterior1, bf1)
     idx1_r = backtrace.backtrace_fused1_reference(
@@ -498,13 +550,8 @@ def main():
     # K6: the window chase on a pure -inf band (the triangular transition
     # of tests/test_autochunk.py at the pitch band's half-width), against
     # its plain version and K5
-    bins = np.arange(STATES)
-    tri = np.clip(WINDOW_HALFWIDTH + 1.0
-                  - np.abs(bins[:, None] - bins[None, :]), 0, None)
-    with np.errstate(divide='ignore'):
-        pure_host = np.log(
-            (tri / tri.sum(axis=1, keepdims=True)).astype(np.float32))
-    pure = torch.from_numpy(pure_host.astype(np.float32)).to(device)
+    pure = torch.from_numpy(
+        triangular_log(STATES, WINDOW_HALFWIDTH, 0.0)).to(device)
     pure_band = band.detect_band(pure)
     if pure_band is None or pure_band[2] is not None:
         fail(f'unexpected band {pure_band} for the pure -inf band')
@@ -592,7 +639,28 @@ def main():
         for start, length in zip(starts.tolist(), lengths.tolist())], dim=1)
     require_same('auto-chunk path', chunked, per_chunk,
                  'the plain scan route decoded chunk by chunk on its plan')
-    single_paths['auto-chunk'] = host_ms(torch, single_call)
+    # The batch-1 latency: a new observation every call, as a user's file
+    # is, so each call pays the entropy pass, its host round trip, the plan
+    # and its copy to the card. Then a host array every call (the copy to
+    # the card included), then one buffer and batch_frames tensor decoded
+    # again (the plan cached: no entropy pass)
+    fresh = iter([single.clone() for _ in range(11)])
+    single_paths['auto-chunk, new tensor each call'] = host_ms(
+        torch, lambda: single_call(next(fresh)))
+    del fresh
+    single_paths['auto-chunk, host array each call'] = host_ms(
+        torch, lambda: single_call(single_host))
+    single_paths['auto-chunk, plan cached (same buffer)'] = host_ms(
+        torch, lambda: single_call(batch_frames=bf1))
+    entropy_ms = cuda_ms(torch, lambda: autochunk.framewise_entropy(
+        single, STATES, True), iters=5)
+    start = time.perf_counter()
+    autochunk.plan_splits(
+        autochunk.framewise_entropy(single, STATES, True).cpu().numpy(),
+        SINGLE_FRAMES, torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
+    plan_ms = (time.perf_counter() - start) * 1e3
+    info(f'auto-chunk plan: entropy pass {entropy_ms:.3f} ms (CUDA events), '
+         f'entropy to the host and plan {plan_ms:.3f} ms (host clock)')
     # Where the route's time goes: K1 and K3 on its chunk rows, timed alone
     longest = int(lengths.max())
     gather = torch.from_numpy(np.minimum(
@@ -643,6 +711,19 @@ def main():
     finally:
         for name, value in saved.items():
             setattr(torbi_tpu_torch, name, value)
+
+    # A band too wide for K4 takes K1, then K5
+    wide_out, wide_counts = run_path(
+        'batch-1 wide-band path',
+        lambda: single_call(single[:, :EDGE_FRAMES], trans_in=wide),
+        EDGE_FRAMES)
+    if (wide_counts['band_forward'] < 1 or wide_counts['band_spread']
+            or wide_counts['backtrace_fused1'] < 1):
+        fail('the wide-band path did not take K1 and K5')
+    require_same('wide-band path', wide_out,
+                 single_call(single[:, :EDGE_FRAMES], trans_in=wide,
+                             backend='scan'),
+                 'the plain scan route on the card')
 
     # A sequence below the auto-chunk threshold takes K4 and K5 by default
     short = single[:, :SHORT_FRAMES].contiguous()

@@ -310,14 +310,44 @@ def test_batch2_keeps_k1_and_k3(knobs, monkeypatch):
 
 
 def test_state_limits_fall_back(knobs, monkeypatch):
-    """Above the states K4 and K5 hold in shared memory, a single sequence
-    takes K1 and K3, with the same path"""
+    """A band K4 cannot hold in shared memory, and more states than K5
+    holds, take K1 and K3, with the same path"""
     calls = spy_kernels(monkeypatch)
     case = spread_case(with_floor=True)
     expected = oracle.viterbi_numpy(*case)
-    monkeypatch.setattr(band, 'SPREAD_MAX_STATES', 383)
+    width = band.detect_band(case[2])[1]
+    monkeypatch.setattr(
+        band, 'SPREAD_SMEM_BYTES', band.spread_smem_bytes(384, width) - 1)
     np.testing.assert_array_equal(port_decode(case), expected)
     monkeypatch.setattr(backtrace, 'FUSED1_MAX_STATES', 383)
     monkeypatch.setattr(dispatch, 'FUSED1_MAX_STATES', 383)
     np.testing.assert_array_equal(port_decode(case), expected)
     assert calls == ['K1', 'K5', 'K1', 'K3']
+
+
+@pytest.mark.parametrize('width, fits', [(175, True), (259, True),
+                                         (260, False), (720, False)])
+def test_spread_fits_pitch_states(width, fits):
+    """At 1440 states K4 holds the pitch band (175) and bands up to 259 in
+    the 227 KB of shared memory a Hopper block may opt in to"""
+    assert band.spread_fits(1440, width) is fits
+    assert band.spread_smem_bytes(1440, 175) == 4 * (6192 + 175 * 200)
+
+
+def test_wide_band_takes_k1(knobs, monkeypatch):
+    """A single sequence under a band too wide for K4 at 1440 states takes
+    K1, then K5, with the oracle's path"""
+    calls = spy_kernels(monkeypatch)
+    states, halfwidth, frames = 1440, 130, 6
+    bins = np.arange(states)
+    probs = np.clip(
+        halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]), 0, None)
+    probs = (probs / probs.sum(axis=1, keepdims=True)).astype(np.float32)
+    trans = np.log(probs + TINY).astype(np.float32)
+    assert band.detect_band(trans)[1] == 2 * halfwidth + 1
+    obs = log_dirichlet(7, frames, states)
+    init = np.log(np.full(states, 1.0 / states, dtype=np.float32) + TINY)
+    case = (obs, np.array([frames], np.int32), trans, init)
+    np.testing.assert_array_equal(
+        port_decode(case), oracle.viterbi_numpy(*case))
+    assert calls == ['K1', 'K5']

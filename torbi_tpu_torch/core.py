@@ -51,13 +51,6 @@ def _default_initial(states, device):
 
 
 @functools.lru_cache(maxsize=8)
-def _default_batch_frames(batch, frames, device):
-    """Every frame of every row valid. Cached so repeated calls reuse one
-    tensor and the auto-chunk plan cache (keyed on it) hits."""
-    return torch.full((batch,), frames, dtype=torch.int32, device=device)
-
-
-@functools.lru_cache(maxsize=8)
 def _default_transition(states, device):
     """Uniform transition, log(1/S). Cached: the constant matrix routes to
     the closed-form constant path, and caching keeps its detection from
@@ -125,7 +118,8 @@ def _dispatch_decode(observation, batch_frames, transition, initial,
     batch, frames, states_in = observation.shape
 
     if batch_frames is None:
-        batch_frames = _default_batch_frames(batch, frames, device)
+        batch_frames = torch.full(
+            (batch,), frames, dtype=torch.int32, device=device)
     batch_frames = to_tensor(batch_frames, torch.int32, device)
 
     # The true state count comes from the transition/initial when given:

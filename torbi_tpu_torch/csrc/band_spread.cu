@@ -27,7 +27,9 @@
 // SM of 132. Design: a cluster of 8 CTAs on 8 SMs. CTA r owns destinations
 // [r * per_cta, (r + 1) * per_cta) and keeps its slice of the band matrix
 // resident in its shared memory (175 x 200 floats, 140 KB at the pitch
-// shape), so the matrix is read from device memory once. Every CTA keeps a
+// shape), so the matrix is read from device memory once; a band too wide
+// for the 227 KB opt-in (at 1440 states, wider than 259) is refused, and
+// dispatch sends it to K1. Every CTA keeps a
 // full, double-buffered copy of the posterior; each new value is written
 // into all 8 copies through distributed shared memory, and each warp's
 // maximum (for the floor term) into all 8 CTAs' tables of warp maxima. One
@@ -86,13 +88,15 @@ __host__ __device__ inline Layout make_layout(int states) {
 
 // Floats of shared memory: the double-buffered posterior, the
 // double-buffered table of warp maxima, the observation ring, then the band
-// slice when it is resident
-__host__ __device__ inline size_t smem_floats(const Layout& l, int states) {
+// slice. torbi_tpu_torch/ops/band.py::spread_smem_bytes computes the same
+// size, so that dispatch sends a band that does not fit to K1
+__host__ __device__ inline size_t smem_floats(const Layout& l, int states,
+                                             int width) {
   return 2 * static_cast<size_t>(states) + 2 * kCluster * l.warps +
-         static_cast<size_t>(kStages) * l.slots * l.warps * 32;
+         static_cast<size_t>(kStages) * l.slots * l.warps * 32 +
+         static_cast<size_t>(width) * l.band_stride;
 }
 
-template <bool kResident>
 __global__ void __launch_bounds__(1024) band_spread_kernel(
     const float* __restrict__ obs, const int* __restrict__ batch_frames,
     const float* __restrict__ initial, const float* __restrict__ band,
@@ -119,13 +123,11 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
   const int count = max(0, min(l.per_cta, states - j0));
   const int t_end = min(max(batch_frames[0], 1), frames);
 
-  if (kResident) {
-    for (int e = tid; e < width * count; e += nthreads) {
-      const int d = e / count;
-      const int jl = e - d * count;
-      band_s[d * l.band_stride + jl] =
-          band[static_cast<size_t>(d) * states + j0 + jl];
-    }
+  for (int e = tid; e < width * count; e += nthreads) {
+    const int d = e / count;
+    const int jl = e - d * count;
+    band_s[d * l.band_stride + jl] =
+        band[static_cast<size_t>(d) * states + j0 + jl];
   }
   // The 4 lanes of a destination write its value into CTAs g and g + 4;
   // lanes 0-7 write the warp's maximum into CTA `lane`
@@ -194,10 +196,7 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
 #pragma unroll 4
         for (int d = d_begin + ((g - d_begin) & (kGroups - 1)); d < d_end;
              d += kGroups) {
-          const float bv = kResident
-                               ? band_s[d * l.band_stride + jl]
-                               : __ldg(band + static_cast<size_t>(d) * states + j);
-          acc = fmaxf(acc, src[d] + bv);
+          acc = fmaxf(acc, src[d] + band_s[d * l.band_stride + jl]);
         }
       }
       acc = fmaxf(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
@@ -226,42 +225,14 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
       post_seq[static_cast<size_t>(t) * states + j0 + jl] = last[j0 + jl];
 }
 
-template <bool kResident>
-int launch(const float* obs, const int* batch_frames, const float* initial,
-           const float* band, float* post_seq, int frames, int states, int lo,
-           int width, float floor_value, int has_floor, size_t smem,
-           cudaStream_t stream) {
-  auto kernel = band_spread_kernel<kResident>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = kCluster;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster);
-  config.blockDim = dim3(make_layout(states).warps * 32);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  config.attrs = attribute;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, obs, batch_frames, initial, band,
-                           post_seq, frames, states, lo, width, floor_value,
-                           has_floor);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // obs, post_seq: (1, frames, states) float32; batch_frames: (1,) int32;
 // initial: (states,) float32; band: (width, states) float32 with
-// band[d, j] = transition[j, j + d + lo]. Launches one cluster of 8 CTAs;
-// the band slice stays in shared memory when it fits. Returns a
-// cudaError_t code.
+// band[d, j] = transition[j, j + d + lo]. Launches one cluster of 8 CTAs,
+// each with its band slice in shared memory. Returns a cudaError_t code:
+// cudaErrorInvalidValue when that slice does not fit the card's opt-in
+// shared memory per block.
 extern "C" int band_spread(const float* obs, const int* batch_frames,
                            const float* initial, const float* band,
                            float* post_seq, int frames, int states, int lo,
@@ -274,17 +245,28 @@ extern "C" int band_spread(const float* obs, const int* batch_frames,
   err = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  const Layout l = make_layout(states);
-  const size_t base = smem_floats(l, states) * sizeof(float);
-  const size_t resident =
-      base + static_cast<size_t>(width) * l.band_stride * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident <= static_cast<size_t>(optin))
-    return launch<true>(obs, batch_frames, initial, band, post_seq, frames,
-                        states, lo, width, floor_value, has_floor, resident,
-                        s);
-  if (base <= static_cast<size_t>(optin))
-    return launch<false>(obs, batch_frames, initial, band, post_seq, frames,
-                         states, lo, width, floor_value, has_floor, base, s);
-  return cudaErrorInvalidValue;
+  const size_t smem = smem_floats(make_layout(states), states, width) *
+                      sizeof(float);
+  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(band_spread_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = kCluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCluster);
+  config.blockDim = dim3(make_layout(states).warps * 32);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, band_spread_kernel, obs, batch_frames,
+                           initial, band, post_seq, frames, states, lo, width,
+                           floor_value, has_floor);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }

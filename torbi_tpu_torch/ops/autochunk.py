@@ -10,9 +10,12 @@ a single long banded sequence:
 1. the framewise normalized entropy runs as torch ops on the decode device
    and comes back as a (frames,) array;
 2. split points are planned on the host (``chunk.splits_from_entropy``, the
-   greedy boundaries of the user-facing chunker) and cached per observation
-   and ``batch_frames`` tensor (identity and version), so repeated decodes
-   of a resident buffer skip the entropy pass and its host round trip;
+   greedy boundaries of the user-facing chunker) and cached per device
+   observation and ``batch_frames`` tensor (identity and version): a caller
+   who decodes one resident buffer again, with the same ``batch_frames``
+   tensor, skips the entropy pass and its host round trip. Every other call
+   (a new observation, a host array, the default ``batch_frames`` that
+   ``from_probabilities`` builds per call) computes its plan afresh;
 3. the chunk rows are gathered out of the sequence at the longest chunk's
    length (lengths mask the rest), decoded as one batch through the banded
    route (K1, then K3), and the per-row paths gathered back into the
@@ -114,7 +117,7 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
     hold: batch 1, a banded transition of width > 0, the finiteness the
     band gate needs.
 
-    observation: (1, frames, states_in) float32, on any device
+    observation: (1, frames, states_in) float32 on ``device``
     batch_frames: (1,) int32 on ``device``
     transition, initial, band_matrix: on ``device``, as the banded route
         takes them
@@ -134,7 +137,7 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
 
     def compute():
         entropy = framewise_entropy(
-            observation.to(device), states, log_input).cpu().numpy()
+            observation, states, log_input).cpu().numpy()
         valid = min(int(batch_frames[0]), frames)
         if valid < min_frames:
             return None
@@ -164,7 +167,7 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
         return None
     gather, lengths, row, column = plan
 
-    rows = observation[0, :, :states].to(device)[gather]
+    rows = observation[0, :, :states][gather]
     rows = convert(rows, log_input, apply_epsilon).contiguous()
     post_seq, posterior = band_ops.viterbi_forward_band(
         rows, lengths, initial, band, band_matrix)

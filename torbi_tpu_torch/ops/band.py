@@ -30,10 +30,10 @@ from ..utils.cache import identity_cached as _identity_cached
 
 NEG_INF = float('-inf')
 
-# K4 holds two copies of the posterior and a ring of staged observation
-# rows in each CTA's shared memory; up to this many states they fit.
-# Dispatch sends a larger single sequence to K1
-SPREAD_MAX_STATES = 8192
+# The shared memory a Hopper block may opt in to (227 KB). K4 refuses a
+# band whose layout (spread_smem_bytes) exceeds the card's; dispatch sends
+# such a single sequence to K1
+SPREAD_SMEM_BYTES = 227 * 1024
 
 # Detection and gating results cached per live, unmodified tensor
 _detect_cache = {}
@@ -220,6 +220,25 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
 viterbi_forward_band.launches = 0
 
 
+def spread_smem_bytes(states, width):
+    """Shared memory per CTA of K4 (csrc/band_spread.cu, make_layout and
+    smem_floats): a cluster of 8 CTAs, 8 destinations per warp, each CTA
+    holding two copies of the posterior, two tables of warp maxima, a ring
+    of 4 staged observation rows and its (width, stride) band slice"""
+    per_cta = -(-states // 8)
+    warps = min(32, -(-per_cta // 8))
+    slots = -(-per_cta // (warps * 8))
+    stride = -(-max(per_cta - 8, 0) // 32) * 32 + 8
+    floats = (2 * states + 2 * 8 * warps + 4 * slots * warps * 32
+              + width * stride)
+    return 4 * floats
+
+
+def spread_fits(states, width):
+    """Whether K4 takes a band of this width at this many states"""
+    return spread_smem_bytes(states, width) <= SPREAD_SMEM_BYTES
+
+
 def band_spread_reference(observation, batch_frames, initial, band,
                           band_matrix):
     """Plain PyTorch version of the batch-1 banded forward kernel (K4):
@@ -237,7 +256,8 @@ def viterbi_forward_band_spread(observation, batch_frames, initial, band,
     """Batch-1 banded forward pass: the K4 kernel (csrc/band_spread.cu),
     which spreads one sequence over a cluster of CTAs, on CUDA tensors; its
     plain version on CPU tensors. Arguments and results as in
-    ``band_forward_reference`` with batch 1."""
+    ``band_forward_reference`` with batch 1. On the card it raises when
+    the band does not fit (``spread_fits``)."""
     lo, width, floor = band
     if width == 0 and floor is None:
         raise ValueError(

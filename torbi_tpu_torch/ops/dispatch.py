@@ -17,8 +17,8 @@ A banded transition at batch > 1 takes K1, then K3. One banded sequence
 1. auto-chunking first: a sequence of ``BATCH1_AUTO_CHUNK_MIN_FRAMES`` or
    more frames decodes as entropy-chunk rows through K1 and K3
    (ops/autochunk.py) when ``BATCH1_AUTO_CHUNK`` is set and a plan pays;
-2. otherwise the forward pass is K4 (``BAND_BATCH1_SPREAD``, up to
-   ``band.SPREAD_MAX_STATES`` states) or K1;
+2. otherwise the forward pass is K4 (``BAND_BATCH1_SPREAD``, when its
+   band slice fits shared memory, ``band.spread_fits``) or K1;
 3. then the chase: K5 (``BACKTRACE_BATCH1_FUSED``, up to
    ``backtrace.FUSED1_MAX_STATES`` states), else K6
    (``BACKTRACE_BATCH1_WINDOW``, only for a band with no floor whose
@@ -240,6 +240,9 @@ def decode(observation, batch_frames, transition, initial, backend=None,
             and backend == 'kernel'
             and frames >= int(torbi_tpu_torch.BATCH1_AUTO_CHUNK_MIN_FRAMES)
             and bool(torbi_tpu_torch.BATCH1_AUTO_CHUNK)):
+        # One copy on the device serves the entropy pass, the chunk rows
+        # and, when the route declines, the serial decode below
+        observation = observation.to(device)
         chunked = autochunk.decode_chunked(
             observation, batch_frames, transition, initial, states=states,
             band=band, band_matrix=_band_matrix(transition, band),
@@ -287,7 +290,7 @@ def decode(observation, batch_frames, transition, initial, backend=None,
             post_seq, transition, posterior, batch_frames)
     single = batch == 1
     spread = (single and torbi_tpu_torch.BAND_BATCH1_SPREAD
-              and states <= band_ops.SPREAD_MAX_STATES)
+              and band_ops.spread_fits(states, band[1]))
     forward = (band_ops.viterbi_forward_band_spread if spread
                else band_ops.viterbi_forward_band)
     post_seq, posterior = forward(
