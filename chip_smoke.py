@@ -21,7 +21,18 @@ just after each:
   chase (K6) on a pure -inf band, a band too wide for K4's shared memory
   (K1, K5), and the uniform transition's closed form. The auto-chunk route
   is timed on a new observation every call (its plan computed each time),
-  from a host array, and with its plan cached.
+  from a host array, and with its plan cached;
+- the labs (``python -m torbi_tpu_torch.scripts.kernel_lab`` and
+  ``... .chase_lab``): each lab kernel held bitwise against its plain
+  version at small shapes (every forward body with 1-8 sequences per CTA,
+  the spread kernel with clusters of 8 and 16, every chase variant in both
+  thread shapes), then timed at full width through the labs' entry points:
+  the forward variants at 512 x 512 x 1440 (width 175) beside K1 and the
+  H100 ideals, the spread variants at 1 x 10,240 beside K4, the chase
+  variants over 10,240 steps beside K5 and K6;
+- the profiler (``utils/profile.py``): the stage times of the headline and
+  of the batch-1 serial route, and one headline call under
+  ``torch.profiler`` with its top device ops and the device's idle share.
 
 Prints the card's name and power limit, per-kernel times beside their
 bounds and their plain versions' times, a ``{"kernels": [...]}`` line and,
@@ -29,6 +40,7 @@ last, ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. Needs one CUDA card; imports nothing of JAX.
 """
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,10 +63,20 @@ WINDOW_HALFWIDTH = 87
 # (width 261), and the frames of the phases that check that limit
 WIDE_HALFWIDTH, EDGE_FRAMES = 130, 256
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and FP32 outside the
-# tensor cores (FMA counted as two operations)
+# The lab phases: the bitwise checks' frames (forward lab at 8 sequences,
+# spread lab) and steps (chase lab), the timed iterations, and the forward
+# variants timed at the headline shape
+LAB_CHECK_FRAMES, LAB_CHECK_STEPS, LAB_ITERS = 64, 256, 3
+LAB_FORWARD_SPECS = (
+    'full:4:1', 'full:4:2', 'full:4:4', 'full:4:8', 'full:1:1', 'full:1:2',
+    'full:1:4', 'full:1:8', 'rollmax', 'addmax', 'max', 'rowadd', 'pipe',
+    'tilted:2', 'tilted:4', 'tilted:8')
+
+# The H100's memory rate and its FP32 instruction issue rate (an add and a
+# max are one instruction each): utils/profile.py's model, with the card's
+# SM count and clock read in main()
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
+ISSUE_PER_S = None
 
 
 def info(message):
@@ -64,26 +86,6 @@ def info(message):
 def fail(message):
     info(f'FAILED: {message}')
     sys.exit(1)
-
-
-def synthetic_posteriorgrams(batch, frames, states, seed=0):
-    """Peaked synthetic pitch posteriorgrams in log space (float32); the
-    generator of bench.py"""
-    rng = np.random.default_rng(seed)
-    centers = np.clip(
-        np.cumsum(rng.integers(-3, 4, size=(batch, frames)), axis=1)
-        + states // 2,
-        0, states - 1)
-    bins = np.arange(states, dtype=np.float32)[None, None, :]
-    out = np.empty((batch, frames, states), dtype=np.float32)
-    for start in range(0, batch, 64):
-        stop = min(start + 64, batch)
-        dist = np.abs(bins - centers[start:stop, :, None].astype(np.float32))
-        logits = -0.5 * (dist / 3.0) ** 2
-        obs = logits - np.log(
-            np.exp(logits).sum(axis=-1, keepdims=True))
-        out[start:stop] = np.log(np.exp(obs) + TINY)
-    return out
 
 
 def cuda_ms(torch, fn, iters, warmup=1):
@@ -119,7 +121,7 @@ def require_equal(torch, name, got, expected):
 
 def bound_ms(bytes_moved, operations):
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    op_ms = operations / PEAK_FP32_PER_S * 1e3
+    op_ms = operations / ISSUE_PER_S * 1e3
     return (max(byte_ms, op_ms),
             'bytes' if byte_ms >= op_ms else 'operations')
 
@@ -182,9 +184,17 @@ def main():
     from torbi_tpu_torch.csrc import build
     from torbi_tpu_torch.models import pitch
     from torbi_tpu_torch.ops import backtrace, band, dense, dispatch
+    from torbi_tpu_torch.scripts import chase_lab, kernel_lab
+    from torbi_tpu_torch.utils import profile
 
     device = torch.device('cuda', 0)
     torch.cuda.set_device(device)
+    global ISSUE_PER_S
+    sms, clock_hz = profile.device_rates()
+    ISSUE_PER_S = profile.FP32_LANES_PER_SM * sms * clock_hz
+    smem_words_per_s = profile.SMEM_WORDS_PER_SM_CLOCK * sms * clock_hz
+    info(f'{sms} SMs at {clock_hz / 1e9:.3f} GHz: {ISSUE_PER_S:.4g} FP32 '
+         f'instructions/s, {smem_words_per_s:.4g} shared-memory words/s')
 
     # 1. Build every kernel (one nvcc per source, in parallel)
     start = time.perf_counter()
@@ -198,7 +208,7 @@ def main():
 
     # Inputs of the banded path, made from a seed
     start = time.perf_counter()
-    obs_host = synthetic_posteriorgrams(BATCH, FRAMES, STATES)
+    obs_host = pitch.synthetic_posteriorgrams(BATCH, FRAMES, STATES)
     trans_host = np.log(pitch.transition_matrix() + TINY).astype(np.float32)
     init_host = np.log(
         np.full(STATES, 1.0 / STATES, dtype=np.float32) + TINY)
@@ -251,7 +261,8 @@ def main():
         source='torbi_tpu_torch/csrc/band_forward.cu',
         replaces='torbi_tpu/ops/band.py:512', path='banded',
         max_abs_err=err, ms=k1_ms, plain_ms=k1_plain_ms,
-        bound=bound_ms(k1_bytes, k1_ops), library_ms=None)
+        bound=bound_ms(k1_bytes, k1_ops), library_ms=None,
+        smem_bound_ms=steps * in_range / smem_words_per_s * 1e3)
     info(f'K1 band_forward: {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms')
 
     # K3: backtrace on K1's output
@@ -453,7 +464,8 @@ def main():
     # 5. The batch-1 kernels against their plain versions, at the batch-1
     # shape: one pitch sequence of 10,240 frames (bench.py's generator,
     # seed 1)
-    single_host = synthetic_posteriorgrams(1, SINGLE_FRAMES, STATES, seed=1)
+    single_host = pitch.synthetic_posteriorgrams(
+        1, SINGLE_FRAMES, STATES, seed=1)
     single = torch.from_numpy(single_host).to(device)
     single_k = dispatch.convert(single, True, True).contiguous()
     bf1 = torch.tensor([SINGLE_FRAMES], dtype=torch.int32, device=device)
@@ -481,7 +493,8 @@ def main():
         source='torbi_tpu_torch/csrc/band_spread.cu',
         replaces='torbi_tpu/ops/band.py:843', path='batch1-serial',
         max_abs_err=err, ms=k4_ms, plain_ms=k4_plain_ms,
-        bound=bound_ms(k4_bytes, k4_ops), library_ms=None)
+        bound=bound_ms(k4_bytes, k4_ops), library_ms=None,
+        smem_bound_ms=steps1 * in_range / smem_words_per_s * 1e3)
     info(f'K4 band_spread: {k4_ms:.3f} ms ({k4_ms * 1e3 / steps1:.3f} '
          f'us/frame), plain {k4_plain_ms:.1f} ms; K1 on the same sequence '
          f'{k1_single_ms:.3f} ms ({k1_single_ms * 1e3 / steps1:.3f} '
@@ -757,23 +770,219 @@ def main():
          f'ms/call warm median of 10, '
          f'{SHORT_FRAMES / short_ms[0] * 1e3:.0f} timesteps/s')
 
-    # 7. The kernels line, then the device line last
+    # 7. The lab kernels against their plain versions, bitwise, at small
+    # shapes: every forward body with 1, 2, 4 and 8 sequences per CTA at
+    # 8 x 64 x 1440 (width 175), the spread lab with clusters of 8 and 16
+    # at 1 x 256 x 1440, every chase variant in both thread shapes over 256
+    # steps x 1440
+    lab_obs, lab_band = kernel_lab.lab_inputs(
+        8, LAB_CHECK_FRAMES, STATES, width, device)
+    for name in ('full', 'rollmax', 'addmax', 'max', 'vregroll', 'rowadd',
+                 'pipe', 'tilted', 'introt', 'subroll'):
+        want = kernel_lab.forward_reference(name, lab_obs, lab_band, width)
+        params = kernel_lab.TILES if name in kernel_lab.TILED else (1, 4)
+        for param in params:
+            for nb in kernel_lab.BATCH_TILES:
+                got = kernel_lab.lab_forward(
+                    name, lab_obs, lab_band, width, param, nb)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f'lab_forward {name}:{param}:{nb} differs from its '
+                         f'plain version (max abs err '
+                         f'{max_abs_err(torch, got, want)}; tolerance: '
+                         'bitwise)')
+        info(f'lab_forward {name}: bitwise equal to its plain version at '
+             f'{"R" if name in kernel_lab.TILED else "n_acc"} '
+             f'{"/".join(map(str, params))} x 1/2/4/8 sequences per CTA')
+    lab_plain = {'lab_forward': cuda_ms(
+        torch, lambda: kernel_lab.forward_reference(
+            'full', lab_obs, lab_band, width), iters=1, warmup=0)}
+    spread_obs, spread_band = kernel_lab.lab_inputs(
+        1, LAB_CHECK_STEPS, STATES, width, device)
+    spread_seq = spread_obs[0].contiguous()
+    for sync_only in (False, True):
+        want = kernel_lab.spread_reference(
+            spread_seq, spread_band, width, sync_only)
+        for cluster in kernel_lab.CLUSTERS:
+            label = (f'lab_spread ({"spread_sync" if sync_only else "spread"}'
+                     f', cluster {cluster})')
+            require_equal(torch, label, kernel_lab.lab_spread(
+                spread_seq, spread_band, width, cluster, sync_only), want)
+    lab_plain['lab_spread'] = cuda_ms(
+        torch, lambda: kernel_lab.spread_reference(
+            spread_seq, spread_band, width), iters=1, warmup=0)
+    chase_trans, chase_post = chase_lab.lab_inputs(
+        LAB_CHECK_STEPS, STATES, device)
+    for variant in chase_lab.VARIANTS:
+        want = chase_lab.chase_reference(variant, chase_trans, chase_post)
+        shapes = (chase_lab.THREAD_SHAPES if variant in chase_lab.ROW_VARIANTS
+                  else (chase_lab.threads_of(variant),))
+        for threads in shapes:
+            got = int(chase_lab.lab_chase(
+                variant, chase_trans, chase_post, threads))
+            if got != want:
+                fail(f'lab_chase {variant} ({threads} threads) ended at '
+                     f'{got}, its plain version at {want} (tolerance: '
+                     'exact)')
+        info(f'lab_chase {variant}: final index {want} equal to its plain '
+             f'version ({"/".join(map(str, shapes))} threads)')
+    lab_plain['lab_chase'] = cuda_ms(
+        torch, lambda: chase_lab.chase_reference(
+            'tree12', chase_trans, chase_post), iters=1, warmup=0)
+    del lab_obs, spread_obs, chase_post
+
+    # 8. The labs at full width through their entry points, the launch
+    # counters reset just before and read just after each
+    lab_counters = {
+        'lab_forward': kernel_lab.lab_forward,
+        'lab_spread': kernel_lab.lab_spread,
+        'lab_chase': chase_lab.lab_chase}
+    lab_counts = {}
+
+    def lab_run(name, module, argv):
+        for fn in lab_counters.values():
+            fn.launches = 0
+        result = module.main(argv)
+        torch.cuda.synchronize()
+        lab_counts[name] = {key: fn.launches
+                            for key, fn in lab_counters.items()}
+        info(f'{name} lab launches: {lab_counts[name]}')
+        if lab_counts[name][name] < 1:
+            fail(f'the {name} lab did not launch its kernel')
+        return result
+
+    shape = ['--states', str(STATES), '--width', str(width),
+             '--iters', str(LAB_ITERS)]
+    forward_lab = lab_run('lab_forward', kernel_lab, [
+        '--variants', ','.join(LAB_FORWARD_SPECS), '--batch', str(BATCH),
+        '--frames', str(FRAMES), *shape])
+    ideals = forward_lab['ideals']
+    k1_ms = kernels['band_forward']['ms']
+    info(f'forward lab at {BATCH} x {FRAMES} x {STATES}, width {width} '
+         f'({ideals["candidates"]:.4g} circular candidates): ideals issue '
+         f'{ideals["issue_ideal_ms"]:.3f} ms, shared memory '
+         f'{ideals["smem_ideal_ms"]:.3f} ms, HBM '
+         f'{ideals["hbm_ideal_ms"]:.3f} ms; K1 {k1_ms:.3f} ms on its '
+         f'{steps * in_range:.4g} clipped candidates')
+    for spec, row in forward_lab['results'].items():
+        info(f'lab_forward {spec}: {row["ms"]:.3f} ms ({row["ms"] / k1_ms:.3f}'
+             f' x K1), {row["candidates_per_sm_clock"]:.3f} candidates per '
+             f'SM and clock, {ideals["issue_ideal_ms"] / row["ms"]:.3f} of '
+             f'the issue ideal, {ideals["smem_ideal_ms"] / row["ms"]:.3f} of '
+             f'the shared-memory ideal, on {card}')
+    spread_lab = lab_run('lab_spread', kernel_lab, [
+        '--variants', 'spread,spread:16,spread_sync,spread_sync:16',
+        '--batch', '1', '--frames', str(SINGLE_FRAMES), *shape])
+    for spec, row in spread_lab['results'].items():
+        info(f'lab_spread {spec}: {row["ms"]:.3f} ms, '
+             f'{row["ms_per_frame"] * 1e3:.3f} us/frame (K4 '
+             f'{k4_ms * 1e3 / steps1:.3f} us/frame), on {card}')
+    chase_results = lab_run('lab_chase', chase_lab, [
+        '--variants', ','.join(chase_lab.VARIANTS), '--frames',
+        str(SINGLE_FRAMES), '--states', str(STATES), '--iters',
+        str(LAB_ITERS), '--threads', '32,192'])
+    for label, row in chase_results.items():
+        info(f'lab_chase {label}: {row["ns_per_step"]:.1f} ns/step (K5 '
+             f'{k5_ms * 1e6 / steps1:.1f}, K6 {k6_ms * 1e6 / steps1:.1f} '
+             f'ns/step), on {card}')
+    wpad = -(-width // 8) * 8
+    candidates = BATCH * (FRAMES - 1) * STATES * width
+    kernels['lab_forward'] = dict(
+        name='lab_forward', route='cuda',
+        source='torbi_tpu_torch/csrc/lab_forward.cu',
+        replaces='scripts/kernel_lab.py:205', path='lab_forward',
+        max_abs_err=0.0, ms=forward_lab['results']['full:4:4']['ms'],
+        plain_ms=lab_plain['lab_forward'],
+        plain_at=f'8 x {LAB_CHECK_FRAMES} x {STATES}, width {width}',
+        bound=bound_ms(
+            (BATCH * FRAMES * STATES + wpad * STATES + BATCH * STATES) * 4,
+            2 * candidates + BATCH * (FRAMES - 1) * STATES),
+        library_ms=None, smem_bound_ms=candidates / smem_words_per_s * 1e3)
+    spread_candidates = (SINGLE_FRAMES - 1) * STATES * width
+    kernels['lab_spread'] = dict(
+        name='lab_spread', route='cuda',
+        source='torbi_tpu_torch/csrc/lab_spread.cu',
+        replaces='scripts/kernel_lab.py:872', path='lab_spread',
+        max_abs_err=0.0, ms=spread_lab['results']['spread']['ms'],
+        plain_ms=lab_plain['lab_spread'],
+        plain_at=f'1 x {LAB_CHECK_STEPS} x {STATES}, width {width}',
+        bound=bound_ms(
+            (SINGLE_FRAMES * STATES + wpad * STATES + STATES) * 4,
+            2 * spread_candidates + (SINGLE_FRAMES - 1) * STATES),
+        library_ms=None,
+        smem_bound_ms=spread_candidates / smem_words_per_s * 1e3)
+    kernels['lab_chase'] = dict(
+        name='lab_chase', route='cuda',
+        source='torbi_tpu_torch/csrc/lab_chase.cu',
+        replaces='scripts/chase_lab.py:169', path='lab_chase',
+        max_abs_err=0.0, ms=chase_results['tree12@192']['ms_per_call'],
+        plain_ms=lab_plain['lab_chase'],
+        plain_at=f'{LAB_CHECK_STEPS} steps x {STATES}',
+        bound=bound_ms(SINGLE_FRAMES * 2 * STATES * 4 + 4,
+                       SINGLE_FRAMES * 2 * STATES),
+        library_ms=None)
+    info('lab kernels line entries: lab_forward full:4:4, lab_spread '
+         'spread (cluster 8), lab_chase tree12 (192 threads); their plain '
+         'times at the check shapes (plain_at)')
+
+    # 9. The profiler: stage times of the headline and of the batch-1
+    # serial route, then one headline call traced
+    stages = profile.time_stages(obs, bf, trans, init, iters=5)
+    sol = profile.speed_of_light(
+        BATCH, FRAMES, STATES, band_tuple, stages['forward_ms'])
+    info('profile headline stages: ' + ', '.join(
+        f'{key} {stages[key]:.3f}' for key in (
+            'forward_ms', 'backtrace_ms', 'glue_ms', 'pipeline_ms',
+            'host_ms', 'e2e_ms')) + f' (kernels {stages["kernels"]}); '
+         f'forward at {sol["utilization"]:.3f} of its {sol["bound_by"]} '
+         f'ideal ({sol["binding_ideal_ms"]:.3f} ms), on {card}')
+    saved = torbi_tpu_torch.BATCH1_AUTO_CHUNK
+    try:
+        torbi_tpu_torch.BATCH1_AUTO_CHUNK = False
+        stages1 = profile.time_stages(single, bf1, trans, init, iters=3)
+    finally:
+        torbi_tpu_torch.BATCH1_AUTO_CHUNK = saved
+    info('profile batch-1 serial stages: ' + ', '.join(
+        f'{key} {stages1[key]:.3f}' for key in (
+            'forward_ms', 'backtrace_ms', 'glue_ms', 'pipeline_ms',
+            'host_ms', 'e2e_ms')) + f' (kernels {stages1["kernels"]})')
+    trace_dir = ROOT / 'build' / 'smoke_trace'
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    profile.capture(headline, trace_dir)
+    busy = profile.device_busy(trace_dir)
+    rows = profile.device_op_times(trace_dir, top=8)
+    if not rows:
+        fail('the profiler trace of the headline holds no device event')
+    info(f'profile headline trace: device busy {busy["busy_ms"]:.3f} of '
+         f'{busy["span_ms"]:.3f} ms traced, idle share '
+         f'{busy["idle_share"]:.4f}')
+    for row in rows:
+        info(f'  trace {row["total_ms"]:9.3f} ms x{row["count"]:<3} '
+             f'{row["name"][:90]}')
+
+    # 10. The kernels line, then the device line last
     path_counts = {
         'banded': band_counts, 'dense': dense_counts,
-        'batch1-serial': serial_counts, 'batch1-window': window_counts}
+        'batch1-serial': serial_counts, 'batch1-window': window_counts,
+        **lab_counts}
     lines = []
     for name in ('band_forward', 'band_spread', 'dense_forward', 'backtrace',
-                 'backtrace_fused1', 'backtrace_window'):
+                 'backtrace_fused1', 'backtrace_window', 'lab_forward',
+                 'lab_spread', 'lab_chase'):
         entry = dict(kernels[name])
         bound, bound_by = entry.pop('bound')
         counts = path_counts[entry['path']]
-        lines.append(dict(
+        line = dict(
             name=entry['name'], route=entry['route'],
             source=entry['source'], replaces=entry['replaces'],
             launches=counts[name], max_abs_err=entry['max_abs_err'],
             ms=entry['ms'], plain_ms=entry['plain_ms'], bound_ms=bound,
             bound_by=bound_by, library_ms=entry['library_ms'],
-            path=entry['path']))
+            path=entry['path'])
+        for extra in ('smem_bound_ms', 'plain_at'):
+            if extra in entry:
+                line[extra] = entry[extra]
+        lines.append(line)
     print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu',

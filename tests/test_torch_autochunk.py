@@ -342,3 +342,14 @@ def test_from_probabilities_batch1_matches(small_knobs, monkeypatch):
         obs, transition=probs, log_probs=True))
     np.testing.assert_array_equal(got.numpy(), expected)
     np.testing.assert_array_equal(again.numpy(), expected)
+
+
+@pytest.mark.parametrize('frames', [312_499, 312_500, 312_501, 2_777_777])
+def test_memory_rule_equals_jax(frames):
+    """At the default budgets the route declines exactly the single
+    1440-state sequences that torbi_tpu's auto-chunk rule declines (checked
+    on the byte count, without allocating)"""
+    obs_bytes = frames * 1440 * 4
+    expected = obs_bytes * 5 > 2 * int(torbi_tpu.DECODE_MEMORY_BUDGET)
+    assert autochunk.declines_for_memory(obs_bytes) == expected
+    assert expected == (frames > 312_500)

@@ -311,9 +311,13 @@ def test_cache_invalidated_by_inplace_edit():
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the port loads neither JAX nor the JAX package"""
+    """Importing the port, its profiler and its labs loads neither JAX nor
+    the JAX package"""
     code = (
-        'import sys, torbi_tpu_torch; '
+        'import sys, torbi_tpu_torch, torbi_tpu_torch.profile, '
+        'torbi_tpu_torch.utils.profile, '
+        'torbi_tpu_torch.scripts.kernel_lab, '
+        'torbi_tpu_torch.scripts.chase_lab; '
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
         ' or m == "torbi_tpu" or m.startswith("torbi_tpu.")]; '
         'print(bad); sys.exit(1 if bad else 0)')

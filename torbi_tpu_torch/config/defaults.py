@@ -91,5 +91,6 @@ BATCH1_CHUNK_FRAMES = 1280
 # device-resident input keeps alive while its groups decode), the
 # transition and band matrices, and the caching allocator's slack. The
 # auto-chunk route declines a sequence whose observation takes more than
-# 2/5 of it.
+# 2/5 of it or of the JAX package's 4.5 GB budget, whichever is smaller, so
+# that both packages chunk the same sequences (ops/autochunk.py).
 DECODE_MEMORY_BUDGET = 40_000_000_000

@@ -36,3 +36,25 @@ def transition_matrix(pitch_bins=PITCH_BINS, dtype=np.float32):
     transition = np.clip(max_bins_per_frame() - np.abs(xx - yy), 0, None)
     transition = transition / transition.sum(axis=1, keepdims=True)
     return transition.astype(dtype)
+
+
+def synthetic_posteriorgrams(batch, frames, states=PITCH_BINS, seed=0):
+    """Peaked synthetic pitch posteriorgrams in log space, float32 numpy
+    (the generator of the repo's ``bench.py``): a random walk of pitch
+    centers, a Gaussian of 3 bins around each, taken to log(p + tiny)"""
+    tiny = np.finfo(np.float32).tiny
+    rng = np.random.default_rng(seed)
+    centers = np.clip(
+        np.cumsum(rng.integers(-3, 4, size=(batch, frames)), axis=1)
+        + states // 2,
+        0, states - 1)
+    bins = np.arange(states, dtype=np.float32)[None, None, :]
+    out = np.empty((batch, frames, states), dtype=np.float32)
+    for start in range(0, batch, 64):
+        stop = min(start + 64, batch)
+        dist = np.abs(bins - centers[start:stop, :, None].astype(np.float32))
+        logits = -0.5 * (dist / 3.0) ** 2
+        obs = logits - np.log(
+            np.exp(logits).sum(axis=-1, keepdims=True))
+        out[start:stop] = np.log(np.exp(obs) + tiny)
+    return out

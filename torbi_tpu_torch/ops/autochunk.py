@@ -48,6 +48,11 @@ _FRAME_BUCKETS = (
     64, 128, 256, 512, 640, 1024, 1536, 2048, 4096, 8192, 10240, 16384)
 _ROW_TILE = 8
 
+# The JAX package's DECODE_MEMORY_BUDGET (torbi_tpu/config/defaults.py),
+# used here only for the auto-chunk size rule, so that both packages chunk
+# the same sequences
+_JAX_AUTOCHUNK_BUDGET = 4_500_000_000
+
 # Split plans per (observation, batch_frames) tensor, keyed on identity and
 # version (utils/cache.py)
 _plan_cache = {}
@@ -103,6 +108,17 @@ def plan_splits(entropy_values, valid, target):
     return starts, lengths
 
 
+def declines_for_memory(obs_bytes):
+    """Whether the route declines an observation of ``obs_bytes``: the
+    gathered rows and their converted copy sit beside it, so it may take at
+    most 2/5 of the budget. The budget is the smaller of the JAX package's
+    (both packages then chunk the same sequences: at 1440 states, up to
+    312,500 frames) and this package's ``DECODE_MEMORY_BUDGET``."""
+    budget = min(_JAX_AUTOCHUNK_BUDGET,
+                 int(torbi_tpu_torch.DECODE_MEMORY_BUDGET))
+    return obs_bytes * 5 > budget * 2
+
+
 def _cached_plan(observation, batch_frames, compute, extra_key):
     per_observation = _identity_cached(_plan_cache, observation, dict)
     return _identity_cached(
@@ -127,10 +143,8 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
     from .dispatch import convert
 
     frames = observation.shape[1]
-    # The route holds the gathered rows and their converted copy beside
-    # the observation; a sequence too big for that decodes serially
-    obs_bytes = observation.numel() * 4
-    if obs_bytes * 5 > int(torbi_tpu_torch.DECODE_MEMORY_BUDGET) * 2:
+    # A sequence too big for the route decodes serially
+    if declines_for_memory(observation.numel() * 4):
         return None
     target = int(torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
     min_frames = int(torbi_tpu_torch.BATCH1_AUTO_CHUNK_MIN_FRAMES)
