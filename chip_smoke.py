@@ -24,12 +24,14 @@ just after each:
   from a host array, and with its plan cached;
 - the labs (``python -m torbi_tpu_torch.scripts.kernel_lab`` and
   ``... .chase_lab``): each lab kernel held bitwise against its plain
-  version at small shapes (every forward body with 1-8 sequences per CTA,
-  the spread kernel with clusters of 8 and 16, every chase variant in both
-  thread shapes), then timed at full width through the labs' entry points:
-  the forward variants at 512 x 512 x 1440 (width 175) beside K1 and the
-  H100 ideals, the spread variants at 1 x 10,240 beside K4, the chase
-  variants over 10,240 steps beside K5 and K6;
+  version at small shapes (every forward body at every accumulator count
+  or tile with 1-8 sequences per CTA, the spread kernel with clusters of 8
+  and 16, every chase variant in both thread shapes), then timed at full
+  width through the labs' entry points: the forward variants at 512 x 512
+  x 1440 (width 175) beside K1 and the H100 ideals, the spread variants at
+  1 x 10,240 beside K4, the chase variants over 10,240 steps beside K5 and
+  K6. The output of every timed run is held bitwise against its plain
+  version on the same inputs, at that full size;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -73,8 +75,10 @@ LAB_FORWARD_SPECS = (
     'tilted:2', 'tilted:4', 'tilted:8')
 
 # The H100's memory rate and its FP32 instruction issue rate (an add and a
-# max are one instruction each): utils/profile.py's model, with the card's
-# SM count and clock read in main()
+# max are one instruction each; two per candidate at 128 issue slots per SM
+# and clock take as long as its max alone at the published 64 minima and
+# maxima per SM and clock): utils/profile.py's model, with the card's SM
+# count and clock read in main()
 PEAK_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = None
 
@@ -101,6 +105,18 @@ def cuda_ms(torch, fn, iters, warmup=1):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def cuda_once(torch, fn):
+    """One call of ``fn``: its result and its ms (CUDA events)"""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    stop.record()
+    stop.synchronize()
+    return result, start.elapsed_time(stop)
 
 
 def max_abs_err(torch, got, expected):
@@ -771,16 +787,17 @@ def main():
          f'{SHORT_FRAMES / short_ms[0] * 1e3:.0f} timesteps/s')
 
     # 7. The lab kernels against their plain versions, bitwise, at small
-    # shapes: every forward body with 1, 2, 4 and 8 sequences per CTA at
-    # 8 x 64 x 1440 (width 175), the spread lab with clusters of 8 and 16
-    # at 1 x 256 x 1440, every chase variant in both thread shapes over 256
-    # steps x 1440
+    # shapes: every forward body at every accumulator count (or tile) with
+    # 1, 2, 4 and 8 sequences per CTA at 8 x 64 x 1440 (width 175), the
+    # spread lab with clusters of 8 and 16 at 1 x 256 x 1440, every chase
+    # variant in both thread shapes over 256 steps x 1440
     lab_obs, lab_band = kernel_lab.lab_inputs(
         8, LAB_CHECK_FRAMES, STATES, width, device)
     for name in ('full', 'rollmax', 'addmax', 'max', 'vregroll', 'rowadd',
                  'pipe', 'tilted', 'introt', 'subroll'):
         want = kernel_lab.forward_reference(name, lab_obs, lab_band, width)
-        params = kernel_lab.TILES if name in kernel_lab.TILED else (1, 4)
+        params = (kernel_lab.TILES if name in kernel_lab.TILED
+                  else kernel_lab.N_ACCS)
         for param in params:
             for nb in kernel_lab.BATCH_TILES:
                 got = kernel_lab.lab_forward(
@@ -794,9 +811,6 @@ def main():
         info(f'lab_forward {name}: bitwise equal to its plain version at '
              f'{"R" if name in kernel_lab.TILED else "n_acc"} '
              f'{"/".join(map(str, params))} x 1/2/4/8 sequences per CTA')
-    lab_plain = {'lab_forward': cuda_ms(
-        torch, lambda: kernel_lab.forward_reference(
-            'full', lab_obs, lab_band, width), iters=1, warmup=0)}
     spread_obs, spread_band = kernel_lab.lab_inputs(
         1, LAB_CHECK_STEPS, STATES, width, device)
     spread_seq = spread_obs[0].contiguous()
@@ -808,9 +822,6 @@ def main():
                      f', cluster {cluster})')
             require_equal(torch, label, kernel_lab.lab_spread(
                 spread_seq, spread_band, width, cluster, sync_only), want)
-    lab_plain['lab_spread'] = cuda_ms(
-        torch, lambda: kernel_lab.spread_reference(
-            spread_seq, spread_band, width), iters=1, warmup=0)
     chase_trans, chase_post = chase_lab.lab_inputs(
         LAB_CHECK_STEPS, STATES, device)
     for variant in chase_lab.VARIANTS:
@@ -826,9 +837,6 @@ def main():
                      'exact)')
         info(f'lab_chase {variant}: final index {want} equal to its plain '
              f'version ({"/".join(map(str, shapes))} threads)')
-    lab_plain['lab_chase'] = cuda_ms(
-        torch, lambda: chase_lab.chase_reference(
-            'tree12', chase_trans, chase_post), iters=1, warmup=0)
     del lab_obs, spread_obs, chase_post
 
     # 8. The labs at full width through their entry points, the launch
@@ -856,6 +864,31 @@ def main():
     forward_lab = lab_run('lab_forward', kernel_lab, [
         '--variants', ','.join(LAB_FORWARD_SPECS), '--batch', str(BATCH),
         '--frames', str(FRAMES), *shape])
+    # Every timed output against its plain version on the same inputs, at
+    # the timed size: the plain version runs once per function (full for
+    # its aliases), its first call timed
+    lab_obs, lab_band = forward_lab['inputs']
+    wanted, lab_plain, lab_err = {}, {}, {}
+    for spec, got in forward_lab['outputs'].items():
+        name = kernel_lab.parse_spec(spec)[0]
+        function = kernel_lab.FUNCTIONS.get(name, name)
+        if function not in wanted:
+            wanted[function], lab_plain[function] = cuda_once(
+                torch, lambda: kernel_lab.forward_reference(
+                    function, lab_obs, lab_band, width))
+        if not torch.equal(got, wanted[function]):
+            fail(f'lab_forward {spec} at {BATCH} x {FRAMES} x {STATES} '
+                 f'differs from its plain version (max abs err '
+                 f'{max_abs_err(torch, got, wanted[function])}; tolerance: '
+                 'bitwise)')
+        lab_err['lab_forward'] = max(lab_err.get('lab_forward', 0.0),
+                                     max_abs_err(torch, got, wanted[function]))
+    info(f'lab_forward: every timed spec bitwise equal to its plain version '
+         f'at {BATCH} x {FRAMES} x {STATES}, width {width} (plain ms: '
+         + ', '.join(f'{key} {value:.1f}' for key, value in lab_plain.items())
+         + ')')
+    del wanted, lab_obs, lab_band, forward_lab['inputs'], \
+        forward_lab['outputs']
     ideals = forward_lab['ideals']
     k1_ms = kernels['band_forward']['ms']
     info(f'forward lab at {BATCH} x {FRAMES} x {STATES}, width {width} '
@@ -870,17 +903,61 @@ def main():
              f'SM and clock, {ideals["issue_ideal_ms"] / row["ms"]:.3f} of '
              f'the issue ideal, {ideals["smem_ideal_ms"] / row["ms"]:.3f} of '
              f'the shared-memory ideal, on {card}')
+
     spread_lab = lab_run('lab_spread', kernel_lab, [
         '--variants', 'spread,spread:16,spread_sync,spread_sync:16',
         '--batch', '1', '--frames', str(SINGLE_FRAMES), *shape])
+    spread_seq, spread_band = spread_lab['inputs']
+    spread_seq = spread_seq[0]
+    wanted = {}
+    for sync_only in (False, True):
+        wanted[sync_only], ms = cuda_once(
+            torch, lambda: kernel_lab.spread_reference(
+                spread_seq, spread_band, width, sync_only))
+        if not sync_only:
+            lab_plain['spread'] = ms
+    for spec, got in spread_lab['outputs'].items():
+        want = wanted[spec.startswith('spread_sync')]
+        lab_err['lab_spread'] = max(lab_err.get('lab_spread', 0.0),
+                                    max_abs_err(torch, got, want))
+        if not torch.equal(got, want):
+            fail(f'lab_spread {spec} at 1 x {SINGLE_FRAMES} x {STATES} '
+                 f'differs from its plain version (max abs err '
+                 f'{lab_err["lab_spread"]}; tolerance: bitwise)')
+    info(f'lab_spread: every timed spec bitwise equal to its plain version '
+         f'at 1 x {SINGLE_FRAMES} x {STATES} (plain {lab_plain["spread"]:.1f}'
+         ' ms)')
+    del wanted, spread_seq, spread_band, spread_lab['inputs']
     for spec, row in spread_lab['results'].items():
         info(f'lab_spread {spec}: {row["ms"]:.3f} ms, '
              f'{row["ms_per_frame"] * 1e3:.3f} us/frame (K4 '
              f'{k4_ms * 1e3 / steps1:.3f} us/frame), on {card}')
-    chase_results = lab_run('lab_chase', chase_lab, [
+
+    chase_lab_run = lab_run('lab_chase', chase_lab, [
         '--variants', ','.join(chase_lab.VARIANTS), '--frames',
         str(SINGLE_FRAMES), '--states', str(STATES), '--iters',
         str(LAB_ITERS), '--threads', '32,192'])
+    chase_results = chase_lab_run['results']
+    chase_trans, chase_post = chase_lab_run['inputs']
+    wanted = {}
+    for variant in chase_lab.VARIANTS:
+        wanted[variant], ms = cuda_once(
+            torch, lambda: chase_lab.chase_reference(
+                variant, chase_trans, chase_post))
+        if variant == 'tree12':
+            lab_plain['tree12'] = ms
+    for label, row in chase_results.items():
+        want = wanted[label.split('@')[0]]
+        lab_err['lab_chase'] = max(lab_err.get('lab_chase', 0.0),
+                                   float(abs(row['index'] - want)))
+        if row['index'] != want:
+            fail(f'lab_chase {label} over {SINGLE_FRAMES} steps ended at '
+                 f'{row["index"]}, its plain version at {want} (tolerance: '
+                 'exact)')
+    info(f'lab_chase: every timed variant ends at its plain version\'s '
+         f'index over {SINGLE_FRAMES} steps x {STATES} (plain tree12 '
+         f'{lab_plain["tree12"]:.1f} ms)')
+    del chase_trans, chase_post, chase_lab_run['inputs']
     for label, row in chase_results.items():
         info(f'lab_chase {label}: {row["ns_per_step"]:.1f} ns/step (K5 '
              f'{k5_ms * 1e6 / steps1:.1f}, K6 {k6_ms * 1e6 / steps1:.1f} '
@@ -891,9 +968,9 @@ def main():
         name='lab_forward', route='cuda',
         source='torbi_tpu_torch/csrc/lab_forward.cu',
         replaces='scripts/kernel_lab.py:205', path='lab_forward',
-        max_abs_err=0.0, ms=forward_lab['results']['full:4:4']['ms'],
-        plain_ms=lab_plain['lab_forward'],
-        plain_at=f'8 x {LAB_CHECK_FRAMES} x {STATES}, width {width}',
+        max_abs_err=lab_err['lab_forward'],
+        ms=forward_lab['results']['full:4:4']['ms'],
+        plain_ms=lab_plain['full'],
         bound=bound_ms(
             (BATCH * FRAMES * STATES + wpad * STATES + BATCH * STATES) * 4,
             2 * candidates + BATCH * (FRAMES - 1) * STATES),
@@ -903,9 +980,9 @@ def main():
         name='lab_spread', route='cuda',
         source='torbi_tpu_torch/csrc/lab_spread.cu',
         replaces='scripts/kernel_lab.py:872', path='lab_spread',
-        max_abs_err=0.0, ms=spread_lab['results']['spread']['ms'],
-        plain_ms=lab_plain['lab_spread'],
-        plain_at=f'1 x {LAB_CHECK_STEPS} x {STATES}, width {width}',
+        max_abs_err=lab_err['lab_spread'],
+        ms=spread_lab['results']['spread']['ms'],
+        plain_ms=lab_plain['spread'],
         bound=bound_ms(
             (SINGLE_FRAMES * STATES + wpad * STATES + STATES) * 4,
             2 * spread_candidates + (SINGLE_FRAMES - 1) * STATES),
@@ -915,15 +992,15 @@ def main():
         name='lab_chase', route='cuda',
         source='torbi_tpu_torch/csrc/lab_chase.cu',
         replaces='scripts/chase_lab.py:169', path='lab_chase',
-        max_abs_err=0.0, ms=chase_results['tree12@192']['ms_per_call'],
-        plain_ms=lab_plain['lab_chase'],
-        plain_at=f'{LAB_CHECK_STEPS} steps x {STATES}',
+        max_abs_err=lab_err['lab_chase'],
+        ms=chase_results['tree12@192']['ms_per_call'],
+        plain_ms=lab_plain['tree12'],
         bound=bound_ms(SINGLE_FRAMES * 2 * STATES * 4 + 4,
                        SINGLE_FRAMES * 2 * STATES),
         library_ms=None)
     info('lab kernels line entries: lab_forward full:4:4, lab_spread '
-         'spread (cluster 8), lab_chase tree12 (192 threads); their plain '
-         'times at the check shapes (plain_at)')
+         'spread (cluster 8), lab_chase tree12 (192 threads), each beside '
+         'its plain version at the same size')
 
     # 9. The profiler: stage times of the headline and of the batch-1
     # serial route, then one headline call traced
@@ -946,6 +1023,15 @@ def main():
         f'{key} {stages1[key]:.3f}' for key in (
             'forward_ms', 'backtrace_ms', 'glue_ms', 'pipeline_ms',
             'host_ms', 'e2e_ms')) + f' (kernels {stages1["kernels"]})')
+    # The stages timed the kernels that the same route's decode launched
+    for label, timed, counts in (
+            ('headline', stages, band_counts),
+            ('batch-1 serial', stages1, serial_counts)):
+        launched = {name for name, count in counts.items() if count}
+        if set(timed['kernels']) != launched:
+            fail(f'time_stages timed {timed["kernels"]} on the {label} '
+                 f'route, whose decode launched {sorted(launched)}')
+    info('time_stages timed the kernels each route launched')
     trace_dir = ROOT / 'build' / 'smoke_trace'
     shutil.rmtree(trace_dir, ignore_errors=True)
     profile.capture(headline, trace_dir)
@@ -979,9 +1065,8 @@ def main():
             ms=entry['ms'], plain_ms=entry['plain_ms'], bound_ms=bound,
             bound_by=bound_by, library_ms=entry['library_ms'],
             path=entry['path'])
-        for extra in ('smem_bound_ms', 'plain_at'):
-            if extra in entry:
-                line[extra] = entry[extra]
+        if 'smem_bound_ms' in entry:
+            line['smem_bound_ms'] = entry['smem_bound_ms']
         lines.append(line)
     print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {

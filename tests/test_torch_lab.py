@@ -218,14 +218,29 @@ def test_labs_run_on_cpu_when_asked():
     assert list(results['results']) == [
         'full:1:8', 'tilted:2', 'introt:8:1', 'spread', 'spread_sync:16']
     assert results['ideals']['candidates'] == 8 * 7 * 256 * 5
+    # Each spec's output is its function's on the returned inputs
+    obs, band = results['inputs']
+    outputs = results['outputs']
+    assert torch.equal(outputs['tilted:2'],
+                       kernel_lab.forward_reference('full', obs, band, 5))
+    assert torch.equal(outputs['introt:8:1'],
+                       kernel_lab.forward_reference('introt', obs, band, 5))
+    assert torch.equal(outputs['spread'],
+                       kernel_lab.spread_reference(obs[0], band, 5))
+    assert torch.equal(outputs['spread_sync:16'], kernel_lab.spread_reference(
+        obs[0], band, 5, sync_only=True))
     chases = chase_lab.main([
         '--device', 'cpu', '--frames', '128', '--states', '1024',
         '--iters', '1', '--threads', '32,192', '--variants',
         ','.join(chase_lab.VARIANTS)])
-    assert set(chases) == {
+    assert set(chases['results']) == {
         'scalar_only', 'scalar_nomod', 'v2s_floor', 'v2s_nomod', 'tree1',
         'tree12@32', 'tree12@192', 'two_trees@32', 'two_trees@192',
         'two_trees_nomod@32', 'two_trees_nomod@192'}
+    trans, post = chases['inputs']
+    for label, row in chases['results'].items():
+        assert row['index'] == chase_lab.chase_reference(
+            label.split('@')[0], trans, post)
     with pytest.raises(SystemExit) as done:
         kernel_lab.main(['--device', 'cpu', '--batch', '8', '--frames', '8',
                          '--states', '256', '--width', '5', '--check'])

@@ -16,7 +16,7 @@ import torch
 
 from torbi_tpu.models import pitch as jax_pitch
 from torbi_tpu_torch import profile as profile_cli
-from torbi_tpu_torch.ops import band
+from torbi_tpu_torch.ops import band, dispatch
 from torbi_tpu_torch.utils import profile
 
 TINY = np.finfo(np.float32).tiny
@@ -111,15 +111,16 @@ def test_timers_on_cpu_tensors():
     assert len(steps) == 10
 
 
-def banded_case(batch, frames, states, halfwidth, seed):
+def banded_case(batch, frames, states, halfwidth, seed, tiny=TINY):
     rng = np.random.default_rng(seed)
     obs = np.log(rng.dirichlet(np.ones(states), size=(batch, frames))
                  .astype(np.float32) + TINY)
     bins = np.arange(states)
     tri = np.clip(halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]),
                   0, None)
-    trans = np.log((tri / tri.sum(axis=1, keepdims=True)).astype(np.float32)
-                   + TINY)
+    with np.errstate(divide='ignore'):
+        trans = np.log((tri / tri.sum(axis=1, keepdims=True))
+                       .astype(np.float32) + np.float32(tiny))
     init = np.log(np.full(states, 1.0 / states, dtype=np.float32) + TINY)
     return (torch.from_numpy(obs), torch.full((batch,), frames,
                                               dtype=torch.int32),
@@ -127,15 +128,49 @@ def banded_case(batch, frames, states, halfwidth, seed):
             torch.from_numpy(init))
 
 
-@pytest.mark.parametrize('batch, expected', [
-    (3, ('band_forward', 'backtrace')),
-    (1, ('band_spread', 'backtrace_fused1'))])
-def test_time_stages_picks_dispatch_kernels(batch, expected):
-    """The stages time the kernels dispatch takes for the input"""
-    obs, bf, trans, init = banded_case(batch, 12, 64, 3, seed=4)
+def record_kernel_calls(monkeypatch):
+    """Replace each kernel wrapper where dispatch looks it up by one that
+    records its launch-counter name; returns the list of names"""
+    calls = []
+    for module, attr, name in (
+            (band, 'viterbi_forward_band', 'band_forward'),
+            (band, 'viterbi_forward_band_spread', 'band_spread'),
+            (dispatch, 'viterbi_forward_dense', 'dense_forward'),
+            (dispatch, 'backtrace_posteriors', 'backtrace'),
+            (dispatch, 'backtrace_fused1', 'backtrace_fused1'),
+            (dispatch, 'backtrace_window', 'backtrace_window')):
+        def wrapper(*args, original=getattr(module, attr), name=name,
+                    **kwargs):
+            calls.append(name)
+            return original(*args, **kwargs)
+
+        monkeypatch.setattr(module, attr, wrapper)
+    return calls
+
+
+@pytest.mark.parametrize('batch, states, tiny, window, expected', [
+    (3, 64, TINY, False, ('band_forward', 'backtrace')),
+    (1, 64, TINY, False, ('band_spread', 'backtrace_fused1')),
+    (1, 256, 0.0, True, ('band_spread', 'backtrace_window'))])
+def test_time_stages_picks_dispatch_kernels(monkeypatch, batch, states, tiny,
+                                            window, expected):
+    """The stages time the kernels that dispatch.decode launches for the
+    input, in its order (the window chase needs two 128-state rows)"""
+    import torbi_tpu_torch
+
+    obs, bf, trans, init = banded_case(batch, 12, states, 3, seed=4,
+                                       tiny=tiny)
+    if window:
+        monkeypatch.setattr(torbi_tpu_torch, 'BACKTRACE_BATCH1_FUSED', False)
+        monkeypatch.setattr(torbi_tpu_torch, 'BACKTRACE_BATCH1_WINDOW', True)
+    calls = record_kernel_calls(monkeypatch)
+    dispatch.decode(obs, bf, trans, init, finite_observation=True,
+                    device='cpu')
+    assert tuple(calls) == expected
     stages = profile.time_stages(obs, bf, trans, init, iters=1)
     assert set(stages) == STAGE_KEYS
     assert stages['kernels'] == expected
+    assert set(calls) == set(expected)
     assert stages['band'] == band.detect_band(trans)
     assert stages['glue_ms'] == pytest.approx(
         stages['pipeline_ms'] - stages['forward_ms'] - stages['backtrace_ms'])
@@ -164,6 +199,9 @@ def test_speed_of_light_headline():
     sol = profile.speed_of_light(
         512, 512, 1440, pitch_band, 20.698, sms=132, clock_hz=1.98e9)
     assert sol['issue_ideal_ms'] == pytest.approx(3.8, rel=0.1)
+    # One max per candidate at the published 64 per SM and clock
+    assert sol['issue_ideal_ms'] == pytest.approx(
+        sol['candidates'] / (64 * 132 * 1.98e9) * 1e3)
     assert sol['smem_ideal_ms'] == pytest.approx(7.6, rel=0.1)
     assert sol['hbm_ideal_ms'] < sol['issue_ideal_ms']
     assert sol['bound_by'] == 'smem'

@@ -111,6 +111,46 @@ def _batch1_chase(band, states):
     return None
 
 
+def kernel_route(transition, band, batch):
+    """The forward kernel and the chase kernel that ``decode`` launches for
+    a transition with this gated ``band`` (None: dense) once it neither
+    decodes in closed form nor auto-chunks.
+
+    Returns ((forward name, forward), (chase name, chase)), the names those
+    of the wrappers' launch counters: ``forward(obs, batch_frames,
+    initial)`` gives (post_seq, posterior) through K1 ('band_forward'), K4
+    ('band_spread') or K2 ('dense_forward'), and ``chase(post_seq,
+    posterior, batch_frames)`` the indices through K3 ('backtrace'), K5
+    ('backtrace_fused1') or K6 ('backtrace_window').
+    """
+    import torbi_tpu_torch
+
+    states = int(transition.shape[0])
+    if band is None:
+        forward = ('dense_forward', lambda obs, bf, initial: (
+            viterbi_forward_dense(obs, bf, transition, initial)))
+    else:
+        matrix = _band_matrix(transition, band)
+        spread = (batch == 1 and band[1] > 0
+                  and torbi_tpu_torch.BAND_BATCH1_SPREAD
+                  and band_ops.spread_fits(states, band[1]))
+        kernel = (band_ops.viterbi_forward_band_spread if spread
+                  else band_ops.viterbi_forward_band)
+        forward = ('band_spread' if spread else 'band_forward',
+                   lambda obs, bf, initial: kernel(
+                       obs, bf, initial, band, matrix))
+    chase = (_batch1_chase(band, states)
+             if batch == 1 and band is not None else None)
+    if chase == 'fused':
+        return forward, ('backtrace_fused1', lambda post, posterior, bf: (
+            backtrace_fused1(post, transition, posterior, bf)))
+    if chase == 'window':
+        return forward, ('backtrace_window', lambda post, posterior, bf: (
+            backtrace_window(post, transition, posterior, bf, band)))
+    return forward, ('backtrace', lambda post, posterior, bf: (
+        backtrace_posteriors(post, transition, posterior, bf)))
+
+
 def _decode_constant(observation, batch_frames, initial, floor):
     """Closed-form decode for a constant transition (every candidate is
     ``floor``), bitwise equal to the banded recursion.
@@ -283,24 +323,6 @@ def decode(observation, batch_frames, transition, initial, backend=None,
         return decode_scan(obs, batch_frames, transition, initial)
     if constant:
         return _decode_constant(obs, batch_frames, initial, band[2])
-    if band is None:
-        post_seq, posterior = viterbi_forward_dense(
-            obs, batch_frames, transition, initial)
-        return backtrace_posteriors(
-            post_seq, transition, posterior, batch_frames)
-    single = batch == 1
-    spread = (single and torbi_tpu_torch.BAND_BATCH1_SPREAD
-              and band_ops.spread_fits(states, band[1]))
-    forward = (band_ops.viterbi_forward_band_spread if spread
-               else band_ops.viterbi_forward_band)
-    post_seq, posterior = forward(
-        obs, batch_frames, initial, band, _band_matrix(transition, band))
-    chase = _batch1_chase(band, states) if single else None
-    if chase == 'fused':
-        return backtrace_fused1(
-            post_seq, transition, posterior, batch_frames)
-    if chase == 'window':
-        return backtrace_window(
-            post_seq, transition, posterior, batch_frames, band)
-    return backtrace_posteriors(
-        post_seq, transition, posterior, batch_frames)
+    (_, forward), (_, chase) = kernel_route(transition, band, batch)
+    post_seq, posterior = forward(obs, batch_frames, initial)
+    return chase(post_seq, posterior, batch_frames)

@@ -181,8 +181,10 @@ def lab_inputs(frames, states, device):
 
 
 def main(argv=None):
-    """Run the lab; returns {label: result row}, the label being the
-    variant with ``@threads`` for the row variants"""
+    """Run the lab; returns the 'results' ({label: result row}, the label
+    being the variant with ``@threads`` for the row variants, the row
+    holding the final index of the last timed call) and the 'inputs'
+    (transition, posterior)"""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument(
         '--variants', default='scalar_only,v2s_floor,tree1,tree12,two_trees')
@@ -208,17 +210,22 @@ def main(argv=None):
     results = {}
     for variant, threads in runs:
         label = f'{variant}@{threads}' if variant in ROW_VARIANTS else variant
+        last = {}
+
+        def call(variant=variant, threads=threads):
+            last['index'] = lab_chase(variant, trans, post, threads)
+            return last['index']
+
         seconds = profile.time_submissions(
-            lambda variant=variant, threads=threads: lab_chase(
-                variant, trans, post, threads),
-            lambda result: result[0], args.iters)
+            call, lambda result: result[0], args.iters)
         results[label] = {
             'ms_per_call': seconds * 1e3,
-            'ns_per_step': seconds / args.frames * 1e9}
+            'ns_per_step': seconds / args.frames * 1e9,
+            'index': int(last['index'][0])}
         print(json.dumps({label: results[label]}), flush=True)
     print(json.dumps({'frames': args.frames, 'states': args.states,
                       'results': results}), flush=True)
-    return results
+    return {'results': results, 'inputs': (trans, post)}
 
 
 if __name__ == '__main__':

@@ -284,24 +284,28 @@ def lab_inputs(batch, frames, states, width, device):
 
 
 def run_spec(spec, observation, band, width, iters):
-    """Time one variant spec; returns its result row"""
+    """Time one variant spec; returns its result row and the output of its
+    last timed call"""
     from ..utils import profile
 
     name, param, batch_tile = parse_spec(spec)
     batch, frames, states = observation.shape
+    last = {}
     if name in SPREAD:
         sequence = observation[0]
         batch = 1
 
         def call():
-            return lab_spread(sequence, band, width, param,
-                              name == 'spread_sync')
+            last['output'] = lab_spread(sequence, band, width, param,
+                                        name == 'spread_sync')
+            return last['output']
 
         fetch = lambda result: result[0]  # noqa: E731
     else:
         def call():
-            return lab_forward(name, observation, band, width, param,
-                               batch_tile)
+            last['output'] = lab_forward(name, observation, band, width,
+                                         param, batch_tile)
+            return last['output']
 
         fetch = lambda result: result[0, 0]  # noqa: E731
     seconds = profile.time_submissions(call, fetch, iters)
@@ -313,7 +317,7 @@ def run_spec(spec, observation, band, width, iters):
         'ms_per_frame': seconds * 1e3 / max(frames - 1, 1),
         'G_candidates_per_s': candidates / seconds / 1e9,
         'candidates_per_sm_clock': candidates / (seconds * sms * clock_hz),
-    }
+    }, last['output']
 
 
 def check_tilted(args, device):
@@ -340,8 +344,10 @@ def check_spread(args, device):
 
 
 def main(argv=None):
-    """Run the lab; returns {spec: result row} plus the 'ideals' of the
-    forward variants' shape"""
+    """Run the lab; returns the 'results' ({spec: result row}), the
+    'outputs' of each spec's last timed call ((batch, states) posteriors,
+    (states,) for the spread variants), the 'inputs' (observation, band)
+    and the 'ideals' of the forward variants' shape"""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--variants', default='full,rollmax,addmax,max')
     parser.add_argument('--batch', type=int, default=512)
@@ -377,10 +383,11 @@ def main(argv=None):
         parse_spec(spec)
     obs, band = lab_inputs(
         args.batch, args.frames, args.states, args.width, device)
-    results = {}
+    results, outputs = {}, {}
     for spec in specs:
-        results[spec] = row = run_spec(spec, obs, band, args.width,
-                                       args.iters)
+        row, outputs[spec] = run_spec(spec, obs, band, args.width,
+                                      args.iters)
+        results[spec] = row
         print(json.dumps(row), flush=True)
     ideals = profile.speed_of_light(
         args.batch, args.frames, args.states, (-(args.width // 2), args.width),
@@ -393,7 +400,8 @@ def main(argv=None):
         'device': (torch.cuda.get_device_name(device)
                    if device.type == 'cuda' else 'cpu')}
     print(json.dumps(summary), flush=True)
-    return {'results': results, 'ideals': ideals}
+    return {'results': results, 'outputs': outputs, 'inputs': (obs, band),
+            'ideals': ideals}
 
 
 if __name__ == '__main__':

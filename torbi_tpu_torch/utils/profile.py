@@ -37,9 +37,13 @@ from .convert import resolve_device
 H100_SMS = 132
 H100_SM_CLOCK_HZ = 1.98e9
 H100_HBM_BYTES_PER_S = 3.35e12
-# FP32 instructions an SM issues per clock (4 partitions x 32 lanes), and
-# 4-byte words its shared memory delivers per clock (32 banks)
+# Results per clock per SM at compute capability 9.0, from the throughput
+# table of native arithmetic instructions in NVIDIA's CUDA C++ Programming
+# Guide: FP32 add, multiply and multiply-add 128 (also the lanes an SM's
+# four schedulers issue to per clock); compare, minimum and maximum 64. And
+# the 4-byte words an SM's shared memory delivers per clock (32 banks)
 FP32_LANES_PER_SM = 128
+MINMAX_PER_SM_CLOCK = 64
 SMEM_WORDS_PER_SM_CLOCK = 32
 
 # Kineto's categories of device events in a Chrome trace
@@ -214,11 +218,11 @@ def time_stages(observation, batch_frames, transition, initial, iters=8):
     observation (batch, frames, states) log-probabilities (its state
     dimension may be padded to the next multiple of 128), batch_frames,
     transition, initial. The forward and backtrace stages call the kernels
-    that ``ops/dispatch.py`` picks for this input: K1, K4 or K2, then K3,
-    K5 or K6 (a constant transition, which dispatch decodes in closed form,
-    times K1 and the chase on it; a long single sequence, which dispatch
-    may auto-chunk, times the serial route's kernels). Returns
-    milliseconds:
+    that ``dispatch.kernel_route`` picks for this input, as ``decode``
+    does: K1, K4 or K2, then K3, K5 or K6 (a constant transition, which
+    dispatch decodes in closed form, times K1 and the chase on it; a long
+    single sequence, which dispatch may auto-chunk, times the serial
+    route's kernels). Returns milliseconds:
 
     - forward_ms, backtrace_ms: steady-state time per call (queued calls)
     - pipeline_ms: ``dispatch.decode`` per call (queued calls)
@@ -229,10 +233,8 @@ def time_stages(observation, batch_frames, transition, initial, iters=8):
     and ``band`` (from ``detect_band``) and ``kernels`` (the names of the
     two kernels timed).
     """
-    import torbi_tpu_torch
-    from ..ops import backtrace as backtrace_ops
     from ..ops import band as band_ops
-    from ..ops import dense, dispatch
+    from ..ops import dispatch
 
     if observation.ndim != 3:
         raise ValueError(
@@ -241,7 +243,6 @@ def time_stages(observation, batch_frames, transition, initial, iters=8):
             'package exists only for its TPU kernel)')
     device = observation.device
     states = int(transition.shape[0])
-    batch = observation.shape[0]
     obs = observation[..., :states].to(torch.float32).contiguous()
     batch_frames = batch_frames.to(device=device, dtype=torch.int32)
     transition = transition.to(device=device, dtype=torch.float32)
@@ -250,53 +251,19 @@ def time_stages(observation, batch_frames, transition, initial, iters=8):
     band = band_ops.gate_band(
         band_ops.detect_band(transition), initial, observation=None,
         finite_observation=True)
-    single = batch == 1
-    if band is None:
-        forward_name, chase = 'dense_forward', None
-
-        def forward():
-            return dense.viterbi_forward_dense(
-                obs, batch_frames, transition, initial)
-    else:
-        matrix = dispatch._band_matrix(transition, band)
-        spread = (single and band[1] > 0
-                  and torbi_tpu_torch.BAND_BATCH1_SPREAD
-                  and band_ops.spread_fits(states, band[1]))
-        kernel = (band_ops.viterbi_forward_band_spread if spread
-                  else band_ops.viterbi_forward_band)
-        forward_name = 'band_spread' if spread else 'band_forward'
-        chase = dispatch._batch1_chase(band, states) if single else None
-
-        def forward():
-            return kernel(obs, batch_frames, initial, band, matrix)
+    (forward_name, forward), (backtrace_name, chase) = dispatch.kernel_route(
+        transition, band, observation.shape[0])
 
     _log(f'stage: forward ({forward_name})')
     forward_ms = time_submissions(
-        forward, lambda result: result[1][0, 0], iters) * 1e3
+        lambda: forward(obs, batch_frames, initial),
+        lambda result: result[1][0, 0], iters) * 1e3
 
-    post_seq, posterior = forward()
-    if chase == 'fused':
-        backtrace_name = 'backtrace_fused1'
-
-        def backtrace():
-            return backtrace_ops.backtrace_fused1(
-                post_seq, transition, posterior, batch_frames)
-    elif chase == 'window':
-        backtrace_name = 'backtrace_window'
-
-        def backtrace():
-            return backtrace_ops.backtrace_window(
-                post_seq, transition, posterior, batch_frames, band)
-    else:
-        backtrace_name = 'backtrace'
-
-        def backtrace():
-            return backtrace_ops.backtrace_posteriors(
-                post_seq, transition, posterior, batch_frames)
-
+    post_seq, posterior = forward(obs, batch_frames, initial)
     _log(f'stage: backtrace ({backtrace_name})')
     backtrace_ms = time_submissions(
-        backtrace, lambda result: result[0, 0], iters) * 1e3
+        lambda: chase(post_seq, posterior, batch_frames),
+        lambda result: result[0, 0], iters) * 1e3
     del post_seq, posterior
 
     def pipeline():
@@ -377,8 +344,10 @@ def speed_of_light(batch, frames, states, band, measured_forward_ms,
     Each candidate is an add and a max, two FP32 instructions, and loads
     its source from shared memory. So the least times are:
 
-    - issue_ideal_ms: two instructions per candidate at ``FP32_LANES_PER_SM``
-      per SM and clock;
+    - issue_ideal_ms: one max per candidate at ``MINMAX_PER_SM_CLOCK`` per
+      SM and clock (the add runs at twice that rate beside it; the two
+      instructions at ``FP32_LANES_PER_SM`` issue slots per SM and clock
+      take the same time);
     - smem_ideal_ms: one 4-byte shared-memory load per candidate at
       ``SMEM_WORDS_PER_SM_CLOCK`` per SM and clock;
     - hbm_ideal_ms: the observation read and the posterior stream written
@@ -395,7 +364,7 @@ def speed_of_light(batch, frames, states, band, measured_forward_ms,
         clock_hz = card_clock if clock_hz is None else clock_hz
     candidates = (batch * max(frames - 1, 0)
                   * band_candidates(states, band, circular))
-    issue_ms = 2 * candidates / (FP32_LANES_PER_SM * sms * clock_hz) * 1e3
+    issue_ms = candidates / (MINMAX_PER_SM_CLOCK * sms * clock_hz) * 1e3
     smem_ms = candidates / (SMEM_WORDS_PER_SM_CLOCK * sms * clock_hz) * 1e3
     hbm_ms = batch * frames * states * 4 * 2 / H100_HBM_BYTES_PER_S * 1e3
     ideals = {'issue': issue_ms, 'smem': smem_ms, 'hbm': hbm_ms}
