@@ -24,14 +24,19 @@ just after each:
   from a host array, and with its plan cached;
 - the labs (``python -m torbi_tpu_torch.scripts.kernel_lab`` and
   ``... .chase_lab``): each lab kernel held bitwise against its plain
-  version at small shapes (every forward body at every accumulator count
-  or tile with 1-8 sequences per CTA, the spread kernel with clusters of 8
-  and 16, every chase variant in both thread shapes), then timed at full
-  width through the labs' entry points: the forward variants at 512 x 512
-  x 1440 (width 175) beside K1 and the H100 ideals, the spread variants at
-  1 x 10,240 beside K4, the chase variants over 10,240 steps beside K5 and
-  K6. The output of every timed run is held bitwise against its plain
-  version on the same inputs, at that full size;
+  version at small shapes (every forward body, the pipe groups 2-16
+  included, at every accumulator count or tile with 1-8 sequences per CTA;
+  at 1536 states the tensor-core mxushift at every accumulator count and
+  hybrid:K at K 1, 8, 81, the mod-M mod12 and mod12k (both outputs) at
+  every accumulator count and tile, mod12 also un-permuted against full;
+  the spread kernel with clusters of 8 and 16, every chase variant in both
+  thread shapes), then timed at full width through the labs' entry points:
+  the forward variants at 512 x 512 x 1440 (width 175) beside K1 and the
+  H100 ideals, mxushift, hybrid, mod12 and mod12k at 512 x 512 x 1536
+  beside full:4:4 at that shape, the spread variants at 1 x 10,240 beside
+  K4, the chase variants over 10,240 steps beside K5 and K6. The output of
+  every timed run is held bitwise against its plain version on the same
+  inputs, at that full size;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -72,7 +77,16 @@ LAB_CHECK_FRAMES, LAB_CHECK_STEPS, LAB_ITERS = 64, 256, 3
 LAB_FORWARD_SPECS = (
     'full:4:1', 'full:4:2', 'full:4:4', 'full:4:8', 'full:1:1', 'full:1:2',
     'full:1:4', 'full:1:8', 'rollmax', 'addmax', 'max', 'rowadd', 'pipe',
-    'tilted:2', 'tilted:4', 'tilted:8')
+    'pipe2', 'pipe4', 'pipe16', 'tilted:2', 'tilted:4', 'tilted:8')
+# The tensor-core and mod-M labs need the states a multiple of 128: the
+# JAX lab's default 1536 (M = 12), the headline's batch, frames and width;
+# full:4:4 timed beside them at that shape
+LAB_MOD_STATES = 1536
+HYBRID_KS = (1, 8, 81)
+LAB_MOD_SPECS = (
+    'full:4:4', 'mxushift:1', 'mxushift:2', 'mxushift:4', 'mxushift:8',
+    *(f'hybrid:{k}' for k in HYBRID_KS), 'mod12', 'mod12:1:4', 'mod12:8:8',
+    'mod12k', 'mod12k:1:4')
 
 # The H100's memory rate and its FP32 instruction issue rate (an add and a
 # max are one instruction each; two per candidate at 128 issue slots per SM
@@ -794,7 +808,8 @@ def main():
     lab_obs, lab_band = kernel_lab.lab_inputs(
         8, LAB_CHECK_FRAMES, STATES, width, device)
     for name in ('full', 'rollmax', 'addmax', 'max', 'vregroll', 'rowadd',
-                 'pipe', 'tilted', 'introt', 'subroll'):
+                 'pipe', 'pipe2', 'pipe4', 'pipe16', 'tilted', 'introt',
+                 'subroll'):
         want = kernel_lab.forward_reference(name, lab_obs, lab_band, width)
         params = (kernel_lab.TILES if name in kernel_lab.TILED
                   else kernel_lab.N_ACCS)
@@ -811,6 +826,49 @@ def main():
         info(f'lab_forward {name}: bitwise equal to its plain version at '
              f'{"R" if name in kernel_lab.TILED else "n_acc"} '
              f'{"/".join(map(str, params))} x 1/2/4/8 sequences per CTA')
+    # The tensor-core and mod-M labs at 8 x 64 x 1536: mxushift at every
+    # n_acc, hybrid:K, mod12 (also un-permuted against full) and mod12k's
+    # two outputs at every n_acc and sequences per CTA
+    mod_obs, mod_band = kernel_lab.lab_inputs(
+        8, LAB_CHECK_FRAMES, LAB_MOD_STATES, width, device)
+    want = kernel_lab.forward_reference('full', mod_obs, mod_band, width)
+    for n_acc in kernel_lab.N_ACCS:
+        require_equal(torch, f'lab_mxu mxushift:{n_acc} at {LAB_MOD_STATES} '
+                      'states', kernel_lab.lab_mxu(
+                          mod_obs, mod_band, width, n_acc), want)
+    for k in HYBRID_KS:
+        require_equal(torch, f'lab_mxu hybrid:{k} at {LAB_MOD_STATES} states',
+                      kernel_lab.lab_mxu(mod_obs, mod_band, width, mxu_k=k),
+                      want)
+    keys, stitched = kernel_lab.mod12_stitched(mod_band, width)
+    obs_mod = kernel_lab.mod12_obs(mod_obs, LAB_MOD_STATES)
+    want_mod, want_natural = kernel_lab.mod12k_reference(
+        mod_obs, stitched, keys)
+    if not torch.equal(kernel_lab.mod12_reference(obs_mod, stitched, keys),
+                       want_mod) or not torch.equal(want_natural, want):
+        fail('the plain mod12 and mod12k differ from full (tolerance: '
+             'bitwise)')
+    for n_acc in kernel_lab.N_ACCS:
+        for nb in kernel_lab.BATCH_TILES:
+            got = kernel_lab.lab_mod12(obs_mod, stitched, keys, n_acc, nb)
+            got_k = kernel_lab.lab_mod12k(mod_obs, stitched, keys, n_acc, nb)
+            torch.cuda.synchronize()
+            for label, out, expected in (
+                    ('mod12', got, want_mod),
+                    ('mod12 un-permuted vs full', kernel_lab.unmod12_posterior(
+                        got, 8, LAB_MOD_STATES), want),
+                    ('mod12k mod-M output', got_k[0], want_mod),
+                    ('mod12k natural output', got_k[1], want)):
+                if not torch.equal(out, expected):
+                    fail(f'lab_mod {label} at {n_acc}:{nb} differs from its '
+                         f'plain version (max abs err '
+                         f'{max_abs_err(torch, out, expected)}; tolerance: '
+                         'bitwise)')
+    info(f'lab_mod mod12 (also un-permuted against full) and mod12k (both '
+         f'outputs): bitwise equal to their plain versions at n_acc 1/2/4/8 '
+         f'x 1/2/4/8 sequences per CTA, {len(keys)} stitched pairs at '
+         f'{LAB_MOD_STATES} states')
+    del mod_obs, obs_mod, want_mod, want_natural
     spread_obs, spread_band = kernel_lab.lab_inputs(
         1, LAB_CHECK_STEPS, STATES, width, device)
     spread_seq = spread_obs[0].contiguous()
@@ -843,11 +901,15 @@ def main():
     # counters reset just before and read just after each
     lab_counters = {
         'lab_forward': kernel_lab.lab_forward,
+        'lab_pipe': kernel_lab.lab_pipe,
+        'lab_mxushift': kernel_lab.lab_mxu,
+        'lab_mod12': kernel_lab.lab_mod12,
+        'lab_mod12k': kernel_lab.lab_mod12k,
         'lab_spread': kernel_lab.lab_spread,
         'lab_chase': chase_lab.lab_chase}
     lab_counts = {}
 
-    def lab_run(name, module, argv):
+    def lab_run(name, module, argv, kernels=None):
         for fn in lab_counters.values():
             fn.launches = 0
         result = module.main(argv)
@@ -855,15 +917,16 @@ def main():
         lab_counts[name] = {key: fn.launches
                             for key, fn in lab_counters.items()}
         info(f'{name} lab launches: {lab_counts[name]}')
-        if lab_counts[name][name] < 1:
-            fail(f'the {name} lab did not launch its kernel')
+        for kernel in kernels or (name,):
+            if lab_counts[name][kernel] < 1:
+                fail(f'the {name} lab did not launch {kernel}')
         return result
 
     shape = ['--states', str(STATES), '--width', str(width),
              '--iters', str(LAB_ITERS)]
     forward_lab = lab_run('lab_forward', kernel_lab, [
         '--variants', ','.join(LAB_FORWARD_SPECS), '--batch', str(BATCH),
-        '--frames', str(FRAMES), *shape])
+        '--frames', str(FRAMES), *shape], ('lab_forward', 'lab_pipe'))
     # Every timed output against its plain version on the same inputs, at
     # the timed size: the plain version runs once per function (full for
     # its aliases), its first call timed
@@ -881,8 +944,9 @@ def main():
                  f'differs from its plain version (max abs err '
                  f'{max_abs_err(torch, got, wanted[function])}; tolerance: '
                  'bitwise)')
-        lab_err['lab_forward'] = max(lab_err.get('lab_forward', 0.0),
-                                     max_abs_err(torch, got, wanted[function]))
+        kernel = 'lab_pipe' if name in kernel_lab.PIPES else 'lab_forward'
+        lab_err[kernel] = max(lab_err.get(kernel, 0.0),
+                              max_abs_err(torch, got, wanted[function]))
     info(f'lab_forward: every timed spec bitwise equal to its plain version '
          f'at {BATCH} x {FRAMES} x {STATES}, width {width} (plain ms: '
          + ', '.join(f'{key} {value:.1f}' for key, value in lab_plain.items())
@@ -903,6 +967,71 @@ def main():
              f'SM and clock, {ideals["issue_ideal_ms"] / row["ms"]:.3f} of '
              f'the issue ideal, {ideals["smem_ideal_ms"] / row["ms"]:.3f} of '
              f'the shared-memory ideal, on {card}')
+
+    # The tensor-core and mod-M labs at 512 x 512 x 1536 through the same
+    # entry point, beside full:4:4 at that shape; every timed output against
+    # its plain version, mod12's also un-permuted against full's
+    mod_lab = lab_run('lab_mxu_mod', kernel_lab, [
+        '--variants', ','.join(LAB_MOD_SPECS), '--batch', str(BATCH),
+        '--frames', str(FRAMES), '--states', str(LAB_MOD_STATES), '--width',
+        str(width), '--iters', str(LAB_ITERS)],
+        ('lab_forward', 'lab_mxushift', 'lab_mod12', 'lab_mod12k'))
+    mod_obs, mod_band = mod_lab['inputs']
+    want, lab_plain['full@1536'] = cuda_once(
+        torch, lambda: kernel_lab.forward_reference(
+            'full', mod_obs, mod_band, width))
+    keys, stitched = kernel_lab.mod12_stitched(mod_band, width)
+    obs_mod = kernel_lab.mod12_obs(mod_obs, LAB_MOD_STATES)
+    want_mod, lab_plain['mod12'] = cuda_once(
+        torch, lambda: kernel_lab.mod12_reference(obs_mod, stitched, keys))
+    del obs_mod
+    (want_mod_k, want_natural), lab_plain['mod12k'] = cuda_once(
+        torch, lambda: kernel_lab.mod12k_reference(mod_obs, stitched, keys))
+    if not (torch.equal(want_mod_k, want_mod)
+            and torch.equal(want_natural, want)):
+        fail('the plain mod12 and mod12k differ from full at '
+             f'{LAB_MOD_STATES} states (tolerance: bitwise)')
+    for spec, got in mod_lab['outputs'].items():
+        name = kernel_lab.parse_spec(spec)[0]
+        if name == 'mod12':
+            pairs = [('lab_mod12', got, want_mod),
+                     ('lab_mod12', kernel_lab.unmod12_posterior(
+                         got, BATCH, LAB_MOD_STATES), want)]
+        elif name == 'mod12k':
+            pairs = [('lab_mod12k', got[0], want_mod),
+                     ('lab_mod12k', got[1], want)]
+        else:
+            pairs = [('lab_mxushift' if name in kernel_lab.MXU
+                      else 'lab_forward', got, want)]
+        for kernel, out, expected in pairs:
+            err = max_abs_err(torch, out, expected)
+            lab_err[kernel] = max(lab_err.get(kernel, 0.0), err)
+            if not torch.equal(out, expected):
+                fail(f'{kernel} {spec} at {BATCH} x {FRAMES} x '
+                     f'{LAB_MOD_STATES} differs from its plain version (max '
+                     f'abs err {err}; tolerance: bitwise)')
+    info(f'lab_mxu and lab_mod: every timed spec bitwise equal to its plain '
+         f'version at {BATCH} x {FRAMES} x {LAB_MOD_STATES}, width {width}, '
+         f'mod12 also un-permuted against full, mod12k in both outputs '
+         f'(plain ms: full {lab_plain["full@1536"]:.1f}, mod12 '
+         f'{lab_plain["mod12"]:.1f}, mod12k {lab_plain["mod12k"]:.1f})')
+    del want, want_mod, want_mod_k, want_natural, mod_obs, mod_band, \
+        mod_lab['inputs'], mod_lab['outputs']
+    full1536_ms = mod_lab['results']['full:4:4']['ms']
+    for spec, row in mod_lab['results'].items():
+        extra = ''
+        if 'mma_instructions' in row:
+            extra = (f'; {row["mma_instructions"]} mma.sync.m16n8k16 '
+                     f'({row["mma_peak_ms"]:.3f} ms at the 989 TFLOP/s bf16 '
+                     f'peak), candidates on the tensor cores '
+                     f'{row["tensor_core_candidates"]}, by shared-memory '
+                     f'load {row["shared_load_candidates"]}')
+        elif 'stitched_pairs' in row:
+            extra = f'; {row["stitched_pairs"]} stitched pairs'
+        info(f'lab {spec} at {BATCH} x {FRAMES} x {LAB_MOD_STATES}: '
+             f'{row["ms"]:.3f} ms ({row["ms"] / full1536_ms:.3f} x full:4:4 '
+             f'at that shape), {row["candidates_per_sm_clock"]:.3f} '
+             f'candidates per SM and clock{extra}, on {card}')
 
     spread_lab = lab_run('lab_spread', kernel_lab, [
         '--variants', 'spread,spread:16,spread_sync,spread_sync:16',
@@ -975,6 +1104,40 @@ def main():
             (BATCH * FRAMES * STATES + wpad * STATES + BATCH * STATES) * 4,
             2 * candidates + BATCH * (FRAMES - 1) * STATES),
         library_ms=None, smem_bound_ms=candidates / smem_words_per_s * 1e3)
+    kernels['lab_pipe'] = dict(
+        kernels['lab_forward'], name='lab_pipe',
+        source='torbi_tpu_torch/csrc/lab_pipe.cu',
+        max_abs_err=lab_err['lab_pipe'],
+        ms=forward_lab['results']['pipe']['ms'])
+    # The mxu and mod-M labs at 1536 states: full's function, its bounds
+    mod_steps = BATCH * (FRAMES - 1) * LAB_MOD_STATES
+    mod_candidates = mod_steps * width
+    mod_in = BATCH * FRAMES * LAB_MOD_STATES
+    mod_out = BATCH * LAB_MOD_STATES
+    stitched_words = stitched.numel()
+    mod_results = mod_lab['results']
+    for name, source, line, spec, in_words, out_words, plain in (
+            ('lab_mxushift', 'lab_mxu', 319, 'mxushift:4',
+             mod_in + wpad * LAB_MOD_STATES, mod_out, 'full@1536'),
+            ('lab_mod12', 'lab_mod', 578, 'mod12', mod_in + stitched_words,
+             mod_out, 'mod12'),
+            ('lab_mod12k', 'lab_mod', 671, 'mod12k', mod_in + stitched_words,
+             2 * mod_out, 'mod12k')):
+        kernels[name] = dict(
+            name=name, route='cuda',
+            source=f'torbi_tpu_torch/csrc/{source}.cu',
+            replaces=f'scripts/kernel_lab.py:{line}', path='lab_mxu_mod',
+            max_abs_err=lab_err[name], ms=mod_results[spec]['ms'],
+            plain_ms=lab_plain[plain],
+            bound=bound_ms((in_words + out_words) * 4,
+                           2 * mod_candidates + mod_steps),
+            library_ms=None,
+            smem_bound_ms=mod_candidates / smem_words_per_s * 1e3)
+    kernels['lab_mxushift'].update(
+        mma_instructions=mod_results['mxushift:4']['mma_instructions'],
+        mma_peak_ms=mod_results['mxushift:4']['mma_peak_ms'])
+    kernels['lab_mod12']['stitched_pairs'] = len(keys)
+    kernels['lab_mod12k']['stitched_pairs'] = len(keys)
     spread_candidates = (SINGLE_FRAMES - 1) * STATES * width
     kernels['lab_spread'] = dict(
         name='lab_spread', route='cuda',
@@ -998,9 +1161,12 @@ def main():
         bound=bound_ms(SINGLE_FRAMES * 2 * STATES * 4 + 4,
                        SINGLE_FRAMES * 2 * STATES),
         library_ms=None)
-    info('lab kernels line entries: lab_forward full:4:4, lab_spread '
-         'spread (cluster 8), lab_chase tree12 (192 threads), each beside '
-         'its plain version at the same size')
+    info('lab kernels line entries: lab_forward full:4:4, lab_pipe pipe '
+         '(G = 8; both at 1440 states), lab_mxushift mxushift:4, lab_mod12 '
+         'mod12:4:4, lab_mod12k mod12k:4:4 (at 1536 states, bounds of '
+         'full\'s function there), lab_spread spread (cluster 8), lab_chase '
+         'tree12 (192 threads), each beside its plain version at the same '
+         'size')
 
     # 9. The profiler: stage times of the headline and of the batch-1
     # serial route, then one headline call traced
@@ -1054,6 +1220,7 @@ def main():
     lines = []
     for name in ('band_forward', 'band_spread', 'dense_forward', 'backtrace',
                  'backtrace_fused1', 'backtrace_window', 'lab_forward',
+                 'lab_pipe', 'lab_mxushift', 'lab_mod12', 'lab_mod12k',
                  'lab_spread', 'lab_chase'):
         entry = dict(kernels[name])
         bound, bound_by = entry.pop('bound')
@@ -1065,8 +1232,10 @@ def main():
             ms=entry['ms'], plain_ms=entry['plain_ms'], bound_ms=bound,
             bound_by=bound_by, library_ms=entry['library_ms'],
             path=entry['path'])
-        if 'smem_bound_ms' in entry:
-            line['smem_bound_ms'] = entry['smem_bound_ms']
+        for extra in ('smem_bound_ms', 'mma_instructions', 'mma_peak_ms',
+                      'stitched_pairs'):
+            if extra in entry:
+                line[extra] = entry[extra]
         lines.append(line)
     print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {

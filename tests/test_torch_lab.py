@@ -182,28 +182,8 @@ def test_chase_variant_equals_jax(jax_chase_lab, monkeypatch, variant):
         assert got.dtype == torch.int32 and got.tolist() == [expected]
 
 
-@pytest.mark.parametrize('name', kernel_lab.UNPORTED)
-def test_unported_variants_raise(name):
-    """The JAX lab's MXU and mod-12 variants name ROADMAP A12"""
-    obs, band = lab_case(5)
-    with pytest.raises(NotImplementedError, match='A12'):
-        kernel_lab.parse_spec(f'{name}:4')
-    with pytest.raises(NotImplementedError, match='A12'):
-        kernel_lab.forward_reference(
-            name, torch.from_numpy(obs), torch.from_numpy(band), 5)
-    with pytest.raises(NotImplementedError, match='A12'):
-        kernel_lab.main(['--device', 'cpu', '--variants', name])
-
-
-def test_check_mod12_raises(monkeypatch):
-    """--check-mod12 names ROADMAP A12, with a card or without one"""
-    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    with pytest.raises(NotImplementedError, match='A12'):
-        kernel_lab.main(['--check-mod12'])
-
-
 @pytest.mark.parametrize('spec', [
-    'pipe4', 'full:3', 'tilted:1', 'spread:4', 'full:4:3', 'nonesuch'])
+    'pipe3', 'full:3', 'tilted:1', 'spread:4', 'full:4:3', 'nonesuch'])
 def test_bad_specs_raise(spec):
     with pytest.raises(ValueError):
         kernel_lab.parse_spec(spec)

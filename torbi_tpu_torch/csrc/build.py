@@ -18,7 +18,8 @@ CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parent.parent / 'build' / 'torbi_tpu_torch'
 SOURCES = (
     'band_forward', 'band_spread', 'dense_forward', 'backtrace',
-    'backtrace_batch1', 'lab_forward', 'lab_spread', 'lab_chase')
+    'backtrace_batch1', 'lab_forward', 'lab_pipe', 'lab_mxu', 'lab_mod',
+    'lab_spread', 'lab_chase')
 FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
