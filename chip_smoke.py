@@ -10,8 +10,13 @@ just after each:
 
 - the banded path (the headline): 512 sequences x 512 frames of peaked
   synthetic pitch posteriorgrams under the 1440-state pitch transition
-  taken to log(p + tiny) -- the banded forward kernel (K1), then the
-  backtrace (K3);
+  taken to log(p + tiny) -- the banded forward kernel (K1) in its cluster
+  design, then the backtrace (K3). K1's two designs (the cluster design
+  ``band_forward`` and the per-CTA design ``band_forward_cta``) are both
+  held bitwise and timed at the headline and on the auto-chunk rows, and
+  K1 (at every cluster size) and K3 on every shape of the edge list
+  (``torbi_tpu_torch/utils/edges.py``, the list the CPU tests hold against
+  torbi_tpu), K3 also past 8 x 1024 states;
 - the dense path: a random dense 1440-state transition at 8 x 64, and the
   README toy -- the dense forward kernel (K2), then K3;
 - the batch-1 paths, one pitch sequence of 10,240 frames (bench.py's batch-1
@@ -19,9 +24,10 @@ just after each:
   K3), the serial route with auto-chunking off (the batch-1 forward K4,
   then the fused chase K5), a 2048-frame sequence (K4, K5), the window
   chase (K6) on a pure -inf band, a band too wide for K4's shared memory
-  (K1, K5), and the uniform transition's closed form. The auto-chunk route
-  is timed on a new observation every call (its plan computed each time),
-  from a host array, and with its plan cached;
+  (K1's cluster design, K5), a band too wide for any cluster layout (K1's
+  per-CTA design, K5), and the uniform transition's closed form. The
+  auto-chunk route is timed on a new observation every call (its plan
+  computed each time), from a host array, and with its plan cached;
 - the labs (``python -m torbi_tpu_torch.scripts.kernel_lab`` and
   ``... .chase_lab``): each lab kernel held bitwise against its plain
   version at small shapes (every forward body, the pipe groups 2-16
@@ -67,8 +73,12 @@ SINGLE_FRAMES, SHORT_FRAMES = 10240, 2048
 # Half-width of the pure -inf band of the window phase (the pitch band's)
 WINDOW_HALFWIDTH = 87
 # A band over the pitch floor too wide for K4's shared memory at 1440 states
-# (width 261), and the frames of the phases that check that limit
+# (width 261), and the frames of the phases that check that limit; a band
+# too wide for any layout of K1's cluster design (width 401)
 WIDE_HALFWIDTH, EDGE_FRAMES = 130, 256
+CTA_HALFWIDTH = 200
+# K3 past 8 x 1024 states: the chase without staging, on a dense transition
+BIG_STATES = 8200
 
 # The lab phases: the bitwise checks' frames (forward lab at 8 sequences,
 # spread lab) and steps (chase lab), the timed iterations, and the forward
@@ -215,7 +225,7 @@ def main():
     from torbi_tpu_torch.models import pitch
     from torbi_tpu_torch.ops import backtrace, band, dense, dispatch
     from torbi_tpu_torch.scripts import chase_lab, kernel_lab
-    from torbi_tpu_torch.utils import profile
+    from torbi_tpu_torch.utils import edges, profile
 
     device = torch.device('cuda', 0)
     torch.cuda.set_device(device)
@@ -264,18 +274,29 @@ def main():
     kernels = {}
 
     # 2. Each kernel against its plain version on the card
-    # K1: banded forward at the headline shape
-    post_k, posterior_k = band.viterbi_forward_band(
-        obs_k, bf, init, band_tuple, band_matrix)
-    post_r, _ = band.band_forward_reference(
-        obs_k, bf, init, band_tuple, band_matrix)
+    # K1 at the headline shape: the cluster design (band_forward, as
+    # band.cluster_plan launches it) and the per-CTA design
+    # (band_forward_cta), each against the plain version, then timed in
+    # turns (cluster, per-CTA, per-CTA, cluster)
+    k1_args = (obs_k, bf, init, band_tuple, band_matrix)
+    k1_plan = band.cluster_plan(BATCH, STATES, width)
+    info(f'K1 cluster plan at {BATCH} x {STATES}, width {width}: (start, '
+         f'count, sequences per cluster) {k1_plan}')
+    post_k, posterior_k = band.viterbi_forward_band(*k1_args)
+    (post_r, _), k1_plain_ms = cuda_once(
+        torch, lambda: band.band_forward_reference(*k1_args))
     torch.cuda.synchronize()
-    err = require_equal(torch, 'K1 band_forward', post_k, post_r)
+    err = require_equal(torch, 'K1 band_forward (cluster design)', post_k,
+                        post_r)
+    cta_err = require_equal(
+        torch, 'K1 band_forward_cta (per-CTA design)',
+        band.viterbi_forward_band_cta(*k1_args)[0], post_r)
     del post_r
-    k1_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(
-        obs_k, bf, init, band_tuple, band_matrix), iters=5)
-    k1_plain_ms = cuda_ms(torch, lambda: band.band_forward_reference(
-        obs_k, bf, init, band_tuple, band_matrix), iters=1, warmup=0)
+    k1_turns = [cuda_ms(torch, lambda: fn(*k1_args), iters=5) for fn in (
+        band.viterbi_forward_band, band.viterbi_forward_band_cta,
+        band.viterbi_forward_band_cta, band.viterbi_forward_band)]
+    k1_ms = (k1_turns[0] + k1_turns[3]) / 2
+    k1_cta_ms = (k1_turns[1] + k1_turns[2]) / 2
     steps = valid_steps(bf, FRAMES)
     # In-range (source, destination) pairs of the band: the candidates a
     # step needs
@@ -286,14 +307,51 @@ def main():
     # Per step: an add and a max per candidate; per state the floor max,
     # the posterior max and the observation add
     k1_ops = steps * (2 * in_range + 3 * STATES)
+    # Band bytes read from L2 per call: the per-CTA design reads every
+    # in-range band value in every CTA (4 sequences each) and frame; the
+    # cluster design reads each CTA's slice (the whole band per cluster)
+    # once per launch
+    k1_l2_cta = -(-BATCH // 4) * (FRAMES - 1) * in_range * 4
+    k1_l2 = sum(-(-count // size) for _, count, size in k1_plan) * (
+        width * STATES * 4)
     kernels['band_forward'] = dict(
         name='band_forward', route='cuda',
         source='torbi_tpu_torch/csrc/band_forward.cu',
         replaces='torbi_tpu/ops/band.py:512', path='banded',
         max_abs_err=err, ms=k1_ms, plain_ms=k1_plain_ms,
         bound=bound_ms(k1_bytes, k1_ops), library_ms=None,
-        smem_bound_ms=steps * in_range / smem_words_per_s * 1e3)
-    info(f'K1 band_forward: {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms')
+        smem_bound_ms=steps * in_range / smem_words_per_s * 1e3,
+        l2_band_bytes=k1_l2)
+    kernels['band_forward_cta'] = dict(
+        kernels['band_forward'], name='band_forward_cta', path='batch1-cta',
+        max_abs_err=cta_err, ms=k1_cta_ms, ms_shape='headline',
+        l2_band_bytes=k1_l2_cta)
+    info(f'K1 at the headline, in turns (ms): cluster {k1_turns[0]:.3f}, '
+         f'per-CTA {k1_turns[1]:.3f}, per-CTA {k1_turns[2]:.3f}, cluster '
+         f'{k1_turns[3]:.3f}; plain {k1_plain_ms:.1f} ms; band bytes from L2 '
+         f'per call: cluster {k1_l2:.4g}, per-CTA {k1_l2_cta:.4g}')
+
+    # K1's launch plan on the card: the clusters of 8 the card holds at
+    # once (band.CLUSTER_WAVE mirrors them), the headline in one launch of
+    # 16 clusters of 32, and the plan's rest (the last 32 sequences) at
+    # each cluster size that might take it
+    resident = {size: band.resident_clusters(STATES, width, size)
+                for size in band.CLUSTER_TILES}
+    rest = k1_plan[-1][0]
+    rest_args = (obs_k[rest:], bf[rest:], init, band_tuple, band_matrix)
+    rest_ms = {size: cuda_ms(torch, lambda: band.viterbi_forward_band(
+        *rest_args, sequences=size), iters=3) for size in (1, 4, 8)}
+    one_launch_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(
+        *k1_args, sequences=32), iters=3)
+    kernels['band_forward'].update(
+        resident_clusters=resident, rest_ms=rest_ms,
+        one_launch_ms=one_launch_ms)
+    info(f'K1 cluster plan on the card: clusters of 8 held at once per '
+         f'sequences per cluster {resident} (band.CLUSTER_WAVE '
+         f'{band.CLUSTER_WAVE}); one launch of {-(-BATCH // 32)} clusters '
+         f'of 32: {one_launch_ms:.3f} ms; the last {BATCH - rest} sequences '
+         'at 1/4/8 per cluster: ' + '/'.join(
+             f'{ms:.3f}' for ms in rest_ms.values()) + ' ms')
 
     # K3: backtrace on K1's output
     idx_k = backtrace.backtrace_posteriors(post_k, trans, posterior_k, bf)
@@ -383,8 +441,60 @@ def main():
             require_equal(torch, f'K3 backtrace ({label})', got, want))
     del dpost_k, dpost_r
 
+    # The edge list (utils/edges.py, held against torbi_tpu on the CPU by
+    # tests/test_torch_edges.py): K1's cluster design at every cluster
+    # size, its per-CTA design and K3 on each band edge, K3 on each chase
+    # edge, and K3 past 8 x 1024 states (the chase without staging)
+    for edge in edges.BAND_EDGES:
+        e_obs, e_bf, e_trans, e_init = (
+            torch.from_numpy(a).to(device)
+            for a in edges.band_edge_inputs(edge))
+        e_band = band.detect_band(e_trans)
+        e_args = (e_obs, e_bf, e_init, e_band, band.build_band_matrix(
+            e_trans, e_band[0], e_band[1]))
+        e_post, e_posterior = band.band_forward_reference(*e_args)
+        for size in band.CLUSTER_TILES:
+            got, _ = band.viterbi_forward_band(*e_args, sequences=size)
+            kernels['band_forward']['max_abs_err'] = max(
+                kernels['band_forward']['max_abs_err'], require_equal(
+                    torch, f'K1 band_forward {edge.name}, {size} per '
+                    'cluster', got, e_post))
+        kernels['band_forward_cta']['max_abs_err'] = max(
+            kernels['band_forward_cta']['max_abs_err'], require_equal(
+                torch, f'K1 band_forward_cta {edge.name}',
+                band.viterbi_forward_band_cta(*e_args)[0], e_post))
+        kernels['backtrace']['max_abs_err'] = max(
+            kernels['backtrace']['max_abs_err'], require_equal(
+                torch, f'K3 backtrace {edge.name}',
+                backtrace.backtrace_posteriors(
+                    e_post, e_trans, e_posterior, e_bf),
+                backtrace.backtrace_reference(
+                    e_post, e_trans, e_posterior, e_bf)))
+    big = torch.Generator(device).manual_seed(2)
+    chase_cases = [
+        (edge.name, *(torch.from_numpy(a).to(device)
+                      for a in edges.chase_edge_inputs(edge)))
+        for edge in edges.CHASE_EDGES]
+    chase_cases.append((
+        f'{BIG_STATES} states',
+        torch.randn((3, 6, BIG_STATES), generator=big, device=device),
+        torch.randn((BIG_STATES, BIG_STATES), generator=big, device=device),
+        torch.tensor([6, 1, 4], dtype=torch.int32, device=device)))
+    for name, c_post, c_trans, c_bf in chase_cases:
+        kernels['backtrace']['max_abs_err'] = max(
+            kernels['backtrace']['max_abs_err'], require_equal(
+                torch, f'K3 backtrace {name}', backtrace.backtrace_posteriors(
+                    c_post, c_trans, c_post[:, -1], c_bf),
+                backtrace.backtrace_reference(
+                    c_post, c_trans, c_post[:, -1], c_bf)))
+    del chase_cases, c_trans
+    info(f'edge list: {len(edges.BAND_EDGES)} band edges (K1 at '
+         f'{len(band.CLUSTER_TILES)} cluster sizes and per CTA, K3) and '
+         f'{len(edges.CHASE_EDGES) + 1} chase edges bitwise')
+
     counters = {
         'band_forward': band.viterbi_forward_band,
+        'band_forward_cta': band.viterbi_forward_band_cta,
         'band_spread': band.viterbi_forward_band_spread,
         'dense_forward': dense.viterbi_forward_dense,
         'backtrace': backtrace.backtrace_posteriors,
@@ -454,6 +564,8 @@ def main():
     if band_counts['band_forward'] < 1 or band_counts['backtrace'] < 1:
         fail('the banded path did not launch the banded forward and '
              'backtrace kernels')
+    if band_counts['band_forward_cta']:
+        fail('the banded path launched K1\'s per-CTA design')
     if tuple(result.shape) != (BATCH, FRAMES) or result.dtype != torch.int32:
         fail(f'headline result is {result.dtype} {tuple(result.shape)}')
     if int(result.min()) < 0 or int(result.max()) >= STATES:
@@ -485,7 +597,8 @@ def main():
          f'{BATCH * FRAMES / median_s:.0f} timesteps/s, peak device memory '
          f'{peak_gb:.2f} GB, on {card}')
     info(f'headline per-kernel ms (CUDA events): band_forward '
-         f'{kernels["band_forward"]["ms"]:.3f} (plain '
+         f'{kernels["band_forward"]["ms"]:.3f} (band_forward_cta '
+         f'{kernels["band_forward_cta"]["ms"]:.3f}, plain '
          f'{kernels["band_forward"]["plain_ms"]:.1f}), backtrace '
          f'{kernels["backtrace"]["ms"]:.3f} (plain '
          f'{kernels["backtrace"]["plain_ms"]:.1f}), epsilon step '
@@ -526,7 +639,8 @@ def main():
         bound=bound_ms(k4_bytes, k4_ops), library_ms=None,
         smem_bound_ms=steps1 * in_range / smem_words_per_s * 1e3)
     info(f'K4 band_spread: {k4_ms:.3f} ms ({k4_ms * 1e3 / steps1:.3f} '
-         f'us/frame), plain {k4_plain_ms:.1f} ms; K1 on the same sequence '
+         f'us/frame), plain {k4_plain_ms:.1f} ms; K1 (cluster design) on '
+         'the same sequence '
          f'{k1_single_ms:.3f} ms ({k1_single_ms * 1e3 / steps1:.3f} '
          f'us/frame)')
 
@@ -669,6 +783,8 @@ def main():
         fail('the auto-chunk path did not launch K1 and K3')
     if chunk_counts['band_spread'] or chunk_counts['backtrace_fused1']:
         fail('the auto-chunk path launched a batch-1 kernel')
+    if chunk_counts['band_forward_cta']:
+        fail('the auto-chunk path launched K1\'s per-CTA design')
     entropy = autochunk.framewise_entropy(single, STATES, True).cpu().numpy()
     plan = autochunk.plan_splits(
         entropy, SINGLE_FRAMES, torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
@@ -711,15 +827,62 @@ def main():
         SINGLE_FRAMES - 1)).to(device)
     rows = dispatch.convert(single[0][gather], True, True).contiguous()
     row_frames = torch.from_numpy(lengths).to(device)
-    rows_k1_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(
-        rows, row_frames, init, band_tuple, band_matrix), iters=3)
-    rows_post, rows_posterior = band.viterbi_forward_band(
-        rows, row_frames, init, band_tuple, band_matrix)
+    rows_args = (rows, row_frames, init, band_tuple, band_matrix)
+    n_rows = len(starts)
+    (rows_post, rows_posterior), rows_plain_ms = cuda_once(
+        torch, lambda: band.band_forward_reference(*rows_args))
+    for kernel, fn in (('band_forward', band.viterbi_forward_band),
+                       ('band_forward_cta', band.viterbi_forward_band_cta)):
+        kernels[kernel]['max_abs_err'] = max(
+            kernels[kernel]['max_abs_err'], require_equal(
+                torch, f'K1 {kernel} on the auto-chunk rows',
+                fn(*rows_args)[0], rows_post))
+    rows_idx, rows_k3_plain_ms = cuda_once(
+        torch, lambda: backtrace.backtrace_reference(
+            rows_post, trans, rows_posterior, row_frames))
+    kernels['backtrace']['max_abs_err'] = max(
+        kernels['backtrace']['max_abs_err'], require_equal(
+            torch, 'K3 backtrace on the auto-chunk rows',
+            backtrace.backtrace_posteriors(
+                rows_post, trans, rows_posterior, row_frames), rows_idx))
+    rows_turns = [cuda_ms(torch, lambda: fn(*rows_args), iters=3) for fn in (
+        band.viterbi_forward_band, band.viterbi_forward_band_cta,
+        band.viterbi_forward_band_cta, band.viterbi_forward_band)]
+    rows_k1_ms = (rows_turns[0] + rows_turns[3]) / 2
     rows_k3_ms = cuda_ms(torch, lambda: backtrace.backtrace_posteriors(
-        rows_post, trans, rows_posterior, row_frames), iters=3)
-    info(f'auto-chunk rows ({len(starts)} x {longest} x {STATES}): K1 '
-         f'{rows_k1_ms:.3f} ms, K3 {rows_k3_ms:.3f} ms (CUDA events)')
-    del rows, rows_post, rows_posterior
+        rows_post, trans, rows_posterior, row_frames), iters=5)
+    rows_steps = valid_steps(row_frames, longest)
+    rows_k1_bound = bound_ms(
+        (2 * n_rows * longest * STATES + width * STATES + STATES) * 4,
+        rows_steps * (2 * in_range + 3 * STATES))
+    rows_k3_bound = bound_ms(
+        (rows_steps * STATES + n_rows * STATES + STATES * STATES
+         + n_rows * longest) * 4, (rows_steps + n_rows) * 2 * STATES)
+    rows_plan = band.cluster_plan(n_rows, STATES, width)
+    kernels['band_forward'].update(
+        rows_ms=rows_k1_ms, rows_plain_ms=rows_plain_ms,
+        rows_bound_ms=rows_k1_bound[0], rows_bound_by=rows_k1_bound[1],
+        rows_smem_bound_ms=rows_steps * in_range / smem_words_per_s * 1e3,
+        rows_launches=chunk_counts['band_forward'],
+        rows_l2_band_bytes=sum(-(-count // size) for _, count, size
+                               in rows_plan) * width * STATES * 4)
+    kernels['band_forward_cta'].update(
+        rows_ms=(rows_turns[1] + rows_turns[2]) / 2,
+        rows_l2_band_bytes=n_rows * (longest - 1) * in_range * 4)
+    kernels['backtrace'].update(
+        rows_ms=rows_k3_ms, rows_plain_ms=rows_k3_plain_ms,
+        rows_bound_ms=rows_k3_bound[0], rows_bound_by=rows_k3_bound[1],
+        rows_launches=chunk_counts['backtrace'])
+    info(f'auto-chunk rows ({n_rows} x {longest} x {STATES}, cluster plan '
+         f'{rows_plan}): K1 in turns (ms) cluster {rows_turns[0]:.3f}, '
+         f'per-CTA {rows_turns[1]:.3f}, per-CTA {rows_turns[2]:.3f}, cluster '
+         f'{rows_turns[3]:.3f} ({rows_k1_ms * 1e3 / (longest - 1):.3f} '
+         f'us/frame), plain {rows_plain_ms:.1f}, bound '
+         f'{rows_k1_bound[0]:.4f} ({rows_k1_bound[1]}); K3 {rows_k3_ms:.3f} '
+         f'ms ({rows_k3_ms * 1e3 / (longest - 1):.3f} us/step), plain '
+         f'{rows_k3_plain_ms:.1f}, bound {rows_k3_bound[0]:.4f} '
+         f'({rows_k3_bound[1]}) (CUDA events)')
+    del rows, rows_args, rows_post, rows_posterior, rows_idx
 
     # The serial routes, auto-chunking off: K4 then K5; then the window
     # chase on the pure band
@@ -755,16 +918,46 @@ def main():
         for name, value in saved.items():
             setattr(torbi_tpu_torch, name, value)
 
-    # A band too wide for K4 takes K1, then K5
+    # A band too wide for K4 takes K1's cluster design, then K5
     wide_out, wide_counts = run_path(
         'batch-1 wide-band path',
         lambda: single_call(single[:, :EDGE_FRAMES], trans_in=wide),
         EDGE_FRAMES)
     if (wide_counts['band_forward'] < 1 or wide_counts['band_spread']
+            or wide_counts['band_forward_cta']
             or wide_counts['backtrace_fused1'] < 1):
-        fail('the wide-band path did not take K1 and K5')
+        fail('the wide-band path did not take K1\'s cluster design and K5')
     require_same('wide-band path', wide_out,
                  single_call(single[:, :EDGE_FRAMES], trans_in=wide,
+                             backend='scan'),
+                 'the plain scan route on the card')
+
+    # A band too wide for every cluster layout takes K1's per-CTA design,
+    # then K5; the kernel against its plain version first
+    cta_trans = torch.from_numpy(
+        triangular_log(STATES, CTA_HALFWIDTH, TINY)).to(device)
+    cta_band = band.detect_band(cta_trans)
+    if band.forward_kernel(1, STATES, cta_band[1])[0] != 'band_forward_cta':
+        fail(f'the band {cta_band} fits a cluster layout; expected it too '
+             'wide')
+    cta_args = (edge_obs, bf_edge, init, cta_band, band.build_band_matrix(
+        cta_trans, cta_band[0], cta_band[1]))
+    kernels['band_forward_cta']['max_abs_err'] = max(
+        kernels['band_forward_cta']['max_abs_err'], require_equal(
+            torch, f'K1 band_forward_cta (width {cta_band[1]})',
+            band.viterbi_forward_band_cta(*cta_args)[0],
+            band.band_forward_reference(*cta_args)[0]))
+    cta_out, cta_counts = run_path(
+        'batch-1 per-CTA band path',
+        lambda: single_call(single[:, :EDGE_FRAMES], trans_in=cta_trans),
+        EDGE_FRAMES)
+    if (cta_counts['band_forward_cta'] < 1 or cta_counts['band_forward']
+            or cta_counts['band_spread']
+            or cta_counts['backtrace_fused1'] < 1):
+        fail('the per-CTA band path did not take K1\'s per-CTA design and '
+             'K5')
+    require_same('per-CTA band path', cta_out,
+                 single_call(single[:, :EDGE_FRAMES], trans_in=cta_trans,
                              backend='scan'),
                  'the plain scan route on the card')
 
@@ -1216,10 +1409,11 @@ def main():
     path_counts = {
         'banded': band_counts, 'dense': dense_counts,
         'batch1-serial': serial_counts, 'batch1-window': window_counts,
-        **lab_counts}
+        'batch1-cta': cta_counts, **lab_counts}
     lines = []
-    for name in ('band_forward', 'band_spread', 'dense_forward', 'backtrace',
-                 'backtrace_fused1', 'backtrace_window', 'lab_forward',
+    for name in ('band_forward', 'band_forward_cta', 'band_spread',
+                 'dense_forward', 'backtrace', 'backtrace_fused1',
+                 'backtrace_window', 'lab_forward',
                  'lab_pipe', 'lab_mxushift', 'lab_mod12', 'lab_mod12k',
                  'lab_spread', 'lab_chase'):
         entry = dict(kernels[name])
@@ -1232,10 +1426,9 @@ def main():
             ms=entry['ms'], plain_ms=entry['plain_ms'], bound_ms=bound,
             bound_by=bound_by, library_ms=entry['library_ms'],
             path=entry['path'])
-        for extra in ('smem_bound_ms', 'mma_instructions', 'mma_peak_ms',
-                      'stitched_pairs'):
-            if extra in entry:
-                line[extra] = entry[extra]
+        for extra, value in entry.items():
+            if extra not in line and extra != 'name':
+                line[extra] = value
         lines.append(line)
     print(json.dumps({'kernels': lines}), flush=True)
     print(json.dumps({'ok': True, 'device': {

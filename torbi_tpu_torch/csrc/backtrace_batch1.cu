@@ -41,66 +41,18 @@
 // K6 design: one warp, no barrier. The window (175 states at the pitch
 // shape) is 6 values a lane; the stream rows are prefetched into L2
 // kPrefetch steps ahead, so both loads of a step come from L2.
-#include "common.cuh"
+#include "chase.cuh"
 
 namespace {
+
+using torbi::block_argmax;
+using torbi::settle;
+using torbi::take;
+using torbi::warp_reduce;
 
 constexpr int kEpt = 8;        // states per thread in K5
 constexpr int kStages = 4;     // K5 stream rows staged ahead
 constexpr int kPrefetch = 8;   // K6 stream rows prefetched ahead
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned address =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(address),
-               "l"(src));
-}
-
-// Keep (v, i) if it beats (best, best_i): greater, or equal and lower index
-__device__ __forceinline__ void take(float& best, int& best_i, float v,
-                                     int i) {
-  if (v > best || (v == best && i < best_i)) {
-    best = v;
-    best_i = i;
-  }
-}
-
-__device__ __forceinline__ void warp_reduce(float& best, int& best_i) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const float v = __shfl_xor_sync(0xffffffffu, best, offset);
-    const int i = __shfl_xor_sync(0xffffffffu, best_i, offset);
-    take(best, best_i, v, i);
-  }
-}
-
-// The index a reduction settles on: the lowest argmax, or 0 for a row of
-// -inf (whose pairs all hold -inf; the lowest index seen may then be past
-// 0, or INT_MAX when no lane saw an element)
-__device__ __forceinline__ int settle(float best, int best_i) {
-  return best == torbi::neg_inf() ? 0 : best_i;
-}
-
-// Lowest-index argmax of row[0, n) over the whole CTA (K5), through a
-// (value, index) table of one entry per warp
-__device__ int block_argmax(const float* __restrict__ row, int n,
-                            float* table_v, int* table_i) {
-  const int tid = threadIdx.x;
-  float best = torbi::neg_inf();
-  int best_i = INT_MAX;
-  for (int i = tid; i < n; i += blockDim.x) take(best, best_i, row[i], i);
-  warp_reduce(best, best_i);
-  if ((tid & 31) == 0) {
-    table_v[tid >> 5] = best;
-    table_i[tid >> 5] = best_i;
-  }
-  __syncthreads();
-  best = torbi::neg_inf();
-  best_i = INT_MAX;
-  for (int w = 0; w < (blockDim.x >> 5); ++w)
-    take(best, best_i, table_v[w], table_i[w]);
-  return settle(best, best_i);
-}
 
 __global__ void __launch_bounds__(1024) backtrace_fused1_kernel(
     const float* __restrict__ post_seq, const float* __restrict__ posterior,
@@ -129,10 +81,10 @@ __global__ void __launch_bounds__(1024) backtrace_fused1_kernel(
 #pragma unroll
       for (int k = 0; k < kEpt; ++k) {
         const int i = k * nthreads + tid;
-        if (i < states) cp_async4(dst + k * nthreads, src + i);
+        if (i < states) torbi::cp_async4(dst + k * nthreads, src + i);
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    torbi::cp_async_commit();
   };
   for (int s = 0; s < kStages; ++s) stage(s);
 
@@ -144,7 +96,7 @@ __global__ void __launch_bounds__(1024) backtrace_fused1_kernel(
       const int i = k * nthreads + tid;
       tv[k] = i < states ? __ldg(trans + i) : 0.f;
     }
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+    torbi::cp_async_wait<kStages - 1>();
     const float* cell = ring + (s % kStages) * kEpt * nthreads + tid;
     float best = torbi::neg_inf();
     int best_i = INT_MAX;
@@ -177,7 +129,7 @@ __global__ void __launch_bounds__(1024) backtrace_fused1_kernel(
     idx = settle(best, best_i);
     if (tid == 0) out[t - 1] = idx;
   }
-  asm volatile("cp.async.wait_all;\n" ::);
+  torbi::cp_async_wait_all();
 }
 
 __device__ __forceinline__ void prefetch_row(const float* row, int states,

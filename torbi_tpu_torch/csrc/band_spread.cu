@@ -39,6 +39,7 @@
 // staged kStages frames ahead with cp.async into a per-thread ring.
 #include <cooperative_groups.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -49,21 +50,6 @@ constexpr int kCluster = 8;           // CTAs per cluster (portable maximum)
 constexpr int kGroups = 4;            // lanes sharing one destination
 constexpr int kDestsPerWarp = 32 / kGroups;
 constexpr int kStages = 4;            // observation frames staged ahead
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned address =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(address),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
-}
 
 struct Layout {
   int per_cta;      // destinations per CTA
@@ -142,11 +128,11 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
       for (int s = 0; s < l.slots; ++s) {
         const int jl = (s * l.warps + warp) * kDestsPerWarp + dl;
         if (jl < count)
-          cp_async4(cell + s * nthreads,
-                    obs + static_cast<size_t>(t) * states + j0 + jl);
+          torbi::cp_async4(cell + s * nthreads,
+                           obs + static_cast<size_t>(t) * states + j0 + jl);
       }
     }
-    cp_async_commit();
+    torbi::cp_async_commit();
   };
   for (int t = 1; t <= kStages; ++t) stage(t);
 
@@ -179,7 +165,7 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
       for (int e = lane; e < table; e += 32) m = fmaxf(m, red[cur * table + e]);
       base = torbi::warp_max(m) + floor_value;
     }
-    cp_async_wait();
+    torbi::cp_async_wait<kStages - 1>();
     const float* cell = ring + (t % kStages) * l.slots * nthreads + tid;
     const int nxt = (cur ^ 1) * states;
     wmax = torbi::neg_inf();
@@ -216,7 +202,7 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
     stage(t + kStages);
     cluster.sync();
   }
-  asm volatile("cp.async.wait_all;\n" ::);
+  torbi::cp_async_wait_all();
 
   // Frames past the valid length hold the last posterior
   const float* last = post + ((t_end - 1) & 1) * states;
@@ -239,34 +225,14 @@ extern "C" int band_spread(const float* obs, const int* batch_frames,
                            int width, float floor_value, int has_floor,
                            void* stream) {
   if (frames <= 0 || states <= 0 || width < 0) return cudaErrorInvalidValue;
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  size_t optin = 0;
+  const cudaError_t err = torbi::optin_smem(&optin);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  const size_t smem = smem_floats(make_layout(states), states, width) *
-                      sizeof(float);
-  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(band_spread_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = kCluster;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster);
-  config.blockDim = dim3(make_layout(states).warps * 32);
-  config.dynamicSmemBytes = smem;
-  config.stream = static_cast<cudaStream_t>(stream);
-  config.attrs = attribute;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, band_spread_kernel, obs, batch_frames,
-                           initial, band, post_seq, frames, states, lo, width,
-                           floor_value, has_floor);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const Layout l = make_layout(states);
+  const size_t smem = smem_floats(l, states, width) * sizeof(float);
+  if (smem > optin) return cudaErrorInvalidValue;
+  return torbi::launch_cluster(
+      band_spread_kernel, kCluster, dim3(kCluster), dim3(l.warps * 32), smem,
+      static_cast<cudaStream_t>(stream), obs, batch_frames, initial, band,
+      post_seq, frames, states, lo, width, floor_value, has_floor);
 }

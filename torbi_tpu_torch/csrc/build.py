@@ -92,8 +92,10 @@ def library(name):
     return _libraries[name]
 
 
-def pointer(tensor):
-    return ctypes.c_void_p(tensor.data_ptr())
+def pointer(tensor, offset=0):
+    """The address of ``tensor``'s element ``offset`` (in elements), as a
+    ctypes pointer"""
+    return ctypes.c_void_p(tensor.data_ptr() + offset * tensor.element_size())
 
 
 def stream(device):

@@ -18,9 +18,10 @@ a single long banded sequence:
    ``from_probabilities`` builds per call) computes its plan afresh;
 3. the chunk rows are gathered out of the sequence at the longest chunk's
    length (lengths mask the rest), decoded as one batch through the banded
-   route (K1, then K3), and the per-row paths gathered back into the
-   (1, frames) sequence, frames past the valid length frozen at the last
-   decoded state (the reference's padded-batch freeze).
+   route (K1, in the design ``band.forward_kernel`` picks for the rows,
+   then K3), and the per-row paths gathered back into the (1, frames)
+   sequence, frames past the valid length frozen at the last decoded state
+   (the reference's padded-batch freeze).
 
 The result is the reference's chunked mode: each chunk decodes with the
 caller's initial distribution, so it is bitwise the oracle run per chunk,
@@ -183,8 +184,8 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
 
     rows = observation[0, :, :states][gather]
     rows = convert(rows, log_input, apply_epsilon).contiguous()
-    post_seq, posterior = band_ops.viterbi_forward_band(
-        rows, lengths, initial, band, band_matrix)
+    _, forward = band_ops.forward_kernel(rows.shape[0], states, band[1])
+    post_seq, posterior = forward(rows, lengths, initial, band, band_matrix)
     indices = backtrace_ops.backtrace_posteriors(
         post_seq, transition, posterior, lengths)
     return indices[row, column][None]

@@ -12,8 +12,16 @@ source counted again at ``floor + posterior[i]`` is dominated by its in-band
 candidate (the floor is the global minimum), so the floor contributes one
 max of the posterior per frame. The forward pass streams the posterior of
 every frame; the backtrace (ops/backtrace.py) recovers the backpointers
-along the chosen path only. One sequence on its own (batch 1) takes the
-K4 kernel, ``viterbi_forward_band_spread``, with the same values.
+along the chosen path only.
+
+K1 has two designs with the same values, chosen by shape
+(``forward_kernel``): the cluster design ``viterbi_forward_band`` (the band
+slice resident in shared memory across a cluster of 8 CTAs, each CTA a
+window of the posterior; ``cluster_layout`` mirrors its layout and
+``cluster_plan`` its launches) wherever its layout fits, else the per-CTA
+design ``viterbi_forward_band_cta``. One sequence on its own (batch 1)
+takes the K4 kernel, ``viterbi_forward_band_spread``, with the same
+values.
 
 Exactness preconditions (``gate_band`` enforces them; dispatch falls back to
 the dense kernel otherwise): a pure -inf exterior needs an all-finite
@@ -34,6 +42,26 @@ NEG_INF = float('-inf')
 # band whose layout (spread_smem_bytes) exceeds the card's; dispatch sends
 # such a single sequence to K1
 SPREAD_SMEM_BYTES = 227 * 1024
+
+# K1's cluster design (csrc/band_forward.cu, Tile and cluster_layout):
+# clusters of 8 CTAs; for each number of sequences per cluster, the thread
+# tile (sequences per thread, destinations per thread, lanes sharing a
+# destination), the floats of a window row and the most threads per CTA.
+# Its layout must fit the opt-in shared memory, CLUSTER_SMEM_BYTES
+CLUSTER_CTAS = 8
+CLUSTER_TILES = {
+    1: (1, 1, 4, 1, 1024),
+    4: (4, 1, 1, 4, 512),
+    8: (4, 2, 1, 12, 512),
+    16: (4, 4, 1, 20, 512),
+    32: (4, 4, 1, 32, 512),
+}
+CLUSTER_SMEM_BYTES = 227 * 1024
+# Clusters of 8 such CTAs (one per SM) resident at once on the H100's 132
+# SMs (cudaOccupancyMaxActiveClusters gives 15 for every cluster size of
+# the tile table, NVIDIA H100 80GB HBM3): a batch of more clusters runs in
+# waves
+CLUSTER_WAVE = 15
 
 # Detection and gating results cached per live, unmodified tensor
 _detect_cache = {}
@@ -182,19 +210,97 @@ def band_forward_reference(observation, batch_frames, initial, band,
     return post_seq, post_seq[:, -1]
 
 
-def viterbi_forward_band(observation, batch_frames, initial, band,
-                         band_matrix):
-    """Banded forward pass: the K1 kernel (csrc/band_forward.cu) on CUDA
-    tensors, its plain version on CPU tensors. Arguments and results as in
-    ``band_forward_reference``; all tensors contiguous on one device."""
+def cluster_layout(states, width, sequences):
+    """The layout of K1's cluster design (csrc/band_forward.cu,
+    cluster_layout) with ``sequences`` per cluster of 8 CTAs: each CTA owns
+    ``per_cta`` destinations, holds its band slice (skewed into
+    ``width + R - 1`` rows) and double-buffered windows of ``per_cta +
+    width - 1`` sources per sequence, the double-buffered (sequences, 8)
+    tables of CTA maxima and a (warps, sequences) table of warp maxima.
+
+    Returns a dict: per_cta, threads, smem_bytes, and fits (width >= 1, at
+    most the tile's threads, at most CLUSTER_SMEM_BYTES)."""
+    per_thread, dests, lanes, row_floats, max_threads = CLUSTER_TILES[
+        sequences]
+    per_cta = -(-(-(-states // CLUSTER_CTAS)) // dests) * dests
+    groups = per_cta // dests
+    threads = -(-(groups * (sequences // per_thread) * lanes) // 32) * 32
+    if lanes > 1:
+        stride = -(-max(per_cta - 8, 0) // 32) * 32 + 8
+    else:
+        stride = -(-per_cta // 4) * 4
+    window = per_cta + width - 1
+    floats = ((width + dests - 1) * stride
+              + -(-(2 * window * row_floats) // 4) * 4
+              + 2 * sequences * CLUSTER_CTAS + threads // 32 * sequences)
+    return {
+        'per_cta': per_cta, 'threads': threads, 'smem_bytes': 4 * floats,
+        'fits': (width >= 1 and threads <= max_threads
+                 and 4 * floats <= CLUSTER_SMEM_BYTES)}
+
+
+def cluster_plan(batch, states, width):
+    """K1's cluster launches at this shape: ((start, count, sequences per
+    cluster), ...) over the batch, or None when no cluster layout fits (the
+    per-CTA design runs). The card holds CLUSTER_WAVE clusters at once, so
+    whole waves take the largest size that fits (at 1440 states and the
+    pitch band, 15 clusters of 32: 480 sequences); the rest of the batch
+    takes one launch at the size of least cost, waves x (sequences + 6): a
+    CTA's frame costs about one unit per sequence and six for the barrier,
+    the exchange and the stream's loads and stores. At the pitch shape,
+    batch 8 (the auto-chunk rows) is one launch of 8 clusters of 1
+    sequence, batch 512 (the headline) 480 sequences in clusters of 32,
+    then 32 in clusters of 4."""
+    sizes = [sequences for sequences in sorted(CLUSTER_TILES)
+             if cluster_layout(states, width, sequences)['fits']]
+    if not sizes:
+        return None
+    largest = sizes[-1]
+    whole = batch // (CLUSTER_WAVE * largest) * CLUSTER_WAVE * largest
+    plan = [(0, whole, largest)] if whole else []
+    rest = batch - whole
+    if rest:
+        def cost(sequences):
+            waves = -(-(-(-rest // sequences)) // CLUSTER_WAVE)
+            return waves * (sequences + 6)
+
+        plan.append((whole, rest, min(sizes, key=cost)))
+    return tuple(plan)
+
+
+def resident_clusters(states, width, sequences, device=None):
+    """The clusters of K1's cluster design, with ``sequences`` per cluster,
+    that the card holds at once at this shape
+    (cudaOccupancyMaxActiveClusters through csrc/band_forward.cu,
+    band_forward_clusters); ``CLUSTER_WAVE`` is what it gives on the H100.
+    Needs a CUDA card (``device``, None is the current one)."""
+    lib = _library()
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.band_forward_clusters(
+            states, width, sequences, ctypes.byref(clusters))
+    build.raise_on_error(lib, 'band_forward_clusters', code)
+    return clusters.value
+
+
+def forward_kernel(batch, states, width):
+    """K1's design at this shape: ('band_forward', viterbi_forward_band)
+    where a cluster layout fits (``cluster_plan``), else
+    ('band_forward_cta', viterbi_forward_band_cta); the names are those of
+    the wrappers' launch counters"""
+    if cluster_plan(batch, states, width) is not None:
+        return 'band_forward', viterbi_forward_band
+    return 'band_forward_cta', viterbi_forward_band_cta
+
+
+def _check_band_args(observation, batch_frames, initial, band, band_matrix):
     lo, width, floor = band
     if width == 0 and floor is None:
         raise ValueError(
             'band width 0 requires a finite floor (constant transition)')
     device = observation.device
     if device.type == 'cpu':
-        return band_forward_reference(
-            observation, batch_frames, initial, band, band_matrix)
+        return False
     batch, frames, states = observation.shape
     build.check('observation', observation, (batch, frames, states),
                 torch.float32, device)
@@ -202,22 +308,90 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
     build.check('initial', initial, (states,), torch.float32, device)
     build.check('band_matrix', band_matrix, (width, states), torch.float32,
                 device)
+    return True
+
+
+def viterbi_forward_band(observation, batch_frames, initial, band,
+                         band_matrix, sequences=None):
+    """Banded forward pass, K1's cluster design (csrc/band_forward.cu,
+    band_forward) on CUDA tensors, its plain version on CPU tensors.
+    Arguments and results as in ``band_forward_reference``; all tensors
+    contiguous on one device. The launches follow ``cluster_plan``, or
+    one launch with ``sequences`` per cluster when given; on the card a
+    shape whose layout does not fit raises (``forward_kernel`` sends it to
+    the per-CTA design). Each launch counts once."""
+    if sequences is not None and sequences not in CLUSTER_TILES:
+        raise ValueError(
+            f'sequences per cluster must be one of {sorted(CLUSTER_TILES)}, '
+            f'got {sequences}')
+    if not _check_band_args(
+            observation, batch_frames, initial, band, band_matrix):
+        return band_forward_reference(
+            observation, batch_frames, initial, band, band_matrix)
+    lo, width, floor = band
+    batch, frames, states = observation.shape
+    if sequences is None:
+        plan = cluster_plan(batch, states, width)
+    elif cluster_layout(states, width, sequences)['fits']:
+        plan = ((0, batch, sequences),)
+    else:
+        plan = None
+    if plan is None:
+        raise ValueError(
+            f'no cluster layout of K1 fits {states} states and band width '
+            f'{width} (sequences per cluster: {sequences}); '
+            'band.forward_kernel sends this shape to band_forward_cta')
+    device = observation.device
+    post_seq = torch.empty_like(observation)
+    if batch and frames:
+        lib = _library()
+        row = frames * states
+        with torch.cuda.device(device):
+            for start, count, size in plan:
+                code = lib.band_forward(
+                    build.pointer(observation, start * row),
+                    build.pointer(batch_frames, start),
+                    build.pointer(initial), build.pointer(band_matrix),
+                    build.pointer(post_seq, start * row), count, frames,
+                    states, lo, width, 0.0 if floor is None else floor,
+                    int(floor is not None), size, build.stream(device))
+                build.raise_on_error(lib, 'band_forward', code)
+                viterbi_forward_band.launches += 1
+    return post_seq, post_seq[:, -1]
+
+
+viterbi_forward_band.launches = 0
+
+
+def viterbi_forward_band_cta(observation, batch_frames, initial, band,
+                             band_matrix):
+    """Banded forward pass, K1's per-CTA design (csrc/band_forward.cu,
+    band_forward_cta) on CUDA tensors, its plain version on CPU tensors.
+    Arguments and results as in ``band_forward_reference``. Takes any
+    band, a width-0 one with a floor included."""
+    if not _check_band_args(
+            observation, batch_frames, initial, band, band_matrix):
+        return band_forward_reference(
+            observation, batch_frames, initial, band, band_matrix)
+    lo, width, floor = band
+    batch, frames, states = observation.shape
+    device = observation.device
     post_seq = torch.empty_like(observation)
     if batch and frames:
         lib = _library()
         with torch.cuda.device(device):
-            code = lib.band_forward(
+            code = lib.band_forward_cta(
                 build.pointer(observation), build.pointer(batch_frames),
                 build.pointer(initial), build.pointer(band_matrix),
                 build.pointer(post_seq), batch, frames, states, lo, width,
                 0.0 if floor is None else floor, int(floor is not None),
                 build.stream(device))
-        build.raise_on_error(lib, 'band_forward', code)
-        viterbi_forward_band.launches += 1
+        build.raise_on_error(lib, 'band_forward_cta', code)
+        viterbi_forward_band_cta.launches += 1
     return post_seq, post_seq[:, -1]
 
 
-viterbi_forward_band.launches = 0
+viterbi_forward_band_cta.launches = 0
 
 
 def spread_smem_bytes(states, width):
@@ -293,10 +467,16 @@ viterbi_forward_band_spread.launches = 0
 
 def _library():
     lib = build.library('band_forward')
-    lib.band_forward.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    shape = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+    lib.band_forward.argtypes = [ctypes.c_void_p] * 5 + shape + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.band_forward_cta.argtypes = [ctypes.c_void_p] * 5 + shape + [
+        ctypes.c_void_p]
+    lib.band_forward_clusters.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     lib.band_forward.restype = ctypes.c_int
+    lib.band_forward_cta.restype = ctypes.c_int
+    lib.band_forward_clusters.restype = ctypes.c_int
     return lib
 
 

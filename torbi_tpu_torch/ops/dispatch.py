@@ -11,8 +11,10 @@ decisions. One decode takes one of these routes:
 - any other transition: the dense forward kernel (K2), then the backtrace
   kernel (K3).
 
-A banded transition at batch > 1 takes K1, then K3. One banded sequence
-(batch 1, band width > 0) routes as in the JAX package:
+A banded transition at batch > 1 takes K1 (its cluster design, or its
+per-CTA design where no cluster layout fits: ``band.forward_kernel``),
+then K3. One banded sequence (batch 1, band width > 0) routes as in the
+JAX package:
 
 1. auto-chunking first: a sequence of ``BATCH1_AUTO_CHUNK_MIN_FRAMES`` or
    more frames decodes as entropy-chunk rows through K1 and K3
@@ -118,10 +120,12 @@ def kernel_route(transition, band, batch):
 
     Returns ((forward name, forward), (chase name, chase)), the names those
     of the wrappers' launch counters: ``forward(obs, batch_frames,
-    initial)`` gives (post_seq, posterior) through K1 ('band_forward'), K4
-    ('band_spread') or K2 ('dense_forward'), and ``chase(post_seq,
-    posterior, batch_frames)`` the indices through K3 ('backtrace'), K5
-    ('backtrace_fused1') or K6 ('backtrace_window').
+    initial)`` gives (post_seq, posterior) through K1's cluster design
+    ('band_forward') or its per-CTA design ('band_forward_cta'), as
+    ``band.forward_kernel`` picks by shape, K4 ('band_spread') or K2
+    ('dense_forward'), and ``chase(post_seq, posterior, batch_frames)``
+    the indices through K3 ('backtrace'), K5 ('backtrace_fused1') or K6
+    ('backtrace_window').
     """
     import torbi_tpu_torch
 
@@ -134,11 +138,11 @@ def kernel_route(transition, band, batch):
         spread = (batch == 1 and band[1] > 0
                   and torbi_tpu_torch.BAND_BATCH1_SPREAD
                   and band_ops.spread_fits(states, band[1]))
-        kernel = (band_ops.viterbi_forward_band_spread if spread
-                  else band_ops.viterbi_forward_band)
-        forward = ('band_spread' if spread else 'band_forward',
-                   lambda obs, bf, initial: kernel(
-                       obs, bf, initial, band, matrix))
+        name, kernel = (
+            ('band_spread', band_ops.viterbi_forward_band_spread) if spread
+            else band_ops.forward_kernel(batch, states, band[1]))
+        forward = (name, lambda obs, bf, initial: kernel(
+            obs, bf, initial, band, matrix))
     chase = (_batch1_chase(band, states)
              if batch == 1 and band is not None else None)
     if chase == 'fused':

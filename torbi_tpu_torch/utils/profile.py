@@ -219,10 +219,11 @@ def time_stages(observation, batch_frames, transition, initial, iters=8):
     dimension may be padded to the next multiple of 128), batch_frames,
     transition, initial. The forward and backtrace stages call the kernels
     that ``dispatch.kernel_route`` picks for this input, as ``decode``
-    does: K1, K4 or K2, then K3, K5 or K6 (a constant transition, which
-    dispatch decodes in closed form, times K1 and the chase on it; a long
-    single sequence, which dispatch may auto-chunk, times the serial
-    route's kernels). Returns milliseconds:
+    does: K1 (cluster or per-CTA design), K4 or K2, then K3, K5 or K6 (a
+    constant transition, which dispatch decodes in closed form, times K1's
+    per-CTA design and the chase on it; a long single sequence, which
+    dispatch may auto-chunk, times the serial route's kernels). Returns
+    milliseconds:
 
     - forward_ms, backtrace_ms: steady-state time per call (queued calls)
     - pipeline_ms: ``dispatch.decode`` per call (queued calls)
