@@ -192,6 +192,19 @@ def triangular_log(states, halfwidth, tiny):
                       + np.float32(tiny)).astype(np.float32)
 
 
+def in_range_pairs(states, lo, width):
+    """In-range (source, destination) pairs of a band: the candidates one
+    frame step needs"""
+    j = np.arange(states)
+    return int((np.minimum(states - lo - j, width)
+                - np.maximum(-lo - j, 0)).clip(min=0).sum())
+
+
+def clusters_of(plan):
+    """Clusters launched by a band.cluster_plan"""
+    return sum(-(-count // size) for _, count, size in plan)
+
+
 def valid_steps(batch_frames, frames):
     """Frame steps t >= 1 with t < batch_frames, summed over the batch"""
     return int((batch_frames.clamp(max=frames) - 1).clamp(min=0).sum())
@@ -279,9 +292,12 @@ def main():
     # (band_forward_cta), each against the plain version, then timed in
     # turns (cluster, per-CTA, per-CTA, cluster)
     k1_args = (obs_k, bf, init, band_tuple, band_matrix)
-    k1_plan = band.cluster_plan(BATCH, STATES, width)
+    resident = {size: band.resident_clusters(STATES, width, size, device)
+                for size in band.cluster_sizes(STATES, width)}
+    k1_plan = band.cluster_plan(BATCH, STATES, width, resident.get)
     info(f'K1 cluster plan at {BATCH} x {STATES}, width {width}: (start, '
-         f'count, sequences per cluster) {k1_plan}')
+         f'count, sequences per cluster) {k1_plan}; clusters of 8 held at '
+         f'once per sequences per cluster {resident}')
     post_k, posterior_k = band.viterbi_forward_band(*k1_args)
     (post_r, _), k1_plain_ms = cuda_once(
         torch, lambda: band.band_forward_reference(*k1_args))
@@ -298,60 +314,68 @@ def main():
     k1_ms = (k1_turns[0] + k1_turns[3]) / 2
     k1_cta_ms = (k1_turns[1] + k1_turns[2]) / 2
     steps = valid_steps(bf, FRAMES)
-    # In-range (source, destination) pairs of the band: the candidates a
-    # step needs
-    j = torch.arange(STATES)
-    in_range = int((torch.clamp(STATES - lo - j, max=width)
-                    - torch.clamp(-lo - j, min=0)).clamp(min=0).sum())
+    in_range = in_range_pairs(STATES, lo, width)
     k1_bytes = (2 * BATCH * FRAMES * STATES + width * STATES + STATES) * 4
     # Per step: an add and a max per candidate; per state the floor max,
     # the posterior max and the observation add
     k1_ops = steps * (2 * in_range + 3 * STATES)
-    # Band bytes read from L2 per call: the per-CTA design reads every
-    # in-range band value in every CTA (4 sequences each) and frame; the
-    # cluster design reads each CTA's slice (the whole band per cluster)
-    # once per launch
-    k1_l2_cta = -(-BATCH // 4) * (FRAMES - 1) * in_range * 4
-    k1_l2 = sum(-(-count // size) for _, count, size in k1_plan) * (
-        width * STATES * 4)
     kernels['band_forward'] = dict(
         name='band_forward', route='cuda',
         source='torbi_tpu_torch/csrc/band_forward.cu',
         replaces='torbi_tpu/ops/band.py:512', path='banded',
         max_abs_err=err, ms=k1_ms, plain_ms=k1_plain_ms,
         bound=bound_ms(k1_bytes, k1_ops), library_ms=None,
-        smem_bound_ms=steps * in_range / smem_words_per_s * 1e3,
-        l2_band_bytes=k1_l2)
+        smem_bound_ms=steps * in_range / smem_words_per_s * 1e3)
+    # The per-CTA design's line takes its time, bound and plain time from
+    # the path that runs it (phase 6, the band no cluster layout holds);
+    # its headline time stands beside them
     kernels['band_forward_cta'] = dict(
-        kernels['band_forward'], name='band_forward_cta', path='batch1-cta',
-        max_abs_err=cta_err, ms=k1_cta_ms, ms_shape='headline',
-        l2_band_bytes=k1_l2_cta)
+        name='band_forward_cta', route='cuda',
+        source='torbi_tpu_torch/csrc/band_forward.cu',
+        replaces='torbi_tpu/ops/band.py:512', path='batch1-cta',
+        max_abs_err=cta_err, headline_ms=k1_cta_ms)
     info(f'K1 at the headline, in turns (ms): cluster {k1_turns[0]:.3f}, '
          f'per-CTA {k1_turns[1]:.3f}, per-CTA {k1_turns[2]:.3f}, cluster '
-         f'{k1_turns[3]:.3f}; plain {k1_plain_ms:.1f} ms; band bytes from L2 '
-         f'per call: cluster {k1_l2:.4g}, per-CTA {k1_l2_cta:.4g}')
+         f'{k1_turns[3]:.3f}; plain {k1_plain_ms:.1f} ms')
+    # Band bytes read from L2 per call, reckoned from the launch layout
+    # (not measured): the per-CTA design loads every in-range band value
+    # in every CTA (4 sequences each) and frame, counted as if each load
+    # went to L2; the cluster design loads each CTA's slice (the whole band
+    # per cluster) once per launch
+    info('K1 band bytes from L2 per headline call, estimated from the '
+         'launch layout, not measured: cluster '
+         f'{clusters_of(k1_plan) * width * STATES * 4:.4g}, per-CTA '
+         f'{-(-BATCH // 4) * (FRAMES - 1) * in_range * 4:.4g}')
 
-    # K1's launch plan on the card: the clusters of 8 the card holds at
-    # once (band.CLUSTER_WAVE mirrors them), the headline in one launch of
-    # 16 clusters of 32, and the plan's rest (the last 32 sequences) at
-    # each cluster size that might take it
-    resident = {size: band.resident_clusters(STATES, width, size)
-                for size in band.CLUSTER_TILES}
+    # K1's launch plan on the card: one whole wave (the clusters the card
+    # holds at once) at each cluster size, whose ratios
+    # band.CLUSTER_WAVE_COST holds; the plan's rest (the last 32
+    # sequences) at each size; the headline in one launch of 16 clusters
+    # of 32 (two waves)
+    wave_ms = {}
+    for size, clusters in resident.items():
+        wave = clusters * size
+        wave_ms[size] = cuda_ms(torch, lambda: band._forward_band_clusters(
+            obs_k[:wave], bf[:wave], init, band_tuple, band_matrix, size),
+            iters=3)
     rest = k1_plan[-1][0]
     rest_args = (obs_k[rest:], bf[rest:], init, band_tuple, band_matrix)
-    rest_ms = {size: cuda_ms(torch, lambda: band.viterbi_forward_band(
-        *rest_args, sequences=size), iters=3) for size in (1, 4, 8)}
-    one_launch_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(
-        *k1_args, sequences=32), iters=3)
+    rest_ms = {size: cuda_ms(torch, lambda: band._forward_band_clusters(
+        *rest_args, size), iters=3) for size in resident}
+    one_launch_ms = cuda_ms(torch, lambda: band._forward_band_clusters(
+        *k1_args, 32), iters=3)
     kernels['band_forward'].update(
-        resident_clusters=resident, rest_ms=rest_ms,
+        resident_clusters=resident, wave_ms=wave_ms, rest_ms=rest_ms,
         one_launch_ms=one_launch_ms)
-    info(f'K1 cluster plan on the card: clusters of 8 held at once per '
-         f'sequences per cluster {resident} (band.CLUSTER_WAVE '
-         f'{band.CLUSTER_WAVE}); one launch of {-(-BATCH // 32)} clusters '
-         f'of 32: {one_launch_ms:.3f} ms; the last {BATCH - rest} sequences '
-         'at 1/4/8 per cluster: ' + '/'.join(
-             f'{ms:.3f}' for ms in rest_ms.values()) + ' ms')
+    info('K1 one wave per sequences per cluster (ms): ' + ', '.join(
+        f'{size}: {ms:.3f} (relative to 4: {ms / wave_ms[4]:.3f}, '
+        f'band.CLUSTER_WAVE_COST {band.CLUSTER_WAVE_COST[size]})'
+        for size, ms in wave_ms.items()))
+    info(f'K1 the last {BATCH - rest} sequences per sequences per cluster '
+         '(ms): ' + ', '.join(
+             f'{size}: {ms:.3f}' for size, ms in rest_ms.items())
+         + f' (the plan takes {k1_plan[-1][2]}); one launch of '
+         f'{-(-BATCH // 32)} clusters of 32: {one_launch_ms:.3f} ms')
 
     # K3: backtrace on K1's output
     idx_k = backtrace.backtrace_posteriors(post_k, trans, posterior_k, bf)
@@ -454,7 +478,7 @@ def main():
             e_trans, e_band[0], e_band[1]))
         e_post, e_posterior = band.band_forward_reference(*e_args)
         for size in band.CLUSTER_TILES:
-            got, _ = band.viterbi_forward_band(*e_args, sequences=size)
+            got, _ = band._forward_band_clusters(*e_args, size)
             kernels['band_forward']['max_abs_err'] = max(
                 kernels['band_forward']['max_abs_err'], require_equal(
                     torch, f'K1 band_forward {edge.name}, {size} per '
@@ -598,7 +622,7 @@ def main():
          f'{peak_gb:.2f} GB, on {card}')
     info(f'headline per-kernel ms (CUDA events): band_forward '
          f'{kernels["band_forward"]["ms"]:.3f} (band_forward_cta '
-         f'{kernels["band_forward_cta"]["ms"]:.3f}, plain '
+         f'{kernels["band_forward_cta"]["headline_ms"]:.3f}, plain '
          f'{kernels["band_forward"]["plain_ms"]:.1f}), backtrace '
          f'{kernels["backtrace"]["ms"]:.3f} (plain '
          f'{kernels["backtrace"]["plain_ms"]:.1f}), epsilon step '
@@ -858,17 +882,18 @@ def main():
     rows_k3_bound = bound_ms(
         (rows_steps * STATES + n_rows * STATES + STATES * STATES
          + n_rows * longest) * 4, (rows_steps + n_rows) * 2 * STATES)
-    rows_plan = band.cluster_plan(n_rows, STATES, width)
+    rows_plan = band.cluster_plan(n_rows, STATES, width, resident.get)
     kernels['band_forward'].update(
         rows_ms=rows_k1_ms, rows_plain_ms=rows_plain_ms,
         rows_bound_ms=rows_k1_bound[0], rows_bound_by=rows_k1_bound[1],
         rows_smem_bound_ms=rows_steps * in_range / smem_words_per_s * 1e3,
-        rows_launches=chunk_counts['band_forward'],
-        rows_l2_band_bytes=sum(-(-count // size) for _, count, size
-                               in rows_plan) * width * STATES * 4)
+        rows_launches=chunk_counts['band_forward'])
     kernels['band_forward_cta'].update(
-        rows_ms=(rows_turns[1] + rows_turns[2]) / 2,
-        rows_l2_band_bytes=n_rows * (longest - 1) * in_range * 4)
+        rows_ms=(rows_turns[1] + rows_turns[2]) / 2)
+    info('K1 band bytes from L2 on the auto-chunk rows, estimated from the '
+         'launch layout as at the headline, not measured: cluster '
+         f'{clusters_of(rows_plan) * width * STATES * 4:.4g}, per-CTA '
+         f'{n_rows * (longest - 1) * in_range * 4:.4g}')
     kernels['backtrace'].update(
         rows_ms=rows_k3_ms, rows_plain_ms=rows_k3_plain_ms,
         rows_bound_ms=rows_k3_bound[0], rows_bound_by=rows_k3_bound[1],
@@ -937,16 +962,33 @@ def main():
     cta_trans = torch.from_numpy(
         triangular_log(STATES, CTA_HALFWIDTH, TINY)).to(device)
     cta_band = band.detect_band(cta_trans)
-    if band.forward_kernel(1, STATES, cta_band[1])[0] != 'band_forward_cta':
+    if band.forward_kernel(STATES, cta_band[1])[0] != 'band_forward_cta':
         fail(f'the band {cta_band} fits a cluster layout; expected it too '
              'wide')
     cta_args = (edge_obs, bf_edge, init, cta_band, band.build_band_matrix(
         cta_trans, cta_band[0], cta_band[1]))
+    (cta_post_r, _), cta_plain_ms = cuda_once(
+        torch, lambda: band.band_forward_reference(*cta_args))
     kernels['band_forward_cta']['max_abs_err'] = max(
         kernels['band_forward_cta']['max_abs_err'], require_equal(
             torch, f'K1 band_forward_cta (width {cta_band[1]})',
-            band.viterbi_forward_band_cta(*cta_args)[0],
-            band.band_forward_reference(*cta_args)[0]))
+            band.viterbi_forward_band_cta(*cta_args)[0], cta_post_r))
+    del cta_post_r
+    # Timed on this path's inputs, its bound from this band's candidates
+    cta_ms = cuda_ms(
+        torch, lambda: band.viterbi_forward_band_cta(*cta_args), iters=5)
+    cta_steps = valid_steps(bf_edge, EDGE_FRAMES)
+    cta_in_range = in_range_pairs(STATES, cta_band[0], cta_band[1])
+    cta_bound = bound_ms(
+        (2 * EDGE_FRAMES * STATES + cta_band[1] * STATES + STATES) * 4,
+        cta_steps * (2 * cta_in_range + 3 * STATES))
+    kernels['band_forward_cta'].update(
+        ms=cta_ms, plain_ms=cta_plain_ms, bound=cta_bound, library_ms=None,
+        smem_bound_ms=cta_steps * cta_in_range / smem_words_per_s * 1e3,
+        shape=f'1 x {EDGE_FRAMES} x {STATES}, width {cta_band[1]}')
+    info(f'K1 band_forward_cta at width {cta_band[1]} (1 x {EDGE_FRAMES}): '
+         f'{cta_ms:.3f} ms ({cta_ms * 1e3 / cta_steps:.3f} us/frame), plain '
+         f'{cta_plain_ms:.1f} ms, bound {cta_bound[0]:.4f} ({cta_bound[1]})')
     cta_out, cta_counts = run_path(
         'batch-1 per-CTA band path',
         lambda: single_call(single[:, :EDGE_FRAMES], trans_in=cta_trans),

@@ -22,6 +22,12 @@ from torbi_tpu_torch.utils import edges, profile
 TINY = np.finfo(np.float32).tiny
 
 
+def h100(sequences):
+    """The clusters of 8 CTAs an H100 (132 SMs) holds at once at every
+    cluster size of the tile table (band.resident_clusters on the card)"""
+    return 15
+
+
 def triangular(states, halfwidth):
     bins = np.arange(states)
     tri = np.clip(halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]),
@@ -49,8 +55,9 @@ def test_band_edges_match_jax(edge):
     post_seq, posterior = band.band_forward_reference(*args)
     np.testing.assert_array_equal(post_seq.numpy(), expected_seq)
     np.testing.assert_array_equal(posterior.numpy(), expected_post)
+    assert torch.equal(band.viterbi_forward_band(*args)[0], post_seq)
     for sequences in band.CLUSTER_TILES:
-        got, _ = band.viterbi_forward_band(*args, sequences=sequences)
+        got, _ = band._forward_band_clusters(*args, sequences)
         assert torch.equal(got, post_seq)
     assert torch.equal(band.viterbi_forward_band_cta(*args)[0], post_seq)
     seq = post_seq.numpy()
@@ -99,16 +106,21 @@ def test_edge_lists_cover_the_layouts():
 @pytest.mark.parametrize('batch, plan', [
     (8, ((0, 8, 1),)),
     (512, ((0, 480, 32), (480, 32, 4))),
-    (1024, ((0, 960, 32), (960, 64, 8))),
+    (1024, ((0, 960, 32), (960, 64, 4))),
     (256, ((0, 256, 32),))])
 def test_cluster_plan_pitch(batch, plan):
-    """At 1440 states and the pitch band (width 175) the card holds 15
-    clusters: the auto-chunk rows (batch 8) take 8 clusters of one
-    sequence; the headline (batch 512) one whole wave of 15 clusters of 32,
-    then 32 sequences in 8 clusters of 4"""
-    assert band.cluster_plan(batch, 1440, 175) == plan
-    assert band.forward_kernel(batch, 1440, 175) == (
+    """At 1440 states and the pitch band (width 175), 15 clusters held at
+    once: the auto-chunk rows (batch 8) take 8 clusters of one sequence;
+    the headline (batch 512) one whole wave of 15 clusters of 32, then 32
+    sequences in 8 clusters of 4 (one wave, cheaper than 3 waves of 1 or a
+    wave of 32)"""
+    assert band.cluster_plan(batch, 1440, 175, h100) == plan
+    assert band.forward_kernel(1440, 175) == (
         'band_forward', band.viterbi_forward_band)
+    # A card that holds 4 clusters at once: whole waves of 4 clusters of 32
+    if batch % 128 == 0:
+        assert band.cluster_plan(batch, 1440, 175, lambda sequences: 4) == (
+            (0, batch, 32),)
 
 
 @pytest.mark.parametrize('sequences, threads, smem', [
@@ -122,16 +134,16 @@ def test_cluster_layout_pitch(sequences, threads, smem):
 
 
 @pytest.mark.parametrize('width, batch1, batch512', [
-    (259, ((0, 1, 1),), ((0, 480, 8), (480, 32, 4))),
-    (301, ((0, 1, 4),), ((0, 480, 4), (480, 32, 4))),
+    (259, ((0, 1, 1),), ((0, 512, 4),)),
+    (301, ((0, 1, 4),), ((0, 512, 4),)),
     (401, None, None)])
 def test_cluster_plan_wide_bands(width, batch1, batch512):
     """Wider bands take fewer sequences per cluster; at width 401 no
     cluster layout fits 1440 states and the per-CTA design runs"""
-    assert band.cluster_plan(1, 1440, width) == batch1
-    assert band.cluster_plan(512, 1440, width) == batch512
+    assert band.cluster_plan(1, 1440, width, h100) == batch1
+    assert band.cluster_plan(512, 1440, width, h100) == batch512
     if batch1 is None:
-        assert band.forward_kernel(1, 1440, width) == (
+        assert band.forward_kernel(1440, width) == (
             'band_forward_cta', band.viterbi_forward_band_cta)
 
 
@@ -141,21 +153,21 @@ def test_cluster_layout_small_states():
     design"""
     assert band.cluster_layout(37, 7, 1)['per_cta'] == 5
     assert band.cluster_layout(37, 7, 32)['per_cta'] == 8
-    assert band.cluster_layout(37, 7, 8)['per_cta'] == 6
-    assert band.cluster_plan(5, 37, 7) == ((0, 5, 1),)
-    assert band.cluster_plan(40, 37, 7) == ((0, 40, 4),)
+    assert band.cluster_layout(37, 7, 4)['per_cta'] == 5
+    assert band.cluster_plan(5, 37, 7, h100) == ((0, 5, 1),)
+    assert band.cluster_plan(40, 37, 7, h100) == ((0, 40, 4),)
     assert not band.cluster_layout(37, 0, 4)['fits']
-    assert band.forward_kernel(5, 37, 0)[0] == 'band_forward_cta'
+    assert band.forward_kernel(37, 0)[0] == 'band_forward_cta'
     # 4096 states: the band slice alone passes 227 KB
-    assert band.cluster_plan(512, 4096, 175) is None
+    assert band.cluster_plan(512, 4096, 175, h100) is None
 
 
 def test_forward_wrapper_rejects_sequences():
     obs = torch.zeros((1, 2, 4))
     with pytest.raises(ValueError, match='sequences per cluster'):
-        band.viterbi_forward_band(
+        band._forward_band_clusters(
             obs, torch.ones(1, dtype=torch.int32), torch.zeros(4),
-            (0, 1, None), torch.zeros((1, 4)), sequences=3)
+            (0, 1, None), torch.zeros((1, 4)), 3)
 
 
 @pytest.mark.parametrize('batch, halfwidth, expected', [

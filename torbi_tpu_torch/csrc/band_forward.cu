@@ -56,8 +56,8 @@
 // (a -inf candidate leaves the max unchanged). NB = 1 (the auto-chunk
 // rows at batch 8) takes K4's thread shape instead: 4 lanes share a
 // destination, each takes every 4th offset, two xor shuffles combine them.
-// The window rows are padded (NBS) so that a quarter-warp's vector loads
-// fall in distinct banks.
+// A window row holds the NB sequences' values of one source, so a
+// quarter-warp's vector loads fall in distinct banks.
 //
 // band_forward_cta, the per-CTA design, for bands whose slice does not fit
 // (ops/band.py::cluster_layout): one CTA holds NB sequences with their
@@ -83,35 +83,23 @@ constexpr int kCluster = 8;  // CTAs per cluster
 
 // The cluster design's thread tile for NB sequences per cluster: a thread
 // computes NBT sequences x R consecutive destinations, G lanes share them
-// and split the band offsets, NACC accumulators per value; a window row
-// holds NBS floats (NB padded so that a quarter-warp's 16-byte loads of
-// NBT sequences hit distinct banks); at most MAX_THREADS per CTA
+// and split the band offsets, NACC accumulators per value; at most
+// MAX_THREADS per CTA. The launch plan (ops/band.py::cluster_plan) takes 1
+// sequence per cluster for the auto-chunk rows, 32 for whole waves of a
+// large batch and 4 for its rest
 template <int NB>
 struct Tile;
 template <>
 struct Tile<1> {
-  static constexpr int NBT = 1, R = 1, G = 4, NACC = 2, NBS = 1,
-                       MAX_THREADS = 1024;
+  static constexpr int NBT = 1, R = 1, G = 4, NACC = 2, MAX_THREADS = 1024;
 };
 template <>
 struct Tile<4> {
-  static constexpr int NBT = 4, R = 1, G = 1, NACC = 1, NBS = 4,
-                       MAX_THREADS = 512;
-};
-template <>
-struct Tile<8> {
-  static constexpr int NBT = 4, R = 2, G = 1, NACC = 1, NBS = 12,
-                       MAX_THREADS = 512;
-};
-template <>
-struct Tile<16> {
-  static constexpr int NBT = 4, R = 4, G = 1, NACC = 1, NBS = 20,
-                       MAX_THREADS = 512;
+  static constexpr int NBT = 4, R = 1, G = 1, NACC = 1, MAX_THREADS = 512;
 };
 template <>
 struct Tile<32> {
-  static constexpr int NBT = 4, R = 4, G = 1, NACC = 1, NBS = 32,
-                       MAX_THREADS = 512;
+  static constexpr int NBT = 4, R = 4, G = 1, NACC = 1, MAX_THREADS = 512;
 };
 
 struct ClusterLayout {
@@ -147,7 +135,7 @@ __host__ __device__ inline ClusterLayout cluster_layout(int states,
   l.band_rows = width + T::R - 1;
   l.window = l.per_cta + width - 1;
   l.win_off = l.band_rows * l.band_stride;
-  l.red_off = l.win_off + (2 * l.window * T::NBS + 3) / 4 * 4;
+  l.red_off = l.win_off + (2 * l.window * NB + 3) / 4 * 4;
   l.part_off = l.red_off + 2 * NB * kCluster;
   l.floats = l.part_off + l.threads / 32 * NB;
   return l;
@@ -186,8 +174,7 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
                         int states, int lo, int width, float floor_value,
                         int has_floor) {
   using T = Tile<NB>;
-  constexpr int NBT = T::NBT, R = T::R, G = T::G, NACC = T::NACC,
-                NBS = T::NBS;
+  constexpr int NBT = T::NBT, R = T::R, G = T::G, NACC = T::NACC;
   constexpr int SG = NB / NBT;    // sequence groups
   constexpr int LANES = G * SG;   // lanes per destination group
   static_assert(NBT == 1 || NBT == 4, "1 or 4 sequences per thread");
@@ -196,7 +183,7 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterLayout l = cluster_layout<NB>(states, width);
   float* band_s = cluster_smem;                 // [band_rows][band_stride]
-  float* win = cluster_smem + l.win_off;        // [2][window][NBS]
+  float* win = cluster_smem + l.win_off;        // [2][window][NB]
   float* red = cluster_smem + l.red_off;        // [2][NB][kCluster]
   float* part = cluster_smem + l.part_off;      // [warps][NB]
   const int rank = static_cast<int>(cluster.block_rank());
@@ -209,7 +196,7 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
   const int j0 = rank * l.per_cta;
   const int count = max(0, min(l.per_cta, states - j0));
   const int b0 = static_cast<int>(blockIdx.x / kCluster) * NB;
-  const int wsize = l.window * NBS;
+  const int wsize = l.window * NB;
 
   // This thread's sequences (rows past the batch get 0 frames: never
   // valid, never written) and destinations
@@ -259,7 +246,7 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
       const int r_hi = min(kCluster - 1, floor_div(j - lo, l.per_cta));
       for (int r = r_lo + g; r <= r_hi; r += G) {
         float* dst = cluster.map_shared_rank(win, r) + buf * wsize +
-                     (j - r * l.per_cta - lo) * NBS + sg * NBT;
+                     (j - r * l.per_cta - lo) * NB + sg * NBT;
         if constexpr (NBT == 4) {
           *reinterpret_cast<float4*>(dst) =
               make_float4(prev[0][i], prev[1][i], prev[2][i], prev[3][i]);
@@ -343,12 +330,12 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
     }
     if (any && dg < l.groups) {
       const float* bcol = band_s + dg * R;
-      const float* src = win + cur * wsize + dg * R * NBS + sg * NBT;
+      const float* src = win + cur * wsize + dg * R * NB + sg * NBT;
       auto step = [&](float (&a)[NBT][R], int m) {
         float bv[R];
         float sv[NBT];
         load_row<R>(bv, bcol + m * l.band_stride);
-        load_row<NBT>(sv, src + m * NBS);
+        load_row<NBT>(sv, src + m * NB);
 #pragma unroll
         for (int q = 0; q < NBT; ++q)
 #pragma unroll
@@ -557,7 +544,7 @@ int launch_cta_design(const float* obs, const int* batch_frames,
 // obs, post_seq: (batch, frames, states) float32; batch_frames: (batch,)
 // int32; initial: (states,) float32; band: (width, states) float32 with
 // band[d, j] = transition[j, j + d + lo]. The cluster design with
-// `sequences` (1, 4, 8, 16 or 32) per cluster of 8 CTAs. Returns a
+// `sequences` (1, 4 or 32) per cluster of 8 CTAs. Returns a
 // cudaError_t code: cudaErrorInvalidValue when width < 1, or when the
 // layout needs more threads or shared memory than a CTA may have
 // (ops/band.py::cluster_layout computes the same).
@@ -577,8 +564,6 @@ extern "C" int band_forward(const float* obs, const int* batch_frames,
   switch (sequences) {
     TORBI_CLUSTER_CASE(1)
     TORBI_CLUSTER_CASE(4)
-    TORBI_CLUSTER_CASE(8)
-    TORBI_CLUSTER_CASE(16)
     TORBI_CLUSTER_CASE(32)
     default:
       return cudaErrorInvalidValue;
@@ -587,8 +572,8 @@ extern "C" int band_forward(const float* obs, const int* batch_frames,
 }
 
 // The clusters of the cluster design with `sequences` per cluster that
-// the card holds at once at this shape (ops/band.py::CLUSTER_WAVE mirrors
-// it), into *clusters. Returns a cudaError_t code.
+// the card holds at once at this shape, into *clusters: the waves of
+// ops/band.py::cluster_plan. Returns a cudaError_t code.
 extern "C" int band_forward_clusters(int states, int width, int sequences,
                                      int* clusters) {
   if (states <= 0) return cudaErrorInvalidValue;
@@ -597,10 +582,6 @@ extern "C" int band_forward_clusters(int states, int width, int sequences,
       return count_clusters<1>(states, width, clusters);
     case 4:
       return count_clusters<4>(states, width, clusters);
-    case 8:
-      return count_clusters<8>(states, width, clusters);
-    case 16:
-      return count_clusters<16>(states, width, clusters);
     case 32:
       return count_clusters<32>(states, width, clusters);
     default:

@@ -184,7 +184,7 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
 
     rows = observation[0, :, :states][gather]
     rows = convert(rows, log_input, apply_epsilon).contiguous()
-    _, forward = band_ops.forward_kernel(rows.shape[0], states, band[1])
+    _, forward = band_ops.forward_kernel(states, band[1])
     post_seq, posterior = forward(rows, lengths, initial, band, band_matrix)
     indices = backtrace_ops.backtrace_posteriors(
         post_seq, transition, posterior, lengths)

@@ -46,22 +46,22 @@ SPREAD_SMEM_BYTES = 227 * 1024
 # K1's cluster design (csrc/band_forward.cu, Tile and cluster_layout):
 # clusters of 8 CTAs; for each number of sequences per cluster, the thread
 # tile (sequences per thread, destinations per thread, lanes sharing a
-# destination), the floats of a window row and the most threads per CTA.
-# Its layout must fit the opt-in shared memory, CLUSTER_SMEM_BYTES
+# destination) and the most threads per CTA. Its layout must fit the opt-in
+# shared memory, CLUSTER_SMEM_BYTES
 CLUSTER_CTAS = 8
 CLUSTER_TILES = {
-    1: (1, 1, 4, 1, 1024),
-    4: (4, 1, 1, 4, 512),
-    8: (4, 2, 1, 12, 512),
-    16: (4, 4, 1, 20, 512),
-    32: (4, 4, 1, 32, 512),
+    1: (1, 1, 4, 1024),
+    4: (4, 1, 1, 512),
+    32: (4, 4, 1, 512),
 }
 CLUSTER_SMEM_BYTES = 227 * 1024
-# Clusters of 8 such CTAs (one per SM) resident at once on the H100's 132
-# SMs (cudaOccupancyMaxActiveClusters gives 15 for every cluster size of
-# the tile table, NVIDIA H100 80GB HBM3): a batch of more clusters runs in
-# waves
-CLUSTER_WAVE = 15
+# The time of one wave of clusters of each size (as many as the card holds
+# at once, resident_clusters), relative to a wave of clusters of 4:
+# chip_smoke.py's K1 plan phase times a wave of each size at the pitch
+# headline's frames, states and band (NVIDIA H100 80GB HBM3, 700 W: 1.619,
+# 3.226 and 10.127 ms). cluster_plan weighs the launch of a batch's rest
+# with it
+CLUSTER_WAVE_COST = {1: 0.502, 4: 1.0, 32: 3.139}
 
 # Detection and gating results cached per live, unmodified tensor
 _detect_cache = {}
@@ -220,8 +220,7 @@ def cluster_layout(states, width, sequences):
 
     Returns a dict: per_cta, threads, smem_bytes, and fits (width >= 1, at
     most the tile's threads, at most CLUSTER_SMEM_BYTES)."""
-    per_thread, dests, lanes, row_floats, max_threads = CLUSTER_TILES[
-        sequences]
+    per_thread, dests, lanes, max_threads = CLUSTER_TILES[sequences]
     per_cta = -(-(-(-states // CLUSTER_CTAS)) // dests) * dests
     groups = per_cta // dests
     threads = -(-(groups * (sequences // per_thread) * lanes) // 32) * 32
@@ -231,7 +230,7 @@ def cluster_layout(states, width, sequences):
         stride = -(-per_cta // 4) * 4
     window = per_cta + width - 1
     floats = ((width + dests - 1) * stride
-              + -(-(2 * window * row_floats) // 4) * 4
+              + -(-(2 * window * sequences) // 4) * 4
               + 2 * sequences * CLUSTER_CTAS + threads // 32 * sequences)
     return {
         'per_cta': per_cta, 'threads': threads, 'smem_bytes': 4 * floats,
@@ -239,56 +238,75 @@ def cluster_layout(states, width, sequences):
                  and 4 * floats <= CLUSTER_SMEM_BYTES)}
 
 
-def cluster_plan(batch, states, width):
+def cluster_sizes(states, width):
+    """The sequences per cluster whose layout fits this shape, ascending"""
+    return [sequences for sequences in sorted(CLUSTER_TILES)
+            if cluster_layout(states, width, sequences)['fits']]
+
+
+def cluster_plan(batch, states, width, resident):
     """K1's cluster launches at this shape: ((start, count, sequences per
     cluster), ...) over the batch, or None when no cluster layout fits (the
-    per-CTA design runs). The card holds CLUSTER_WAVE clusters at once, so
-    whole waves take the largest size that fits (at 1440 states and the
-    pitch band, 15 clusters of 32: 480 sequences); the rest of the batch
-    takes one launch at the size of least cost, waves x (sequences + 6): a
-    CTA's frame costs about one unit per sequence and six for the barrier,
-    the exchange and the stream's loads and stores. At the pitch shape,
-    batch 8 (the auto-chunk rows) is one launch of 8 clusters of 1
+    per-CTA design runs). ``resident(sequences)`` is the clusters of that
+    size the card holds at once (``resident_clusters``). Whole waves take
+    the largest size that fits (the least time per sequence); the rest of
+    the batch takes one launch at the size of least cost, its waves times
+    CLUSTER_WAVE_COST, or joins the whole waves when that size is the
+    largest. With 15 clusters held at once at 1440 states and the pitch
+    band, batch 8 (the auto-chunk rows) is one launch of 8 clusters of 1
     sequence, batch 512 (the headline) 480 sequences in clusters of 32,
     then 32 in clusters of 4."""
-    sizes = [sequences for sequences in sorted(CLUSTER_TILES)
-             if cluster_layout(states, width, sequences)['fits']]
+    sizes = cluster_sizes(states, width)
     if not sizes:
         return None
     largest = sizes[-1]
-    whole = batch // (CLUSTER_WAVE * largest) * CLUSTER_WAVE * largest
-    plan = [(0, whole, largest)] if whole else []
+    wave = resident(largest) * largest
+    whole = batch // wave * wave
     rest = batch - whole
-    if rest:
-        def cost(sequences):
-            waves = -(-(-(-rest // sequences)) // CLUSTER_WAVE)
-            return waves * (sequences + 6)
 
-        plan.append((whole, rest, min(sizes, key=cost)))
-    return tuple(plan)
+    def cost(sequences):
+        clusters = -(-rest // sequences)
+        return -(-clusters // resident(sequences)) * CLUSTER_WAVE_COST[
+            sequences]
+
+    size = min(sizes, key=cost) if rest else largest
+    if size == largest:
+        return ((0, batch, largest),)
+    plan = ((0, whole, largest),) if whole else ()
+    return plan + ((whole, rest, size),)
 
 
-def resident_clusters(states, width, sequences, device=None):
+_resident_cache = {}
+
+
+def resident_clusters(states, width, sequences, device):
     """The clusters of K1's cluster design, with ``sequences`` per cluster,
-    that the card holds at once at this shape
+    that the CUDA card ``device`` holds at once at this shape
     (cudaOccupancyMaxActiveClusters through csrc/band_forward.cu,
-    band_forward_clusters); ``CLUSTER_WAVE`` is what it gives on the H100.
-    Needs a CUDA card (``device``, None is the current one)."""
-    lib = _library()
-    clusters = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        code = lib.band_forward_clusters(
-            states, width, sequences, ctypes.byref(clusters))
-    build.raise_on_error(lib, 'band_forward_clusters', code)
-    return clusters.value
+    band_forward_clusters), cached per card and shape"""
+    device = torch.device(device)
+    key = (device.index, states, width, sequences)
+    if key not in _resident_cache:
+        lib = _library()
+        clusters = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            code = lib.band_forward_clusters(
+                states, width, sequences, ctypes.byref(clusters))
+        build.raise_on_error(lib, 'band_forward_clusters', code)
+        if clusters.value < 1:
+            raise RuntimeError(
+                f'the card holds no cluster of {sequences} sequences at '
+                f'{states} states and band width {width}')
+        _resident_cache[key] = clusters.value
+    return _resident_cache[key]
 
 
-def forward_kernel(batch, states, width):
+def forward_kernel(states, width):
     """K1's design at this shape: ('band_forward', viterbi_forward_band)
-    where a cluster layout fits (``cluster_plan``), else
+    where a cluster layout fits (``cluster_sizes``), else
     ('band_forward_cta', viterbi_forward_band_cta); the names are those of
     the wrappers' launch counters"""
-    if cluster_plan(batch, states, width) is not None:
+    if cluster_sizes(states, width):
         return 'band_forward', viterbi_forward_band
     return 'band_forward_cta', viterbi_forward_band_cta
 
@@ -312,15 +330,34 @@ def _check_band_args(observation, batch_frames, initial, band, band_matrix):
 
 
 def viterbi_forward_band(observation, batch_frames, initial, band,
-                         band_matrix, sequences=None):
+                         band_matrix):
     """Banded forward pass, K1's cluster design (csrc/band_forward.cu,
     band_forward) on CUDA tensors, its plain version on CPU tensors.
     Arguments and results as in ``band_forward_reference``; all tensors
-    contiguous on one device. The launches follow ``cluster_plan``, or
-    one launch with ``sequences`` per cluster when given; on the card a
-    shape whose layout does not fit raises (``forward_kernel`` sends it to
-    the per-CTA design). Each launch counts once."""
-    if sequences is not None and sequences not in CLUSTER_TILES:
+    contiguous on one device. The launches follow ``cluster_plan``; on the
+    card a shape no layout fits raises (``forward_kernel`` sends it to the
+    per-CTA design). Each launch counts once."""
+    if not _check_band_args(
+            observation, batch_frames, initial, band, band_matrix):
+        return band_forward_reference(
+            observation, batch_frames, initial, band, band_matrix)
+    batch, _, states = observation.shape
+    width = band[1]
+    plan = cluster_plan(batch, states, width, lambda sequences: (
+        resident_clusters(states, width, sequences, observation.device)))
+    return _launch_clusters(
+        observation, batch_frames, initial, band, band_matrix, plan)
+
+
+viterbi_forward_band.launches = 0
+
+
+def _forward_band_clusters(observation, batch_frames, initial, band,
+                           band_matrix, sequences):
+    """``viterbi_forward_band`` in one launch with ``sequences`` per
+    cluster, whatever the plan: each cluster size held against the plain
+    version and timed on its own"""
+    if sequences not in CLUSTER_TILES:
         raise ValueError(
             f'sequences per cluster must be one of {sorted(CLUSTER_TILES)}, '
             f'got {sequences}')
@@ -328,19 +365,24 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
             observation, batch_frames, initial, band, band_matrix):
         return band_forward_reference(
             observation, batch_frames, initial, band, band_matrix)
+    plan = None
+    if cluster_layout(observation.shape[2], band[1], sequences)['fits']:
+        plan = ((0, observation.shape[0], sequences),)
+    return _launch_clusters(
+        observation, batch_frames, initial, band, band_matrix, plan)
+
+
+def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
+                     plan):
+    """K1's cluster design on checked CUDA tensors, one launch per entry
+    (start, count, sequences per cluster) of ``plan``"""
     lo, width, floor = band
     batch, frames, states = observation.shape
-    if sequences is None:
-        plan = cluster_plan(batch, states, width)
-    elif cluster_layout(states, width, sequences)['fits']:
-        plan = ((0, batch, sequences),)
-    else:
-        plan = None
     if plan is None:
         raise ValueError(
             f'no cluster layout of K1 fits {states} states and band width '
-            f'{width} (sequences per cluster: {sequences}); '
-            'band.forward_kernel sends this shape to band_forward_cta')
+            f'{width}; band.forward_kernel sends this shape to '
+            'band_forward_cta')
     device = observation.device
     post_seq = torch.empty_like(observation)
     if batch and frames:
@@ -358,9 +400,6 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
                 build.raise_on_error(lib, 'band_forward', code)
                 viterbi_forward_band.launches += 1
     return post_seq, post_seq[:, -1]
-
-
-viterbi_forward_band.launches = 0
 
 
 def viterbi_forward_band_cta(observation, batch_frames, initial, band,

@@ -140,7 +140,7 @@ def kernel_route(transition, band, batch):
                   and band_ops.spread_fits(states, band[1]))
         name, kernel = (
             ('band_spread', band_ops.viterbi_forward_band_spread) if spread
-            else band_ops.forward_kernel(batch, states, band[1]))
+            else band_ops.forward_kernel(states, band[1]))
         forward = (name, lambda obs, bf, initial: kernel(
             obs, bf, initial, band, matrix))
     chase = (_batch1_chase(band, states)
