@@ -16,7 +16,15 @@ just after each:
   held bitwise and timed at the headline and on the auto-chunk rows, and
   K1 (at every cluster size) and K3 on every shape of the edge list
   (``torbi_tpu_torch/utils/edges.py``, the list the CPU tests hold against
-  torbi_tpu), K3 also past 8 x 1024 states;
+  torbi_tpu), K3 also past 8 x 1024 states. The banded forward kernels
+  convert the observation as they load it (the log of a probability, the
+  epsilon step): K1 in both designs at every cluster size and K4 are held
+  bitwise against the plain route (the conversion's torch ops, then the
+  same kernel) in log and probability space, with log(tiny) and
+  0 < p < tiny entries, at the headline, on the auto-chunk rows and over
+  the edge list, and timed against the epsilon step plus the kernel; the
+  headline also runs with ``log_probs=False``, and its traced call must
+  hold no elementwise exp or log;
 - the dense path: a random dense 1440-state transition at 8 x 64, and the
   README toy -- the dense forward kernel (K2), then K3;
 - the batch-1 paths, one pitch sequence of 10,240 frames (bench.py's batch-1
@@ -36,13 +44,19 @@ just after each:
   hybrid:K at K 1, 8, 81, the mod-M mod12 and mod12k (both outputs) at
   every accumulator count and tile, mod12 also un-permuted against full;
   the spread kernel with clusters of 8 and 16, every chase variant in both
-  thread shapes), then timed at full width through the labs' entry points:
+  thread shapes; pipeG at a run-time G: 3, 5, 24 and the groups with
+  instances of their own), then timed at full width through the labs' entry
+  points:
   the forward variants at 512 x 512 x 1440 (width 175) beside K1 and the
   H100 ideals, mxushift, hybrid, mod12 and mod12k at 512 x 512 x 1536
   beside full:4:4 at that shape, the spread variants at 1 x 10,240 beside
   K4, the chase variants over 10,240 steps beside K5 and K6. The output of
   every timed run is held bitwise against its plain version on the same
   inputs, at that full size;
+- the committed reference paths (``utils/fixtures.py``,
+  ``torbi_tpu_torch/assets/reference_paths.npz``): every case, decoded by
+  torbi_tpu on the CPU when the file was written, decoded on the card
+  through ``from_probabilities`` and held against it bitwise;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -53,6 +67,7 @@ last, ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. Needs one CUDA card; imports nothing of JAX.
 """
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -87,7 +102,10 @@ LAB_CHECK_FRAMES, LAB_CHECK_STEPS, LAB_ITERS = 64, 256, 3
 LAB_FORWARD_SPECS = (
     'full:4:1', 'full:4:2', 'full:4:4', 'full:4:8', 'full:1:1', 'full:1:2',
     'full:1:4', 'full:1:8', 'rollmax', 'addmax', 'max', 'rowadd', 'pipe',
-    'pipe2', 'pipe4', 'pipe16', 'tilted:2', 'tilted:4', 'tilted:8')
+    'pipe2', 'pipe4', 'pipe16', 'pipe3', 'pipe5', 'pipe24', 'tilted:2',
+    'tilted:4', 'tilted:8')
+# pipeG for groups without an instance of their own (the run-time group)
+RUN_TIME_PIPES = ('pipe3', 'pipe5', 'pipe24')
 # The tensor-core and mod-M labs need the states a multiple of 128: the
 # JAX lab's default 1536 (M = 12), the headline's batch, frames and width;
 # full:4:4 timed beside them at that shape
@@ -210,6 +228,148 @@ def valid_steps(batch_frames, frames):
     return int((batch_frames.clamp(max=frames) - 1).clamp(min=0).sum())
 
 
+# The conversions the banded forward kernels fold into their loads, as
+# (log_input, apply_epsilon), and the torch ops of the plain route that each
+# must equal bitwise (dispatch.convert); (True, False) converts nothing
+CONVERSIONS = {
+    (True, True): 'torch.exp, add_(tiny), log_ (the epsilon step)',
+    (False, True): 'torch.log, then exp_, add_(tiny), log_',
+    (False, False): 'torch.log',
+}
+
+
+def with_tiny_entries(obs):
+    """A copy of a log-space observation with every 7th value log(tiny):
+    exp of it is subnormal, and in probability space (its exp) it is a
+    0 < p < tiny entry"""
+    out = obs.clone()
+    out.view(-1)[::7] = float(np.log(np.float32(TINY)))
+    return out
+
+
+def hold_folded(torch, dispatch, label, fn, raw, rest):
+    """``fn(obs, *rest, log_input, apply_epsilon)`` (a banded forward
+    wrapper) with the conversion folded in, in log space on ``raw`` and in
+    probability space on its exp, bitwise against the plain route: the
+    conversion as torch ops, then ``fn`` on the converted observation.
+    Returns the largest max abs err (0.0)"""
+    err = 0.0
+    for (log_input, apply_epsilon), ops in CONVERSIONS.items():
+        obs = raw if log_input else torch.exp(raw)
+        got = fn(obs, *rest, log_input=log_input,
+                 apply_epsilon=apply_epsilon)[0]
+        want = fn(dispatch.convert(obs, log_input, apply_epsilon)
+                  .contiguous(), *rest)[0]
+        torch.cuda.synchronize()
+        mode = f'log_input={log_input}, apply_epsilon={apply_epsilon}'
+        if not torch.equal(got, want):
+            fail(f'{label} ({mode}): the folded conversion differs from '
+                 f'the plain route in {int((got != want).sum())} values '
+                 f'(max abs err {max_abs_err(torch, got, want)}; tolerance: '
+                 f'bitwise): the kernel\'s logf/expf round otherwise than '
+                 f'{ops}')
+        err = max(err, max_abs_err(torch, got, want))
+    return err
+
+
+def sass_conversion_counts(build):
+    """SASS instructions (and MUFU instructions among them) per converted
+    value, read with cuobjdump from the built K1 library: each instance of
+    the cluster design with a conversion against the one without, over the
+    values it converts in its code (frame 0 and the two inlined fetches, each
+    NBT x R values: 3 with 1 sequence per cluster, 12 with 4, 48 with 32).
+    Static counts: the compiler may schedule the instances differently
+    around the conversion, so the three are estimates of one number.
+    Returns {(log_input, apply_epsilon): {kernel: (all, mufu)}}"""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    out = subprocess.run([tool, '-sass', str(build.target('band_forward'))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        fail(f'cuobjdump -sass failed on band_forward: {out.stderr.strip()}')
+    counts = {}
+    function = None
+    for line in out.stdout.splitlines():
+        match = re.match(r'\s*Function : (\S+)', line)
+        if match:
+            function = match.group(1)
+            counts[function] = [0, 0]
+            continue
+        match = re.match(r'\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;', line)
+        if function and match:
+            op = match.group(1).split()
+            op = op[1] if op[0].startswith('@') else op[0]
+            if not op.startswith('NOP'):
+                counts[function][0] += 1
+                counts[function][1] += op.startswith('MUFU')
+    kernels = {f'K1 {nb} per cluster': (f'band_cluster_kernelILi{nb}ELi{{}}E',
+                                        places)
+               for nb, places in ((1, 3), (4, 12), (32, 48))}
+
+    def find(pattern):
+        found = [key for key in counts if pattern in key]
+        if len(found) != 1:
+            fail(f'cuobjdump: {len(found)} functions match {pattern}')
+        return counts[found[0]]
+
+    result = {}
+    for (log_input, apply_epsilon) in CONVERSIONS:
+        conv = (0 if log_input else 2) | (1 if apply_epsilon else 0)
+        result[(log_input, apply_epsilon)] = {}
+        for label, (pattern, places) in kernels.items():
+            base, with_conv = find(pattern.format(0)), find(
+                pattern.format(conv))
+            result[(log_input, apply_epsilon)][label] = (
+                (with_conv[0] - base[0]) / places,
+                (with_conv[1] - base[1]) / places)
+    return result
+
+
+def hold_fixtures(torch, fixtures, device):
+    """Decode every committed fixture case on the card through
+    from_probabilities and hold its path against torbi_tpu's, bitwise.
+    Returns the number of cases held"""
+    committed = fixtures.load()
+    names = [case.name for case in fixtures.CASES]
+    if sorted(committed) != sorted(names):
+        fail(f'the fixture file holds {sorted(committed)}, the cases are '
+             f'{sorted(names)}')
+    for case in fixtures.CASES:
+        inputs = fixtures.case_inputs(case)
+        expected, digest = committed[case.name]
+        if fixtures.inputs_hash(case, inputs) != digest:
+            fail(f'fixture {case.name}: the inputs made here differ from '
+                 'those the committed paths were decoded from')
+        got = fixtures.decode(case, inputs, device.index)
+        torch.cuda.synchronize()
+        if got.device != device or not np.array_equal(
+                got.cpu().numpy(), expected):
+            differ = int((got.cpu().numpy() != expected).sum())
+            fail(f'fixture {case.name}: the card\'s path differs from '
+                 f'torbi_tpu\'s in {differ} of {expected.size} positions; '
+                 + conversion_report(torch, inputs[0], case.log_probs,
+                                     device))
+    return len(fixtures.CASES)
+
+
+def conversion_report(torch, observation, log_probs, device):
+    """Which op of the conversion rounds differently on the card than on
+    the CPU (the port's CPU route equals torbi_tpu's): each torch op of
+    the plain route on both, step by step"""
+    steps = [] if log_probs else [('torch.log', torch.log)]
+    steps += [('torch.exp', torch.exp),
+              ('add(tiny)', lambda x: x + float(TINY)),
+              ('torch.log (epsilon step)', torch.log)]
+    cpu = torch.from_numpy(np.asarray(observation, np.float32))
+    card = cpu.to(device)
+    for name, op in steps:
+        cpu, card = op(cpu), op(card)
+        differ = int((card.cpu() != cpu).sum())
+        if differ:
+            return (f'{name} rounds differently on the card in {differ} '
+                    'values')
+    return 'the conversion rounds the same on the card as on the CPU'
+
+
 def main():
     try:
         import torch
@@ -238,7 +398,7 @@ def main():
     from torbi_tpu_torch.models import pitch
     from torbi_tpu_torch.ops import backtrace, band, dense, dispatch
     from torbi_tpu_torch.scripts import chase_lab, kernel_lab
-    from torbi_tpu_torch.utils import edges, profile
+    from torbi_tpu_torch.utils import edges, fixtures, profile
 
     device = torch.device('cuda', 0)
     torch.cuda.set_device(device)
@@ -258,6 +418,16 @@ def main():
         for line in output.splitlines():
             if 'registers' in line or 'spill' in line:
                 info(f'{name}: {line.strip()}')
+    # The instructions the folded conversion adds per value, from the SASS
+    sass = sass_conversion_counts(build)
+    for (log_input, apply_epsilon), per_kernel in sass.items():
+        info(f'SASS per converted value (log_input={log_input}, '
+             f'apply_epsilon={apply_epsilon}): ' + ', '.join(
+                 f'{kernel} {total:g} instructions, {mufu:g} MUFU'
+                 for kernel, (total, mufu) in per_kernel.items()))
+    # The headline's conversion (log space, the epsilon step) per value, as
+    # the headline's kernel (32 per cluster) compiles it
+    conv_per_value = sass[(True, True)]['K1 32 per cluster'][0]
 
     # Inputs of the banded path, made from a seed
     start = time.perf_counter()
@@ -281,8 +451,18 @@ def main():
     obs_k = dispatch.convert(obs, True, True).contiguous()
     convert_ms = cuda_ms(
         torch, lambda: dispatch.convert(obs, True, True), iters=5)
+    # The same step on a probability observation (log, then the epsilon
+    # step: four passes); its bound, one read and one write of the
+    # observation
+    obs_prob = torch.exp(obs)
+    convert_prob_ms = cuda_ms(
+        torch, lambda: dispatch.convert(obs_prob, False, True), iters=5)
+    del obs_prob
+    convert_bound_ms = 2 * obs.numel() * 4 / PEAK_BYTES_PER_S * 1e3
     info(f'epsilon step (plain torch elementwise, headline shape): '
-         f'{convert_ms:.3f} ms')
+         f'{convert_ms:.3f} ms; log and epsilon step on probabilities '
+         f'{convert_prob_ms:.3f} ms; bound (one read and one write) '
+         f'{convert_bound_ms:.3f} ms')
 
     kernels = {}
 
@@ -337,6 +517,63 @@ def main():
     info(f'K1 at the headline, in turns (ms): cluster {k1_turns[0]:.3f}, '
          f'per-CTA {k1_turns[1]:.3f}, per-CTA {k1_turns[2]:.3f}, cluster '
          f'{k1_turns[3]:.3f}; plain {k1_plain_ms:.1f} ms')
+
+    # K1 as the main path calls it, the conversion folded in: each design
+    # (the cluster design as the plan launches it and at every cluster
+    # size) bitwise against the plain route (the conversion's torch ops,
+    # then the same kernel), in log space and in probability space; the
+    # headline's generator makes log(tiny) entries, whose exp is subnormal
+    # (and 0 < p < tiny in probability space)
+    log_tiny = float(np.log(np.float32(TINY)))
+    if not bool((obs == log_tiny).any()):
+        fail('the headline observation holds no log(tiny) entry')
+    fold_rest = (bf, init, band_tuple, band_matrix)
+    kernels['band_forward']['max_abs_err'] = max(
+        kernels['band_forward']['max_abs_err'], hold_folded(
+            torch, dispatch, 'K1 band_forward folded at the headline',
+            band.viterbi_forward_band, obs, fold_rest))
+    for size in band.CLUSTER_TILES:
+        kernels['band_forward']['max_abs_err'] = max(
+            kernels['band_forward']['max_abs_err'], hold_folded(
+                torch, dispatch, f'K1 band_forward folded at the headline, '
+                f'{size} per cluster', band._forward_band_clusters, obs,
+                fold_rest + (size,)))
+    kernels['band_forward_cta']['max_abs_err'] = max(
+        kernels['band_forward_cta']['max_abs_err'], hold_folded(
+            torch, dispatch, 'K1 band_forward_cta folded at the headline',
+            band.viterbi_forward_band_cta, obs, fold_rest))
+    info('K1 folded (both designs, cluster sizes '
+         f'{"/".join(map(str, band.CLUSTER_TILES))}) bitwise equal to the '
+         'plain route at the headline, log and probability space')
+
+    # Folded K1 against the epsilon step's torch ops plus K1, in turns
+    def k1_folded():
+        return band.viterbi_forward_band(obs, *fold_rest, True, True)
+
+    def k1_after_epsilon():
+        return band.viterbi_forward_band(
+            dispatch.convert(obs, True, True).contiguous(), *fold_rest)
+
+    fold_turns = [cuda_ms(torch, fn, iters=5) for fn in (
+        k1_folded, k1_after_epsilon, k1_after_epsilon, k1_folded)]
+    k1_fold_ms = (fold_turns[0] + fold_turns[3]) / 2
+    # The converted values: frame 0 and every valid frame, each once
+    converted_values = (BATCH + steps) * STATES
+    kernels['band_forward'].update(
+        epsilon_step_ms=convert_ms, log_epsilon_step_ms=convert_prob_ms,
+        epsilon_step_bound_ms=convert_bound_ms,
+        ms=k1_fold_ms, unfolded_ms=k1_ms,
+        epsilon_plus_kernel_ms=(fold_turns[1] + fold_turns[2]) / 2,
+        conversion_instructions_per_value=conv_per_value,
+        bound=bound_ms(k1_bytes, k1_ops + converted_values * conv_per_value))
+    info(f'K1 folded against the epsilon step + K1 at the headline, in turns '
+         f'(ms): folded {fold_turns[0]:.3f}, epsilon + K1 '
+         f'{fold_turns[1]:.3f}, epsilon + K1 {fold_turns[2]:.3f}, folded '
+         f'{fold_turns[3]:.3f} '
+         f'(K1 alone on a converted observation {k1_ms:.3f}); bound with '
+         f'{conv_per_value:g} conversion instructions per value '
+         f'{kernels["band_forward"]["bound"][0]:.3f} '
+         f'({kernels["band_forward"]["bound"][1]})')
     # Band bytes read from L2 per call, reckoned from the launch layout
     # (not measured): the per-CTA design loads every in-range band value
     # in every CTA (4 sequences each) and frame, counted as if each load
@@ -469,6 +706,7 @@ def main():
     # tests/test_torch_edges.py): K1's cluster design at every cluster
     # size, its per-CTA design and K3 on each band edge, K3 on each chase
     # edge, and K3 past 8 x 1024 states (the chase without staging)
+    fold_spread_err = 0.0
     for edge in edges.BAND_EDGES:
         e_obs, e_bf, e_trans, e_init = (
             torch.from_numpy(a).to(device)
@@ -494,6 +732,25 @@ def main():
                     e_post, e_trans, e_posterior, e_bf),
                 backtrace.backtrace_reference(
                     e_post, e_trans, e_posterior, e_bf)))
+        # The folded conversion on the edge, with log(tiny) entries: K1 at
+        # every cluster size and per CTA, K4 on its first sequence (lanes
+        # past the states, sequences past the batch and frames past
+        # batch_frames load nothing)
+        t_obs, t_rest = with_tiny_entries(e_obs), e_args[1:]
+        for size in band.CLUSTER_TILES:
+            kernels['band_forward']['max_abs_err'] = max(
+                kernels['band_forward']['max_abs_err'], hold_folded(
+                    torch, dispatch, f'K1 band_forward folded {edge.name}, '
+                    f'{size} per cluster', band._forward_band_clusters,
+                    t_obs, t_rest + (size,)))
+        kernels['band_forward_cta']['max_abs_err'] = max(
+            kernels['band_forward_cta']['max_abs_err'], hold_folded(
+                torch, dispatch, f'K1 band_forward_cta folded {edge.name}',
+                band.viterbi_forward_band_cta, t_obs, t_rest))
+        fold_spread_err = max(fold_spread_err, hold_folded(
+            torch, dispatch, f'K4 band_spread folded {edge.name}, sequence 0',
+            band.viterbi_forward_band_spread, t_obs[:1].contiguous(),
+            (e_bf[:1],) + t_rest[1:]))
     big = torch.Generator(device).manual_seed(2)
     chase_cases = [
         (edge.name, *(torch.from_numpy(a).to(device)
@@ -513,7 +770,8 @@ def main():
                     c_post, c_trans, c_post[:, -1], c_bf)))
     del chase_cases, c_trans
     info(f'edge list: {len(edges.BAND_EDGES)} band edges (K1 at '
-         f'{len(band.CLUSTER_TILES)} cluster sizes and per CTA, K3) and '
+         f'{len(band.CLUSTER_TILES)} cluster sizes and per CTA, K3; K1 and '
+         f'K4 folded in {len(CONVERSIONS)} conversions) and '
          f'{len(edges.CHASE_EDGES) + 1} chase edges bitwise')
 
     counters = {
@@ -620,13 +878,44 @@ def main():
          f'(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), '
          f'{BATCH * FRAMES / median_s:.0f} timesteps/s, peak device memory '
          f'{peak_gb:.2f} GB, on {card}')
+    # The headline in probability space, as a user with probabilities calls
+    # it: from_probabilities(log_probs=False) takes the log of the
+    # observation (folded into K1 with the epsilon step), of the transition
+    # (a pure -inf band) and of the initial distribution
+    prob_obs = torch.exp(obs)
+    prob_trans = torch.from_numpy(pitch.transition_matrix()).to(device)
+
+    def headline_prob():
+        return torbi_tpu_torch.from_probabilities(
+            prob_obs, transition=prob_trans, gpu=0)
+
+    reset_counts()
+    prob_result = headline_prob()
+    torch.cuda.synchronize()
+    prob_counts = read_counts()
+    info(f'banded path in probability space launches: {prob_counts}')
+    if prob_counts['band_forward'] < 1 or prob_counts['band_forward_cta']:
+        fail('the probability-space headline did not take K1\'s cluster '
+             'design')
+    if not torch.equal(prob_result, torbi_tpu_torch.from_probabilities(
+            prob_obs, transition=prob_trans, gpu=0, backend='scan')):
+        fail('the probability-space headline differs from the plain scan '
+             'route on the card')
+    prob_ms = host_ms(torch, headline_prob)
+    del prob_obs, prob_result
+    info(f'headline, log_probs=False (probabilities, pitch transition as '
+         f'probabilities): {prob_ms[0]:.3f} ms/call warm median of 10 (min '
+         f'{prob_ms[1]:.3f}, max {prob_ms[2]:.3f}), '
+         f'{BATCH * FRAMES / prob_ms[0] * 1e3:.0f} timesteps/s; equals the '
+         f'plain scan route on the card; log_probs=True '
+         f'{median_s * 1e3:.3f} ms/call')
     info(f'headline per-kernel ms (CUDA events): band_forward '
          f'{kernels["band_forward"]["ms"]:.3f} (band_forward_cta '
          f'{kernels["band_forward_cta"]["headline_ms"]:.3f}, plain '
          f'{kernels["band_forward"]["plain_ms"]:.1f}), backtrace '
          f'{kernels["backtrace"]["ms"]:.3f} (plain '
-         f'{kernels["backtrace"]["plain_ms"]:.1f}), epsilon step '
-         f'{convert_ms:.3f}')
+         f'{kernels["backtrace"]["plain_ms"]:.1f}); the epsilon step is '
+         f'folded into band_forward (as torch ops alone {convert_ms:.3f})')
 
     # 5. The batch-1 kernels against their plain versions, at the batch-1
     # shape: one pitch sequence of 10,240 frames (bench.py's generator,
@@ -667,6 +956,35 @@ def main():
          'the same sequence '
          f'{k1_single_ms:.3f} ms ({k1_single_ms * 1e3 / steps1:.3f} '
          f'us/frame)')
+    # K4 as the serial route calls it, the conversion folded in, bitwise
+    # against the plain route on the raw sequence (log(tiny) entries
+    # included); then timed against the epsilon step plus K4, in turns
+    fold1_rest = (bf1, init, band_tuple, band_matrix)
+    kernels['band_spread']['max_abs_err'] = max(
+        err, fold_spread_err, hold_folded(
+            torch, dispatch, 'K4 band_spread folded at 1 x '
+            f'{SINGLE_FRAMES}', band.viterbi_forward_band_spread, single,
+            fold1_rest))
+
+    def k4_folded():
+        return band.viterbi_forward_band_spread(
+            single, *fold1_rest, True, True)
+
+    def k4_after_epsilon():
+        return band.viterbi_forward_band_spread(
+            dispatch.convert(single, True, True).contiguous(), *fold1_rest)
+
+    k4_turns = [cuda_ms(torch, fn, iters=3) for fn in (
+        k4_folded, k4_after_epsilon, k4_after_epsilon, k4_folded)]
+    kernels['band_spread'].update(
+        ms=(k4_turns[0] + k4_turns[3]) / 2, unfolded_ms=k4_ms,
+        epsilon_plus_kernel_ms=(k4_turns[1] + k4_turns[2]) / 2,
+        bound=bound_ms(k4_bytes, k4_ops
+                       + (1 + steps1) * STATES * conv_per_value))
+    info(f'K4 folded against the epsilon step + K4, in turns (ms): folded '
+         f'{k4_turns[0]:.3f}, epsilon + K4 {k4_turns[1]:.3f}, epsilon + K4 '
+         f'{k4_turns[2]:.3f}, folded {k4_turns[3]:.3f} (K4 alone on a '
+         f'converted sequence {k4_ms:.3f})')
 
     # K4's shared-memory limit: the widest band that band.spread_fits
     # admits at 1440 states runs bitwise against the plain version; one
@@ -689,7 +1007,8 @@ def main():
     err = max(err, require_equal(
         torch, f'K4 band_spread (width {edge}, its widest at {STATES} states)',
         edge_post, edge_post_r))
-    kernels['band_spread']['max_abs_err'] = err
+    kernels['band_spread']['max_abs_err'] = max(
+        kernels['band_spread']['max_abs_err'], err)
     del edge_post, edge_post_r
     try:
         band.viterbi_forward_band_spread(
@@ -873,18 +1192,53 @@ def main():
         band.viterbi_forward_band, band.viterbi_forward_band_cta,
         band.viterbi_forward_band_cta, band.viterbi_forward_band)]
     rows_k1_ms = (rows_turns[0] + rows_turns[3]) / 2
+    # The rows as the route hands them to K1: gathered raw, converted in
+    # the kernel. Folded K1 (the plan, every cluster size, per CTA) bitwise
+    # against the plain route, then timed against the epsilon step plus K1
+    raw_rows = single[0][gather]
+    raw_rest = rows_args[1:]
+    kernels['band_forward']['max_abs_err'] = max(
+        kernels['band_forward']['max_abs_err'], hold_folded(
+            torch, dispatch, 'K1 band_forward folded on the auto-chunk rows',
+            band.viterbi_forward_band, raw_rows, raw_rest))
+    for size in band.CLUSTER_TILES:
+        kernels['band_forward']['max_abs_err'] = max(
+            kernels['band_forward']['max_abs_err'], hold_folded(
+                torch, dispatch, 'K1 band_forward folded on the auto-chunk '
+                f'rows, {size} per cluster', band._forward_band_clusters,
+                raw_rows, raw_rest + (size,)))
+    kernels['band_forward_cta']['max_abs_err'] = max(
+        kernels['band_forward_cta']['max_abs_err'], hold_folded(
+            torch, dispatch, 'K1 band_forward_cta folded on the auto-chunk '
+            'rows', band.viterbi_forward_band_cta, raw_rows, raw_rest))
+    rows_fold_turns = [cuda_ms(torch, fn, iters=3) for fn in (
+        lambda: band.viterbi_forward_band(raw_rows, *raw_rest, True, True),
+        lambda: band.viterbi_forward_band(
+            dispatch.convert(raw_rows, True, True).contiguous(), *raw_rest),
+        lambda: band.viterbi_forward_band(
+            dispatch.convert(raw_rows, True, True).contiguous(), *raw_rest),
+        lambda: band.viterbi_forward_band(raw_rows, *raw_rest, True, True))]
+    info('K1 folded against the epsilon step + K1 on the auto-chunk rows, '
+         'in turns (ms): ' + ', '.join(f'{ms:.3f}' for ms in rows_fold_turns)
+         + f' (folded, epsilon + K1, epsilon + K1, folded; K1 alone on '
+         f'converted rows {rows_k1_ms:.3f})')
     rows_k3_ms = cuda_ms(torch, lambda: backtrace.backtrace_posteriors(
         rows_post, trans, rows_posterior, row_frames), iters=5)
     rows_steps = valid_steps(row_frames, longest)
     rows_k1_bound = bound_ms(
         (2 * n_rows * longest * STATES + width * STATES + STATES) * 4,
-        rows_steps * (2 * in_range + 3 * STATES))
+        rows_steps * (2 * in_range + 3 * STATES)
+        + (n_rows + rows_steps) * STATES * conv_per_value)
     rows_k3_bound = bound_ms(
         (rows_steps * STATES + n_rows * STATES + STATES * STATES
          + n_rows * longest) * 4, (rows_steps + n_rows) * 2 * STATES)
     rows_plan = band.cluster_plan(n_rows, STATES, width, resident.get)
     kernels['band_forward'].update(
-        rows_ms=rows_k1_ms, rows_plain_ms=rows_plain_ms,
+        rows_ms=(rows_fold_turns[0] + rows_fold_turns[3]) / 2,
+        rows_unfolded_ms=rows_k1_ms,
+        rows_epsilon_plus_kernel_ms=(rows_fold_turns[1]
+                                     + rows_fold_turns[2]) / 2,
+        rows_plain_ms=rows_plain_ms,
         rows_bound_ms=rows_k1_bound[0], rows_bound_by=rows_k1_bound[1],
         rows_smem_bound_ms=rows_steps * in_range / smem_words_per_s * 1e3,
         rows_launches=chunk_counts['band_forward'])
@@ -907,7 +1261,7 @@ def main():
          f'ms ({rows_k3_ms * 1e3 / (longest - 1):.3f} us/step), plain '
          f'{rows_k3_plain_ms:.1f}, bound {rows_k3_bound[0]:.4f} '
          f'({rows_k3_bound[1]}) (CUDA events)')
-    del rows, rows_args, rows_post, rows_posterior, rows_idx
+    del rows, rows_args, rows_post, rows_posterior, rows_idx, raw_rows
 
     # The serial routes, auto-chunking off: K4 then K5; then the window
     # chase on the pure band
@@ -974,20 +1328,36 @@ def main():
             torch, f'K1 band_forward_cta (width {cta_band[1]})',
             band.viterbi_forward_band_cta(*cta_args)[0], cta_post_r))
     del cta_post_r
+    kernels['band_forward_cta']['max_abs_err'] = max(
+        kernels['band_forward_cta']['max_abs_err'], hold_folded(
+            torch, dispatch, f'K1 band_forward_cta folded (width '
+            f'{cta_band[1]})', band.viterbi_forward_band_cta,
+            single[:, :EDGE_FRAMES].contiguous(), cta_args[1:]))
     # Timed on this path's inputs, its bound from this band's candidates
-    cta_ms = cuda_ms(
-        torch, lambda: band.viterbi_forward_band_cta(*cta_args), iters=5)
+    cta_raw = single[:, :EDGE_FRAMES].contiguous()
+    cta_turns = [cuda_ms(torch, fn, iters=5) for fn in (
+        lambda: band.viterbi_forward_band_cta(
+            cta_raw, *cta_args[1:], True, True),
+        lambda: band.viterbi_forward_band_cta(*cta_args),
+        lambda: band.viterbi_forward_band_cta(*cta_args),
+        lambda: band.viterbi_forward_band_cta(
+            cta_raw, *cta_args[1:], True, True))]
+    cta_ms = (cta_turns[0] + cta_turns[3]) / 2
     cta_steps = valid_steps(bf_edge, EDGE_FRAMES)
     cta_in_range = in_range_pairs(STATES, cta_band[0], cta_band[1])
     cta_bound = bound_ms(
         (2 * EDGE_FRAMES * STATES + cta_band[1] * STATES + STATES) * 4,
-        cta_steps * (2 * cta_in_range + 3 * STATES))
+        cta_steps * (2 * cta_in_range + 3 * STATES)
+        + (1 + cta_steps) * STATES * conv_per_value)
     kernels['band_forward_cta'].update(
-        ms=cta_ms, plain_ms=cta_plain_ms, bound=cta_bound, library_ms=None,
+        ms=cta_ms, unfolded_ms=(cta_turns[1] + cta_turns[2]) / 2,
+        plain_ms=cta_plain_ms, bound=cta_bound, library_ms=None,
         smem_bound_ms=cta_steps * cta_in_range / smem_words_per_s * 1e3,
         shape=f'1 x {EDGE_FRAMES} x {STATES}, width {cta_band[1]}')
     info(f'K1 band_forward_cta at width {cta_band[1]} (1 x {EDGE_FRAMES}): '
-         f'{cta_ms:.3f} ms ({cta_ms * 1e3 / cta_steps:.3f} us/frame), plain '
+         f'folded {cta_ms:.3f} ms ({cta_ms * 1e3 / cta_steps:.3f} us/frame; '
+         f'in turns ' + ', '.join(f'{ms:.3f}' for ms in cta_turns)
+         + f': folded, on a converted sequence twice, folded), plain '
          f'{cta_plain_ms:.1f} ms, bound {cta_bound[0]:.4f} ({cta_bound[1]})')
     cta_out, cta_counts = run_path(
         'batch-1 per-CTA band path',
@@ -1035,6 +1405,12 @@ def main():
          f'ms/call warm median of 10, '
          f'{SHORT_FRAMES / short_ms[0] * 1e3:.0f} timesteps/s')
 
+    # 6b. What the card decodes against torbi_tpu: every committed fixture
+    # case (utils/fixtures.py) through from_probabilities, bitwise
+    held = hold_fixtures(torch, fixtures, device)
+    info(f'fixtures: {held} cases decoded on the card equal torbi_tpu\'s '
+         'committed paths (tolerance: bitwise)')
+
     # 7. The lab kernels against their plain versions, bitwise, at small
     # shapes: every forward body at every accumulator count (or tile) with
     # 1, 2, 4 and 8 sequences per CTA at 8 x 64 x 1440 (width 175), the
@@ -1061,6 +1437,24 @@ def main():
         info(f'lab_forward {name}: bitwise equal to its plain version at '
              f'{"R" if name in kernel_lab.TILED else "n_acc"} '
              f'{"/".join(map(str, params))} x 1/2/4/8 sequences per CTA')
+    # pipeG at a group given at run time: G = 3, 5, 24, and the groups that
+    # have instances of their own through the same body, against full's
+    # plain version
+    want = kernel_lab.forward_reference('full', lab_obs, lab_band, width)
+    for name in RUN_TIME_PIPES + ('pipe2', 'pipe4', 'pipe', 'pipe16'):
+        for n_acc in kernel_lab.N_ACCS:
+            for nb in kernel_lab.BATCH_TILES:
+                got = kernel_lab.lab_pipe(name, lab_obs, lab_band, width,
+                                          n_acc, nb, run_time_group=True)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f'lab_pipe {name}:{n_acc}:{nb} (run-time group) '
+                         f'differs from its plain version (max abs err '
+                         f'{max_abs_err(torch, got, want)}; tolerance: '
+                         'bitwise)')
+    info('lab_pipe run-time group (pipe3, pipe5, pipe24, and G = 2, 4, 8, '
+         '16): bitwise equal to its plain version at n_acc 1/2/4/8 x 1/2/4/8 '
+         'sequences per CTA')
     # The tensor-core and mod-M labs at 8 x 64 x 1536: mxushift at every
     # n_acc, hybrid:K, mod12 (also un-permuted against full) and mod12k's
     # two outputs at every n_acc and sequences per CTA
@@ -1169,7 +1563,7 @@ def main():
     wanted, lab_plain, lab_err = {}, {}, {}
     for spec, got in forward_lab['outputs'].items():
         name = kernel_lab.parse_spec(spec)[0]
-        function = kernel_lab.FUNCTIONS.get(name, name)
+        function = kernel_lab.function_of(name)
         if function not in wanted:
             wanted[function], lab_plain[function] = cuda_once(
                 torch, lambda: kernel_lab.forward_reference(
@@ -1179,13 +1573,35 @@ def main():
                  f'differs from its plain version (max abs err '
                  f'{max_abs_err(torch, got, wanted[function])}; tolerance: '
                  'bitwise)')
-        kernel = 'lab_pipe' if name in kernel_lab.PIPES else 'lab_forward'
+        kernel = 'lab_pipe' if kernel_lab.pipe_group(name) else 'lab_forward'
         lab_err[kernel] = max(lab_err.get(kernel, 0.0),
                               max_abs_err(torch, got, wanted[function]))
     info(f'lab_forward: every timed spec bitwise equal to its plain version '
          f'at {BATCH} x {FRAMES} x {STATES}, width {width} (plain ms: '
          + ', '.join(f'{key} {value:.1f}' for key, value in lab_plain.items())
          + ')')
+    # The groups with instances of their own, through the run-time body:
+    # their times beside the fixed instances' (the spec's defaults, n_acc 4
+    # and 4 sequences per CTA), outputs held bitwise
+    run_time_ms = {}
+    for name in ('pipe2', 'pipe4', 'pipe', 'pipe16'):
+        got = kernel_lab.lab_pipe(name, lab_obs, lab_band, width,
+                                  run_time_group=True)
+        if not torch.equal(got, wanted['full']):
+            fail(f'lab_pipe {name} (run-time group) at {BATCH} x {FRAMES} x '
+                 f'{STATES} differs from its plain version (tolerance: '
+                 'bitwise)')
+        del got
+        run_time_ms[name] = cuda_ms(torch, lambda: kernel_lab.lab_pipe(
+            name, lab_obs, lab_band, width, run_time_group=True),
+            iters=LAB_ITERS)
+    info('lab_pipe at the headline shape, fixed instance against the '
+         'run-time group (ms): ' + ', '.join(
+             f'{name} {forward_lab["results"][name]["ms"]:.3f} / '
+             f'{ms:.3f}' for name, ms in run_time_ms.items())
+         + '; run-time only: ' + ', '.join(
+             f'{name} {forward_lab["results"][name]["ms"]:.3f}'
+             for name in RUN_TIME_PIPES))
     del wanted, lab_obs, lab_band, forward_lab['inputs'], \
         forward_lab['outputs']
     ideals = forward_lab['ideals']
@@ -1343,7 +1759,10 @@ def main():
         kernels['lab_forward'], name='lab_pipe',
         source='torbi_tpu_torch/csrc/lab_pipe.cu',
         max_abs_err=lab_err['lab_pipe'],
-        ms=forward_lab['results']['pipe']['ms'])
+        ms=forward_lab['results']['pipe']['ms'],
+        run_time_group_ms={**run_time_ms, **{
+            name: forward_lab['results'][name]['ms']
+            for name in RUN_TIME_PIPES}})
     # The mxu and mod-M labs at 1536 states: full's function, its bounds
     mod_steps = BATCH * (FRAMES - 1) * LAB_MOD_STATES
     mod_candidates = mod_steps * width
@@ -1405,7 +1824,8 @@ def main():
 
     # 9. The profiler: stage times of the headline and of the batch-1
     # serial route, then one headline call traced
-    stages = profile.time_stages(obs, bf, trans, init, iters=5)
+    stages = profile.time_stages(obs, bf, trans, init, iters=5,
+                                 apply_epsilon=True)
     sol = profile.speed_of_light(
         BATCH, FRAMES, STATES, band_tuple, stages['forward_ms'])
     info('profile headline stages: ' + ', '.join(
@@ -1417,7 +1837,8 @@ def main():
     saved = torbi_tpu_torch.BATCH1_AUTO_CHUNK
     try:
         torbi_tpu_torch.BATCH1_AUTO_CHUNK = False
-        stages1 = profile.time_stages(single, bf1, trans, init, iters=3)
+        stages1 = profile.time_stages(single, bf1, trans, init, iters=3,
+                                      apply_epsilon=True)
     finally:
         torbi_tpu_torch.BATCH1_AUTO_CHUNK = saved
     info('profile batch-1 serial stages: ' + ', '.join(
@@ -1437,9 +1858,17 @@ def main():
     shutil.rmtree(trace_dir, ignore_errors=True)
     profile.capture(headline, trace_dir)
     busy = profile.device_busy(trace_dir)
-    rows = profile.device_op_times(trace_dir, top=8)
+    all_rows = profile.device_op_times(trace_dir)
+    rows = all_rows[:8]
     if not rows:
         fail('the profiler trace of the headline holds no device event')
+    elementwise = [row['name'] for row in all_rows
+                   if re.search(r'\b(exp|log)_kernel', row['name'])]
+    if elementwise:
+        fail('the traced headline call ran elementwise exp/log device ops: '
+             f'{elementwise}')
+    info(f'profile headline trace: {len(all_rows)} device ops, no '
+         'elementwise exp or log (the conversion runs inside K1)')
     info(f'profile headline trace: device busy {busy["busy_ms"]:.3f} of '
          f'{busy["span_ms"]:.3f} ms traced, idle share '
          f'{busy["idle_share"]:.4f}')

@@ -183,10 +183,32 @@ def test_chase_variant_equals_jax(jax_chase_lab, monkeypatch, variant):
 
 
 @pytest.mark.parametrize('spec', [
-    'pipe3', 'full:3', 'tilted:1', 'spread:4', 'full:4:3', 'nonesuch'])
+    'pipe0', 'full:3', 'tilted:1', 'spread:4', 'full:4:3', 'nonesuch'])
 def test_bad_specs_raise(spec):
     with pytest.raises(ValueError):
         kernel_lab.parse_spec(spec)
+
+
+@pytest.mark.parametrize('width', [5, 44])
+@pytest.mark.parametrize('variant', ['pipe3', 'pipe5'])
+def test_pipe_any_group_equals_jax(jax_kernel_lab, variant, width):
+    """pipeG for a G without an instance of its own (the run-time group
+    of csrc/lab_pipe.cu): parses at every n_acc and batch tile, and its
+    plain version equals the JAX lab's variant of the same name"""
+    group = int(variant[4:])
+    assert kernel_lab.pipe_group(variant) == group
+    assert kernel_lab.parse_spec(f'{variant}:2:8') == (variant, 2, 8)
+    assert kernel_lab.function_of(variant) == 'full'
+    obs, band = lab_case(width)
+    expected = np.asarray(jax_kernel_lab.build_kernel(
+        variant, BATCH, FRAMES, STATES, width)(
+            jnp.asarray(obs), jnp.asarray(band)))
+    np.testing.assert_array_equal(
+        port_forward(variant, obs, band, width), expected)
+    np.testing.assert_array_equal(
+        kernel_lab.lab_pipe(variant, torch.from_numpy(obs),
+                            torch.from_numpy(band), width, 1, 1).numpy(),
+        expected)
 
 
 def test_labs_run_on_cpu_when_asked():

@@ -153,10 +153,10 @@ def test_pipe_groups_equal_jax(jax_kernel_lab, variant):
             width).numpy())
 
 
-@pytest.mark.parametrize('spec', ['pipe3', 'pipe32', 'mxushift:3',
+@pytest.mark.parametrize('spec', ['pipe00', 'pipe-1', 'mxushift:3',
                                   'mxushift:4:8', 'hybrid:-1'])
 def test_bad_mxu_and_pipe_specs_raise(spec):
-    """pipe takes the groups 2, 4, 8, 16; mxushift's second field is n_acc
+    """pipe takes any group of 1 or more; mxushift's second field is n_acc
     and its CTA holds the mma's 16 sequences; K is 0 or more"""
     with pytest.raises(ValueError):
         kernel_lab.parse_spec(spec)

@@ -155,7 +155,9 @@ def record_kernel_calls(monkeypatch):
 def test_time_stages_picks_dispatch_kernels(monkeypatch, batch, states, tiny,
                                             window, expected):
     """The stages time the kernels that dispatch.decode launches for the
-    input, in its order (the window chase needs two 128-state rows)"""
+    input, in its order (the window chase needs two 128-state rows), on a
+    folded route: the epsilon step runs inside the forward kernel in both,
+    and nothing converts outside it"""
     import torbi_tpu_torch
 
     obs, bf, trans, init = banded_case(batch, 12, states, 3, seed=4,
@@ -163,11 +165,18 @@ def test_time_stages_picks_dispatch_kernels(monkeypatch, batch, states, tiny,
     if window:
         monkeypatch.setattr(torbi_tpu_torch, 'BACKTRACE_BATCH1_FUSED', False)
         monkeypatch.setattr(torbi_tpu_torch, 'BACKTRACE_BATCH1_WINDOW', True)
+    flags = []
+    for attr in ('viterbi_forward_band', 'viterbi_forward_band_spread'):
+        monkeypatch.setattr(band, attr, (
+            lambda *args, original=getattr(band, attr): (
+                flags.append(args[5:]) or original(*args))))
     calls = record_kernel_calls(monkeypatch)
-    dispatch.decode(obs, bf, trans, init, finite_observation=True,
-                    device='cpu')
+    dispatch.decode(obs, bf, trans, init, apply_epsilon=True, device='cpu')
     assert tuple(calls) == expected
-    stages = profile.time_stages(obs, bf, trans, init, iters=1)
+    assert flags == [(True, True)]
+    stages = profile.time_stages(obs, bf, trans, init, iters=1,
+                                 apply_epsilon=True)
+    assert set(flags) == {(True, True)}
     assert set(stages) == STAGE_KEYS
     assert stages['kernels'] == expected
     assert set(calls) == set(expected)

@@ -16,6 +16,16 @@
 // on order, so the stream is bitwise that of the plain version
 // (torbi_tpu_torch/ops/band.py::band_forward_reference).
 //
+// The observation may arrive unconverted, as the TPU kernels take it
+// (their obs_col, torbi_tpu/ops/band.py:549-556): log_input = 0 takes the
+// log of a probability, apply_epsilon = 1 the reference's epsilon step
+// log(exp(x) + tiny), each value converted in registers as it is loaded
+// (common.cuh, convert_obs), so the plain route's full-size copy and its
+// elementwise passes before the kernel go away. Only loaded values pass
+// through it: lanes past the states or the batch, and frames at or past
+// batch_frames, load nothing. Frame 0 converts for every sequence, as the
+// plain route converts every frame.
+//
 // Bound on the H100 at the headline shape (512 sequences x 512 frames x
 // 1440 states, band width 175): 512 * 511 * 244,344 in-range candidates
 // at an add and a max each; the max alone, at 64 per SM and clock, takes
@@ -45,7 +55,8 @@
 // (NB, 8) table, so after the barrier a max over 8 entries is the row's
 // maximum for the floor term (max does not depend on order: exact). One
 // cluster barrier per frame, split: arrive after the stores, then the next
-// frame's observation loads into registers, then wait.
+// frame's observation (loaded a frame ahead) converts in registers, then
+// wait.
 //   Inside a CTA a thread computes NBT sequences x R consecutive
 // destinations. The band slice is stored skewed, band_s[m][jl] =
 // band[m - jl % R][j0 + jl], so at step m the thread's R band values are
@@ -164,7 +175,7 @@ __device__ __forceinline__ void load_row(float (&v)[R], const float* p) {
   }
 }
 
-template <int NB>
+template <int NB, int CONV>
 __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
     band_cluster_kernel(const float* __restrict__ obs,
                         const int* __restrict__ batch_frames,
@@ -278,6 +289,32 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
     }
   };
 
+  // The observation streams a frame ahead: the raw values of frame t + 1
+  // load before frame t's candidates (they land meanwhile) and convert
+  // after frame t's arrive, while the barrier completes, so neither the
+  // load's latency nor the conversion waits in the chain of frames
+  float raw[NBT][R];  // frame t + 1, as loaded
+  float ob[NBT][R];   // frame t, converted
+  auto load = [&](int t) {
+#pragma unroll
+    for (int q = 0; q < NBT; ++q)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        raw[q][i] = live[q] && dest[i] && t < bf[q] ? obs[offset(q, i, t)]
+                                                     : 0.f;
+  };
+  auto convert = [&](int t) {
+#pragma unroll
+    for (int q = 0; q < NBT; ++q)
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        ob[q][i] = 0.f;
+        if (live[q] && dest[i] && t < bf[q])
+          ob[q][i] = torbi::convert_obs<CONV>(raw[q][i]);
+      }
+  };
+  if (t_end > 1) load(1);
+
   // Frame 0: post = obs[0] + initial
 #pragma unroll
   for (int q = 0; q < NBT; ++q)
@@ -285,27 +322,18 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
     for (int i = 0; i < R; ++i) {
       float v = torbi::neg_inf();
       if (live[q] && dest[i]) {
-        v = obs[offset(q, i, 0)] + initial[j0 + dg * R + i];
+        v = torbi::convert_obs<CONV>(obs[offset(q, i, 0)]) +
+            initial[j0 + dg * R + i];
         if (g == 0) post_seq[offset(q, i, 0)] = v;
       }
       prev[q][i] = v;
     }
   publish(0);
   torbi::cluster_arrive();
-
-  // The observation of the next frame, loaded while the barrier completes
-  float ob[NBT][R];
-  auto fetch = [&](int t) {
-#pragma unroll
-    for (int q = 0; q < NBT; ++q)
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        ob[q][i] = live[q] && dest[i] && t < bf[q] ? obs[offset(q, i, t)]
-                                                    : 0.f;
-  };
-  if (t_end > 1) fetch(1);
+  if (t_end > 1) convert(1);
 
   for (int t = 1; t < t_end; ++t) {
+    if (t + 1 < t_end) load(t + 1);
     torbi::cluster_wait();
     const int cur = (t - 1) & 1;
     const float* rc = red + cur * NB * kCluster;
@@ -364,7 +392,7 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
       }
     publish(t & 1);
     torbi::cluster_arrive();
-    if (t + 1 < t_end) fetch(t + 1);
+    if (t + 1 < t_end) convert(t + 1);
   }
   // Every remote store has landed before any CTA leaves
   torbi::cluster_wait();
@@ -379,7 +407,7 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
           post_seq[offset(q, i, t)] = prev[q][i];
 }
 
-template <int NB>
+template <int NB, int CONV>
 int launch_cluster_design(const float* obs, const int* batch_frames,
                           const float* initial, const float* band,
                           float* post_seq, int batch, int frames, int states,
@@ -394,22 +422,24 @@ int launch_cluster_design(const float* obs, const int* batch_frames,
     return cudaErrorInvalidValue;
   const int clusters = (batch + NB - 1) / NB;
   return torbi::launch_cluster(
-      band_cluster_kernel<NB>, kCluster, dim3(clusters * kCluster),
+      band_cluster_kernel<NB, CONV>, kCluster, dim3(clusters * kCluster),
       dim3(l.threads), smem, stream, obs, batch_frames, initial, band,
       post_seq, batch, frames, states, lo, width, floor_value, has_floor);
 }
 
+// The conversion's instances share the layout and the launch bounds (one
+// CTA per SM either way), so the card holds as many clusters of each
 template <int NB>
 int count_clusters(int states, int width, int* clusters) {
   const ClusterLayout l = cluster_layout<NB>(states, width);
   if (width < 1 || l.threads > Tile<NB>::MAX_THREADS)
     return cudaErrorInvalidValue;
   return torbi::max_active_clusters(
-      band_cluster_kernel<NB>, kCluster, dim3(l.threads),
+      band_cluster_kernel<NB, 0>, kCluster, dim3(l.threads),
       static_cast<size_t>(l.floats) * sizeof(float), clusters);
 }
 
-template <int NB>
+template <int NB, int CONV>
 __global__ void __launch_bounds__(512) band_cta_kernel(
     const float* __restrict__ obs, const int* __restrict__ batch_frames,
     const float* __restrict__ initial, const float* __restrict__ band,
@@ -443,7 +473,7 @@ __global__ void __launch_bounds__(512) band_cta_kernel(
       float v = torbi::neg_inf();
       if (live[n]) {
         const size_t off = static_cast<size_t>(b0 + n) * frames * states + j;
-        v = obs[off] + init_j;
+        v = torbi::convert_obs<CONV>(obs[off]) + init_j;
         post_seq[off] = v;
       }
       post[n * states + j] = v;
@@ -503,7 +533,7 @@ __global__ void __launch_bounds__(512) band_cta_kernel(
         if (live[n]) {
           const size_t off =
               (static_cast<size_t>(b0 + n) * frames + t) * states + j;
-          if (valid[n]) v = obs[off] + acc[n];
+          if (valid[n]) v = torbi::convert_obs<CONV>(obs[off]) + acc[n];
           post_seq[off] = v;
         }
         pn[n * states + j] = v;
@@ -520,7 +550,7 @@ __global__ void __launch_bounds__(512) band_cta_kernel(
   }
 }
 
-template <int NB>
+template <int NB, int CONV>
 int launch_cta_design(const float* obs, const int* batch_frames,
                       const float* initial, const float* band,
                       float* post_seq, int batch, int frames, int states,
@@ -528,22 +558,70 @@ int launch_cta_design(const float* obs, const int* batch_frames,
                       cudaStream_t stream) {
   const size_t smem = torbi::forward_smem_bytes(NB, states);
   cudaError_t err = cudaFuncSetAttribute(
-      band_cta_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      band_cta_kernel<NB, CONV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((batch + NB - 1) / NB);
-  band_cta_kernel<NB><<<grid, torbi::forward_threads(states), smem,
-                        stream>>>(obs, batch_frames, initial, band, post_seq,
-                                  batch, frames, states, lo, width,
-                                  floor_value, has_floor);
+  band_cta_kernel<NB, CONV><<<grid, torbi::forward_threads(states), smem,
+                              stream>>>(obs, batch_frames, initial, band,
+                                        post_seq, batch, frames, states, lo,
+                                        width, floor_value, has_floor);
   return cudaGetLastError();
+}
+
+// The cluster design at NB sequences per cluster, by conversion
+template <int NB>
+int cluster_by_conversion(int conv, const float* obs, const int* batch_frames,
+                          const float* initial, const float* band,
+                          float* post_seq, int batch, int frames, int states,
+                          int lo, int width, float floor_value, int has_floor,
+                          cudaStream_t stream) {
+#define TORBI_CONV_CASE(CONV)                                                \
+  case CONV:                                                                 \
+    return launch_cluster_design<NB, CONV>(                                  \
+        obs, batch_frames, initial, band, post_seq, batch, frames, states,   \
+        lo, width, floor_value, has_floor, stream);
+  switch (conv) {
+    TORBI_CONV_CASE(0)
+    TORBI_CONV_CASE(1)
+    TORBI_CONV_CASE(2)
+    TORBI_CONV_CASE(3)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TORBI_CONV_CASE
+}
+
+// The per-CTA design at NB sequences per CTA, by conversion
+template <int NB>
+int cta_by_conversion(int conv, const float* obs, const int* batch_frames,
+                      const float* initial, const float* band,
+                      float* post_seq, int batch, int frames, int states,
+                      int lo, int width, float floor_value, int has_floor,
+                      cudaStream_t stream) {
+#define TORBI_CONV_CASE(CONV)                                                \
+  case CONV:                                                                 \
+    return launch_cta_design<NB, CONV>(                                      \
+        obs, batch_frames, initial, band, post_seq, batch, frames, states,   \
+        lo, width, floor_value, has_floor, stream);
+  switch (conv) {
+    TORBI_CONV_CASE(0)
+    TORBI_CONV_CASE(1)
+    TORBI_CONV_CASE(2)
+    TORBI_CONV_CASE(3)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TORBI_CONV_CASE
 }
 
 }  // namespace
 
 // obs, post_seq: (batch, frames, states) float32; batch_frames: (batch,)
 // int32; initial: (states,) float32; band: (width, states) float32 with
-// band[d, j] = transition[j, j + d + lo]. The cluster design with
+// band[d, j] = transition[j, j + d + lo]. The observation is log-space
+// when log_input is set, else probabilities; apply_epsilon applies the
+// epsilon step (common.cuh, convert_obs). The cluster design with
 // `sequences` (1, 4 or 32) per cluster of 8 CTAs. Returns a
 // cudaError_t code: cudaErrorInvalidValue when width < 1, or when the
 // layout needs more threads or shared memory than a CTA may have
@@ -552,13 +630,15 @@ extern "C" int band_forward(const float* obs, const int* batch_frames,
                             const float* initial, const float* band,
                             float* post_seq, int batch, int frames,
                             int states, int lo, int width, float floor_value,
-                            int has_floor, int sequences, void* stream) {
+                            int has_floor, int log_input, int apply_epsilon,
+                            int sequences, void* stream) {
   if (batch <= 0 || frames <= 0 || states <= 0 || width < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int conv = torbi::conversion(log_input, apply_epsilon);
 #define TORBI_CLUSTER_CASE(NB)                                               \
   case NB:                                                                   \
-    return launch_cluster_design<NB>(obs, batch_frames, initial, band,       \
+    return cluster_by_conversion<NB>(conv, obs, batch_frames, initial, band, \
                                      post_seq, batch, frames, states, lo,    \
                                      width, floor_value, has_floor, s);
   switch (sequences) {
@@ -596,22 +676,24 @@ extern "C" int band_forward_cta(const float* obs, const int* batch_frames,
                                 float* post_seq, int batch, int frames,
                                 int states, int lo, int width,
                                 float floor_value, int has_floor,
+                                int log_input, int apply_epsilon,
                                 void* stream) {
   if (batch <= 0 || frames <= 0 || states <= 0 || width < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int conv = torbi::conversion(log_input, apply_epsilon);
   switch (torbi::forward_sequences_per_cta(batch, states)) {
     case 4:
-      return launch_cta_design<4>(obs, batch_frames, initial, band, post_seq,
-                                  batch, frames, states, lo, width,
+      return cta_by_conversion<4>(conv, obs, batch_frames, initial, band,
+                                  post_seq, batch, frames, states, lo, width,
                                   floor_value, has_floor, s);
     case 2:
-      return launch_cta_design<2>(obs, batch_frames, initial, band, post_seq,
-                                  batch, frames, states, lo, width,
+      return cta_by_conversion<2>(conv, obs, batch_frames, initial, band,
+                                  post_seq, batch, frames, states, lo, width,
                                   floor_value, has_floor, s);
     case 1:
-      return launch_cta_design<1>(obs, batch_frames, initial, band, post_seq,
-                                  batch, frames, states, lo, width,
+      return cta_by_conversion<1>(conv, obs, batch_frames, initial, band,
+                                  post_seq, batch, frames, states, lo, width,
                                   floor_value, has_floor, s);
     default:
       return cudaErrorInvalidValue;

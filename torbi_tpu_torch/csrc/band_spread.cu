@@ -14,7 +14,14 @@
 //   score[j] = max(score[j], floor + max_i post[i])    when has_floor
 //   post'[j] = t < batch_frames[0] ? obs[t, j] + score[j] : post[j]
 // and post = obs[0] + initial at t = 0. Each candidate is one fp32 add and
-// fmaxf does not depend on order, so any order of the maxima is exact.
+// fmaxf does not depend on order, so any order of the maxima is exact. The
+// observation may arrive unconverted, as the TPU kernel takes it
+// (_band_kernel_spread's obs_col, torbi_tpu/ops/band.py:882-884): each
+// value takes the log of a probability (log_input = 0) and the epsilon step
+// (apply_epsilon = 1) once it has landed in the staging ring, never in the
+// copy (common.cuh, convert_obs): each thread converts its own cells of a
+// frame in place while the barrier before that frame completes. Only
+// frames before batch_frames are staged and converted.
 //
 // Bound on the H100 at 1 x 10,240 frames x 1440 pitch states (band width
 // 175): 10,239 frames x 244,344 in-band candidates at an add and a max each
@@ -36,7 +43,9 @@
 // cluster barrier per frame publishes both. Inside a CTA, 4 neighbouring
 // lanes share a destination, take every 4th band offset each, and combine
 // with two xor shuffles; 8 destinations per warp. The observation rows are
-// staged kStages frames ahead with cp.async into a per-thread ring.
+// staged kStages frames ahead with cp.async into a per-thread ring. The
+// cluster barrier of each frame is split (arrive, then wait), with the
+// next frame's observation converted in between.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -83,6 +92,7 @@ __host__ __device__ inline size_t smem_floats(const Layout& l, int states,
          static_cast<size_t>(width) * l.band_stride;
 }
 
+template <int CONV>
 __global__ void __launch_bounds__(1024) band_spread_kernel(
     const float* __restrict__ obs, const int* __restrict__ batch_frames,
     const float* __restrict__ initial, const float* __restrict__ band,
@@ -135,6 +145,22 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
     torbi::cp_async_commit();
   };
   for (int t = 1; t <= kStages; ++t) stage(t);
+  // Frame t's staged values, once landed, converted in place (each thread
+  // reads only its own cells); run while the barrier before frame t
+  // completes, so the conversion waits in no frame's chain
+  auto ready = [&](int t) {
+    torbi::cp_async_wait<kStages - 1>();
+    if constexpr (CONV != 0) {
+      if (t < t_end) {
+        float* cell = ring + (t % kStages) * l.slots * nthreads + tid;
+        for (int s = 0; s < l.slots; ++s) {
+          const int jl = (s * l.warps + warp) * kDestsPerWarp + dl;
+          if (jl < count)
+            cell[s * nthreads] = torbi::convert_obs<CONV>(cell[s * nthreads]);
+        }
+      }
+    }
+  };
 
   // Every CTA of the cluster runs before any remote store
   cluster.sync();
@@ -145,7 +171,7 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
     const int jl = (s * l.warps + warp) * kDestsPerWarp + dl;
     if (jl < count) {
       const int j = j0 + jl;
-      const float v = obs[j] + initial[j];
+      const float v = torbi::convert_obs<CONV>(obs[j]) + initial[j];
       if (g == 0) post_seq[j] = v;
       post_a[j] = v;
       post_b[j] = v;
@@ -154,7 +180,9 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
   }
   wmax = torbi::warp_max(wmax);
   if (lane < kCluster) red_r[rank * l.warps + warp] = wmax;
-  cluster.sync();
+  torbi::cluster_arrive();
+  ready(1);
+  torbi::cluster_wait();
 
   for (int t = 1; t < t_end; ++t) {
     const int cur = (t - 1) & 1;
@@ -165,7 +193,6 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
       for (int e = lane; e < table; e += 32) m = fmaxf(m, red[cur * table + e]);
       base = torbi::warp_max(m) + floor_value;
     }
-    torbi::cp_async_wait<kStages - 1>();
     const float* cell = ring + (t % kStages) * l.slots * nthreads + tid;
     const int nxt = (cur ^ 1) * states;
     wmax = torbi::neg_inf();
@@ -200,7 +227,9 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
     if (lane < kCluster) red_r[(cur ^ 1) * table + rank * l.warps + warp] = wmax;
     // The ring stage just read is refilled with frame t + kStages
     stage(t + kStages);
-    cluster.sync();
+    torbi::cluster_arrive();
+    ready(t + 1);
+    torbi::cluster_wait();
   }
   torbi::cp_async_wait_all();
 
@@ -215,15 +244,16 @@ __global__ void __launch_bounds__(1024) band_spread_kernel(
 
 // obs, post_seq: (1, frames, states) float32; batch_frames: (1,) int32;
 // initial: (states,) float32; band: (width, states) float32 with
-// band[d, j] = transition[j, j + d + lo]. Launches one cluster of 8 CTAs,
-// each with its band slice in shared memory. Returns a cudaError_t code:
-// cudaErrorInvalidValue when that slice does not fit the card's opt-in
-// shared memory per block.
+// band[d, j] = transition[j, j + d + lo]. The observation is log-space
+// when log_input is set, else probabilities; apply_epsilon applies the
+// epsilon step. Launches one cluster of 8 CTAs, each with its band slice in
+// shared memory. Returns a cudaError_t code: cudaErrorInvalidValue when
+// that slice does not fit the card's opt-in shared memory per block.
 extern "C" int band_spread(const float* obs, const int* batch_frames,
                            const float* initial, const float* band,
                            float* post_seq, int frames, int states, int lo,
                            int width, float floor_value, int has_floor,
-                           void* stream) {
+                           int log_input, int apply_epsilon, void* stream) {
   if (frames <= 0 || states <= 0 || width < 0) return cudaErrorInvalidValue;
   size_t optin = 0;
   const cudaError_t err = torbi::optin_smem(&optin);
@@ -231,8 +261,20 @@ extern "C" int band_spread(const float* obs, const int* batch_frames,
   const Layout l = make_layout(states);
   const size_t smem = smem_floats(l, states, width) * sizeof(float);
   if (smem > optin) return cudaErrorInvalidValue;
-  return torbi::launch_cluster(
-      band_spread_kernel, kCluster, dim3(kCluster), dim3(l.warps * 32), smem,
-      static_cast<cudaStream_t>(stream), obs, batch_frames, initial, band,
-      post_seq, frames, states, lo, width, floor_value, has_floor);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TORBI_CONV_CASE(CONV)                                                \
+  case CONV:                                                                 \
+    return torbi::launch_cluster(                                            \
+        band_spread_kernel<CONV>, kCluster, dim3(kCluster),                  \
+        dim3(l.warps * 32), smem, s, obs, batch_frames, initial, band,       \
+        post_seq, frames, states, lo, width, floor_value, has_floor);
+  switch (torbi::conversion(log_input, apply_epsilon)) {
+    TORBI_CONV_CASE(0)
+    TORBI_CONV_CASE(1)
+    TORBI_CONV_CASE(2)
+    TORBI_CONV_CASE(3)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TORBI_CONV_CASE
 }

@@ -30,7 +30,9 @@
 // `rowadd` reads the band from shared memory, staged 8 rows at a time
 // behind two __syncthreads, the running maxima waiting in shared memory;
 // `pipeG` issues G source loads (G = 2, 4, 8 or 16; `pipe` is 8) before
-// their G adds and maxima. `tiled` is
+// their G adds and maxima; `pipeN` does the same for a G given at run time
+// (any G >= 1, clamped to the band width and to kMaxPipe, the size of its
+// register arrays). `tiled` is
 // register tiling: a thread owns R consecutive destinations, loads its
 // R + width - 1 sources once per frame and reuses them across offsets
 // through a sliding window of registers, so a candidate costs 1/R of a
@@ -75,10 +77,12 @@ enum Body : int {
   kPipe2 = 10,
   kPipe4 = 11,
   kPipe16 = 12,
+  kPipeN = 13,  // pipeG, G at run time (Args::group)
 };
 
 constexpr int kRowChunk = 8;       // band rows staged at a time by `rowadd`
 constexpr int kMaxTile = 8;        // largest R, the ext buffer's padding
+constexpr int kMaxPipe = 32;       // largest group of `pipeN`
 
 // Source loads issued ahead by a `pipe` body; 0 for the other bodies
 __host__ __device__ constexpr int pipe_group(int body) {
@@ -114,6 +118,7 @@ struct Args {
   int vstep;     // 128 mod states (vregroll's shift step)
   int nblocks;   // ceil(states / 128)
   int rot0;      // ((-lo) mod states) mod 128 (introt's first rotation)
+  int group;     // pipeN's G, in [1, min(width, kMaxPipe)]
 };
 
 // Write a new posterior value of destination j into an ext buffer
@@ -175,7 +180,29 @@ __device__ __forceinline__ void candidates(const float* pc, const float* band,
   };
 
   int d = d_begin;
-  if constexpr (pipe_group(BODY) > 0) {
+  if constexpr (BODY == kPipeN) {
+    // The fixed bodies' loop at a G known only at run time: the register
+    // arrays take kMaxPipe slots and the unrolled loops leave at slot G,
+    // so every index stays static and a group costs its G slots
+    const int G = a.group;
+    for (; d + G <= d_end; d += G) {
+      float src[NB][kMaxPipe], bv[kMaxPipe];
+#pragma unroll
+      for (int g = 0; g < kMaxPipe; ++g) {
+        if (g == G) break;
+        bv[g] = __ldg(band + static_cast<size_t>(d + g) * S + j);
+#pragma unroll
+        for (int n = 0; n < NB; ++n) src[n][g] = pc[n * a.pitch + j + d + g];
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxPipe; ++g) {
+        if (g == G) break;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          acc[n][g % NACC] = fmaxf(acc[n][g % NACC], src[n][g] + bv[g]);
+      }
+    }
+  } else if constexpr (pipe_group(BODY) > 0) {
     constexpr int G = pipe_group(BODY);
     for (; d + G <= d_end; d += G) {
       float src[NB][G], bv[G];
@@ -523,6 +550,7 @@ inline bool make_args(const float* obs, const float* band, float* out,
   a->vstep = 128 % states;
   a->nblocks = (states + 127) / 128;
   a->rot0 = ((-a->lo) % states) % 128;
+  a->group = 1;
   return true;
 }
 

@@ -19,7 +19,8 @@ a single long banded sequence:
 3. the chunk rows are gathered out of the sequence at the longest chunk's
    length (lengths mask the rest), decoded as one batch through the banded
    route (K1, in the design ``band.forward_kernel`` picks for the rows,
-   then K3), and the per-row paths gathered back into the (1, frames)
+   converting the raw rows as it loads them, then K3), and the per-row
+   paths gathered back into the (1, frames)
    sequence, frames past the valid length frozen at the last decoded state
    (the reference's padded-batch freeze).
 
@@ -110,9 +111,10 @@ def plan_splits(entropy_values, valid, target):
 
 
 def declines_for_memory(obs_bytes):
-    """Whether the route declines an observation of ``obs_bytes``: the
-    gathered rows and their converted copy sit beside it, so it may take at
-    most 2/5 of the budget. The budget is the smaller of the JAX package's
+    """Whether the route declines an observation of ``obs_bytes``: it may
+    take at most 2/5 of the budget, the JAX package's rule (there the
+    gathered rows and their converted copy sit beside it; here the rows
+    alone, converted in K1). The budget is the smaller of the JAX package's
     (both packages then chunk the same sequences: at 1440 states, up to
     312,500 frames) and this package's ``DECODE_MEMORY_BUDGET``."""
     budget = min(_JAX_AUTOCHUNK_BUDGET,
@@ -141,8 +143,6 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
 
     Returns (1, frames) int32 decoded indices on ``device``.
     """
-    from .dispatch import convert
-
     frames = observation.shape[1]
     # A sequence too big for the route decodes serially
     if declines_for_memory(observation.numel() * 4):
@@ -182,10 +182,11 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
         return None
     gather, lengths, row, column = plan
 
+    # The gather is a copy; K1 converts the raw rows as it loads them
     rows = observation[0, :, :states][gather]
-    rows = convert(rows, log_input, apply_epsilon).contiguous()
     _, forward = band_ops.forward_kernel(states, band[1])
-    post_seq, posterior = forward(rows, lengths, initial, band, band_matrix)
+    post_seq, posterior = forward(
+        rows, lengths, initial, band, band_matrix, log_input, apply_epsilon)
     indices = backtrace_ops.backtrace_posteriors(
         post_seq, transition, posterior, lengths)
     return indices[row, column][None]

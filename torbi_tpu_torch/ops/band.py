@@ -14,6 +14,13 @@ max of the posterior per frame. The forward pass streams the posterior of
 every frame; the backtrace (ops/backtrace.py) recovers the backpointers
 along the chosen path only.
 
+Every forward here takes the observation as ``torbi_tpu``'s
+``viterbi_forward_band`` does: ``log_input=False`` for probabilities,
+``apply_epsilon=True`` for the reference's epsilon step ``log(exp(x) +
+tiny)``. The kernels convert each value as they load it (the TPU kernels'
+``obs_col``); the plain versions run ``dispatch.convert``'s torch ops
+first, which the kernels equal bitwise.
+
 K1 has two designs with the same values, chosen by shape
 (``forward_kernel``): the cluster design ``viterbi_forward_band`` (the band
 slice resident in shared memory across a cluster of 8 CTAs, each CTA a
@@ -165,20 +172,27 @@ def build_band_matrix(transition, lo, width):
 
 
 def band_forward_reference(observation, batch_frames, initial, band,
-                           band_matrix):
+                           band_matrix, log_input=True, apply_epsilon=False):
     """Plain PyTorch version of the banded forward kernel (K1).
 
     observation: (batch, frames, states) float32 log-probabilities
+        (probabilities when ``log_input=False``)
     batch_frames: (batch,) int32
     initial: (states,) float32
     band: (lo, width, floor) from detect_band
     band_matrix: (width, states) float32 from build_band_matrix
+    apply_epsilon: the reference's epsilon step on the observation
+
+    The conversion runs first, as ``dispatch.convert``'s torch ops.
 
     Returns
         post_seq: (batch, frames, states) float32; post_seq[:, t] is the
             posterior after consuming frame t, frozen for t >= batch_frames
         posterior: (batch, states) float32 final posterior (post_seq[:, -1])
     """
+    from .dispatch import convert
+
+    observation = convert(observation, log_input, apply_epsilon)
     lo, width, floor = band
     batch, frames, states = observation.shape
     device = observation.device
@@ -330,7 +344,7 @@ def _check_band_args(observation, batch_frames, initial, band, band_matrix):
 
 
 def viterbi_forward_band(observation, batch_frames, initial, band,
-                         band_matrix):
+                         band_matrix, log_input=True, apply_epsilon=False):
     """Banded forward pass, K1's cluster design (csrc/band_forward.cu,
     band_forward) on CUDA tensors, its plain version on CPU tensors.
     Arguments and results as in ``band_forward_reference``; all tensors
@@ -340,20 +354,23 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
     if not _check_band_args(
             observation, batch_frames, initial, band, band_matrix):
         return band_forward_reference(
-            observation, batch_frames, initial, band, band_matrix)
+            observation, batch_frames, initial, band, band_matrix,
+            log_input, apply_epsilon)
     batch, _, states = observation.shape
     width = band[1]
     plan = cluster_plan(batch, states, width, lambda sequences: (
         resident_clusters(states, width, sequences, observation.device)))
     return _launch_clusters(
-        observation, batch_frames, initial, band, band_matrix, plan)
+        observation, batch_frames, initial, band, band_matrix, plan,
+        log_input, apply_epsilon)
 
 
 viterbi_forward_band.launches = 0
 
 
 def _forward_band_clusters(observation, batch_frames, initial, band,
-                           band_matrix, sequences):
+                           band_matrix, sequences, log_input=True,
+                           apply_epsilon=False):
     """``viterbi_forward_band`` in one launch with ``sequences`` per
     cluster, whatever the plan: each cluster size held against the plain
     version and timed on its own"""
@@ -364,16 +381,18 @@ def _forward_band_clusters(observation, batch_frames, initial, band,
     if not _check_band_args(
             observation, batch_frames, initial, band, band_matrix):
         return band_forward_reference(
-            observation, batch_frames, initial, band, band_matrix)
+            observation, batch_frames, initial, band, band_matrix,
+            log_input, apply_epsilon)
     plan = None
     if cluster_layout(observation.shape[2], band[1], sequences)['fits']:
         plan = ((0, observation.shape[0], sequences),)
     return _launch_clusters(
-        observation, batch_frames, initial, band, band_matrix, plan)
+        observation, batch_frames, initial, band, band_matrix, plan,
+        log_input, apply_epsilon)
 
 
 def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
-                     plan):
+                     plan, log_input, apply_epsilon):
     """K1's cluster design on checked CUDA tensors, one launch per entry
     (start, count, sequences per cluster) of ``plan``"""
     lo, width, floor = band
@@ -396,14 +415,16 @@ def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
                     build.pointer(initial), build.pointer(band_matrix),
                     build.pointer(post_seq, start * row), count, frames,
                     states, lo, width, 0.0 if floor is None else floor,
-                    int(floor is not None), size, build.stream(device))
+                    int(floor is not None), int(log_input),
+                    int(apply_epsilon), size, build.stream(device))
                 build.raise_on_error(lib, 'band_forward', code)
                 viterbi_forward_band.launches += 1
     return post_seq, post_seq[:, -1]
 
 
 def viterbi_forward_band_cta(observation, batch_frames, initial, band,
-                             band_matrix):
+                             band_matrix, log_input=True,
+                             apply_epsilon=False):
     """Banded forward pass, K1's per-CTA design (csrc/band_forward.cu,
     band_forward_cta) on CUDA tensors, its plain version on CPU tensors.
     Arguments and results as in ``band_forward_reference``. Takes any
@@ -411,7 +432,8 @@ def viterbi_forward_band_cta(observation, batch_frames, initial, band,
     if not _check_band_args(
             observation, batch_frames, initial, band, band_matrix):
         return band_forward_reference(
-            observation, batch_frames, initial, band, band_matrix)
+            observation, batch_frames, initial, band, band_matrix,
+            log_input, apply_epsilon)
     lo, width, floor = band
     batch, frames, states = observation.shape
     device = observation.device
@@ -424,7 +446,7 @@ def viterbi_forward_band_cta(observation, batch_frames, initial, band,
                 build.pointer(initial), build.pointer(band_matrix),
                 build.pointer(post_seq), batch, frames, states, lo, width,
                 0.0 if floor is None else floor, int(floor is not None),
-                build.stream(device))
+                int(log_input), int(apply_epsilon), build.stream(device))
         build.raise_on_error(lib, 'band_forward_cta', code)
         viterbi_forward_band_cta.launches += 1
     return post_seq, post_seq[:, -1]
@@ -453,7 +475,7 @@ def spread_fits(states, width):
 
 
 def band_spread_reference(observation, batch_frames, initial, band,
-                          band_matrix):
+                          band_matrix, log_input=True, apply_epsilon=False):
     """Plain PyTorch version of the batch-1 banded forward kernel (K4):
     ``band_forward_reference`` on the one sequence"""
     if observation.shape[0] != 1:
@@ -461,11 +483,13 @@ def band_spread_reference(observation, batch_frames, initial, band,
             f'the batch-1 forward takes one sequence, got batch '
             f'{observation.shape[0]}')
     return band_forward_reference(
-        observation, batch_frames, initial, band, band_matrix)
+        observation, batch_frames, initial, band, band_matrix, log_input,
+        apply_epsilon)
 
 
 def viterbi_forward_band_spread(observation, batch_frames, initial, band,
-                                band_matrix):
+                                band_matrix, log_input=True,
+                                apply_epsilon=False):
     """Batch-1 banded forward pass: the K4 kernel (csrc/band_spread.cu),
     which spreads one sequence over a cluster of CTAs, on CUDA tensors; its
     plain version on CPU tensors. Arguments and results as in
@@ -478,7 +502,8 @@ def viterbi_forward_band_spread(observation, batch_frames, initial, band,
     device = observation.device
     if device.type == 'cpu':
         return band_spread_reference(
-            observation, batch_frames, initial, band, band_matrix)
+            observation, batch_frames, initial, band, band_matrix, log_input,
+            apply_epsilon)
     _, frames, states = observation.shape
     build.check('observation', observation, (1, frames, states),
                 torch.float32, device)
@@ -495,7 +520,7 @@ def viterbi_forward_band_spread(observation, batch_frames, initial, band,
                 build.pointer(initial), build.pointer(band_matrix),
                 build.pointer(post_seq), frames, states, lo, width,
                 0.0 if floor is None else floor, int(floor is not None),
-                build.stream(device))
+                int(log_input), int(apply_epsilon), build.stream(device))
         build.raise_on_error(lib, 'band_spread', code)
         viterbi_forward_band_spread.launches += 1
     return post_seq, post_seq[:, -1]
@@ -506,7 +531,8 @@ viterbi_forward_band_spread.launches = 0
 
 def _library():
     lib = build.library('band_forward')
-    shape = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+    # states..width, floor, has_floor, log_input, apply_epsilon
+    shape = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
     lib.band_forward.argtypes = [ctypes.c_void_p] * 5 + shape + [
         ctypes.c_int, ctypes.c_void_p]
     lib.band_forward_cta.argtypes = [ctypes.c_void_p] * 5 + shape + [
@@ -523,6 +549,7 @@ def _spread_library():
     lib = build.library('band_spread')
     lib.band_spread.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.band_spread.restype = ctypes.c_int
     return lib

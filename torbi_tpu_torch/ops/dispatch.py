@@ -26,6 +26,12 @@ JAX package:
    (``BACKTRACE_BATCH1_WINDOW``, only for a band with no floor whose
    window fits, as the JAX gate measures it), else K3.
 
+The probability->log conversion and the epsilon step fold into the banded
+forward kernels (K1, K4), which convert each value as they load it, as in
+the JAX package (its ``fold_obs``): the banded and auto-chunk routes make
+no converted copy of the observation. The constant closed form, the dense
+route and ``'scan'`` convert first (``convert``), as the JAX package does.
+
 CUDA kernels take runtime shapes, so the JAX package's frame and batch
 buckets, state padding, packed mod-M input, ``shard_map`` mesh and
 time-sharded route have no counterpart here. On a CPU device the kernel
@@ -119,20 +125,29 @@ def kernel_route(transition, band, batch):
     decodes in closed form nor auto-chunks.
 
     Returns ((forward name, forward), (chase name, chase)), the names those
-    of the wrappers' launch counters: ``forward(obs, batch_frames,
-    initial)`` gives (post_seq, posterior) through K1's cluster design
-    ('band_forward') or its per-CTA design ('band_forward_cta'), as
-    ``band.forward_kernel`` picks by shape, K4 ('band_spread') or K2
-    ('dense_forward'), and ``chase(post_seq, posterior, batch_frames)``
-    the indices through K3 ('backtrace'), K5 ('backtrace_fused1') or K6
+    of the wrappers' launch counters: ``forward(obs, batch_frames, initial,
+    log_input=True, apply_epsilon=False)`` gives (post_seq, posterior)
+    through K1's cluster design ('band_forward') or its per-CTA design
+    ('band_forward_cta'), as ``band.forward_kernel`` picks by shape, K4
+    ('band_spread') or K2 ('dense_forward'); the banded ones convert the
+    observation as they load it, K2 takes it converted (other flags
+    raise). ``chase(post_seq, posterior, batch_frames)`` gives the indices
+    through K3 ('backtrace'), K5 ('backtrace_fused1') or K6
     ('backtrace_window').
     """
     import torbi_tpu_torch
 
     states = int(transition.shape[0])
     if band is None:
-        forward = ('dense_forward', lambda obs, bf, initial: (
-            viterbi_forward_dense(obs, bf, transition, initial)))
+        def dense_forward(obs, bf, initial, log_input=True,
+                          apply_epsilon=False):
+            if not log_input or apply_epsilon:
+                raise ValueError(
+                    'the dense forward kernel takes a converted observation '
+                    '(dispatch.convert first)')
+            return viterbi_forward_dense(obs, bf, transition, initial)
+
+        forward = ('dense_forward', dense_forward)
     else:
         matrix = _band_matrix(transition, band)
         spread = (batch == 1 and band[1] > 0
@@ -141,8 +156,10 @@ def kernel_route(transition, band, batch):
         name, kernel = (
             ('band_spread', band_ops.viterbi_forward_band_spread) if spread
             else band_ops.forward_kernel(states, band[1]))
-        forward = (name, lambda obs, bf, initial: kernel(
-            obs, bf, initial, band, matrix))
+        forward = (name, lambda obs, bf, initial, log_input=True,
+                   apply_epsilon=False: kernel(
+                       obs, bf, initial, band, matrix, log_input,
+                       apply_epsilon))
     chase = (_batch1_chase(band, states)
              if batch == 1 and band is not None else None)
     if chase == 'fused':
@@ -276,6 +293,9 @@ def decode(observation, batch_frames, transition, initial, backend=None,
             if not bool(finite.all()):
                 band = None
     constant = band is not None and band[1] == 0
+    # The banded kernels convert the observation as they load it (the JAX
+    # dispatcher's fold_obs); every other route converts first
+    fold = band is not None and backend == 'kernel' and not constant
 
     # Batch-1 auto-chunking: a single long banded sequence decodes as
     # entropy-chunk rows (ops/autochunk.py); None falls through to the
@@ -295,15 +315,15 @@ def decode(observation, batch_frames, transition, initial, backend=None,
             return chunked
 
     # Memory guard: a decode holds the observation, a converted copy of it
-    # when the conversion runs (or the state padding is cut off), and the
-    # posterior stream (none on the constant route), 4 bytes each per
-    # state. Oversized batches split into independent row groups (batch
-    # rows are independent; the result is bitwise the same). A host
-    # observation is sliced before any transfer, so the device only holds
-    # the groups; a device-resident one stays whole and its groups queue
-    # on the stream, each freed as the next is decoded.
-    copies = 1 if (log_input and not apply_epsilon and states_in == states) \
-        else 2
+    # when the conversion runs outside the kernels (or the state padding is
+    # cut off), and the posterior stream (none on the constant route), 4
+    # bytes each per state. Oversized batches split into independent row
+    # groups (batch rows are independent; the result is bitwise the same). A
+    # host observation is sliced before any transfer, so the device only
+    # holds the groups; a device-resident one stays whole and its groups
+    # queue on the stream, each freed as the next is decoded.
+    copies = 1 if states_in == states and (
+        fold or (log_input and not apply_epsilon)) else 2
     row_bytes = frames * (
         states_in * copies + (0 if constant else states)) * 4
     budget = int(torbi_tpu_torch.DECODE_MEMORY_BUDGET)
@@ -321,12 +341,15 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     obs = observation.to(device)
     if states_in != states:
         obs = obs[..., :states]
-    obs = convert(obs, log_input, apply_epsilon).contiguous()
+    if not fold:
+        obs = convert(obs, log_input, apply_epsilon)
+    obs = obs.contiguous()
 
     if backend == 'scan':
         return decode_scan(obs, batch_frames, transition, initial)
     if constant:
         return _decode_constant(obs, batch_frames, initial, band[2])
     (_, forward), (_, chase) = kernel_route(transition, band, batch)
-    post_seq, posterior = forward(obs, batch_frames, initial)
+    flags = (log_input, apply_epsilon) if fold else (True, False)
+    post_seq, posterior = forward(obs, batch_frames, initial, *flags)
     return chase(post_seq, posterior, batch_frames)

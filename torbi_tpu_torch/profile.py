@@ -3,7 +3,8 @@ its time?
 
 Counterpart of the repo's root ``profile.py``. Runs the headline workload
 (512 x 512 peaked synthetic pitch posteriorgrams under the 1440-state pitch
-transition taken to log(p + tiny)), times each stage with
+transition taken to log(p + tiny), with the epsilon step that
+``from_probabilities`` applies), times each stage with
 ``utils/profile.time_stages``, compares the forward kernel with the H100
 model of ``utils/profile.speed_of_light`` and, with ``--trace``, captures a
 ``torch.profiler`` trace of one decode and prints its top device ops.
@@ -62,7 +63,8 @@ def main(argv=None):
         (args.batch,), args.frames, dtype=torch.int32, device=device)
 
     stages = prof.time_stages(
-        obs, batch_frames, transition, initial, iters=args.iters)
+        obs, batch_frames, transition, initial, iters=args.iters,
+        apply_epsilon=True)
     band = stages.pop('band')
     kernels = stages.pop('kernels')
     sol = prof.speed_of_light(
@@ -91,7 +93,7 @@ def main(argv=None):
         def run_once():
             return dispatch.decode(
                 obs, batch_frames, transition, initial,
-                finite_observation=True, device=device)
+                apply_epsilon=True, device=device)
 
         prof.capture(run_once, args.trace)
         trace_rows = prof.device_op_times(args.trace, top=15)

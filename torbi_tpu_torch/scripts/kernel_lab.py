@@ -34,9 +34,10 @@ with, in natural state order, the candidate of each variant:
                                         layout (the barrier skeleton)
 
 The aliases compute the same function with another body: ``rowadd`` reads
-the band from shared memory, ``pipeG`` issues G source loads ahead (G = 2,
-4, 8, 16; ``pipe`` is 8), ``tilted``/``ushare``/``ushare2`` tile R
-destinations per thread with their sources in registers
+the band from shared memory, ``pipeG`` issues G source loads ahead (any G
+>= 1, ``pipe`` is 8: G = 2, 4, 8, 16 have instances of their own, any other
+G takes the body whose G is an argument), ``tilted``/``ushare``/``ushare2``
+tile R destinations per thread with their sources in registers
 (csrc/lab_forward.cuh says what each measures). ``mxushift`` shifts on the
 tensor cores (mma against one-hot fragments, the posterior split into three
 bf16 parts, ``split_bf16x3``) and ``hybrid:K`` only the offsets of K
@@ -98,6 +99,8 @@ BODIES = {
     'vregroll': 4, 'rowadd': 5, 'pipe': 6, 'pipe8': 6, 'tilted': 7,
     'ushare': 7, 'ushare2': 7, 'introt': 8, 'subroll': 9, 'pipe2': 10,
     'pipe4': 11, 'pipe16': 12}
+# The pipe variants with an instance of their own; any other pipeG takes
+# the run-time group of csrc/lab_pipe.cu (lab_pipe_group)
 PIPES = ('pipe', 'pipe2', 'pipe4', 'pipe8', 'pipe16')
 MXU = ('mxushift', 'hybrid')
 MOD = ('mod12', 'mod12k')
@@ -127,17 +130,37 @@ MMA_FLOPS = 2 * 16 * 8 * 16
 NEG_INF = float('-inf')
 
 
+def pipe_group(name):
+    """G of a ``pipeG`` variant name (``pipe`` is 8), else None. Any digits
+    parse, as in the JAX lab (``int(variant[4:] or 8)``); G < 1 raises
+    ``ValueError``, as the JAX lab's ``range(0, width, 0)`` does"""
+    if name == 'pipe':
+        return 8
+    if not (name.startswith('pipe') and name[4:].isdigit()):
+        return None
+    group = int(name[4:])
+    if group < 1:
+        raise ValueError(f'{name}: the pipe group must be 1 or more')
+    return group
+
+
+def function_of(name):
+    """The variant whose function ``name`` computes (itself for most)"""
+    return 'full' if pipe_group(name) else FUNCTIONS.get(name, name)
+
+
 def parse_spec(spec):
     """``name[:n_acc[:batch_tile]]`` -> (name, n_acc or R or cluster or K,
     batch_tile); raises ``ValueError`` for anything this lab does not take
-    (pipe takes the groups 2, 4, 8 and 16, where the JAX lab takes any)"""
+    (``pipeG`` for any G >= 1, as the JAX lab)"""
     parts = spec.split(':')
     name = parts[0]
-    if name not in BODIES and name not in SPREAD + MXU + MOD:
+    if (name not in BODIES and name not in SPREAD + MXU + MOD
+            and pipe_group(name) is None):
         names = sorted(BODIES) + list(SPREAD + MXU + MOD)
         raise ValueError(
-            f'unknown variant {name!r} (pipe takes the groups 2, 4, 8 and '
-            f'16); expected one of {names}')
+            f'unknown variant {name!r}; expected pipeG (G >= 1) or one of '
+            f'{names}')
     if name in SPREAD:
         default, allowed = DEFAULT_CLUSTER, CLUSTERS
     elif name in TILED:
@@ -171,7 +194,7 @@ def require_mod128(states, variant):
 def source_index(variant, states, width, device='cpu'):
     """(states, width) int64 source state of each candidate of ``variant``,
     and whether the candidate adds the band value"""
-    function = FUNCTIONS.get(variant, variant)
+    function = function_of(variant)
     lo = -(width // 2)
     j = torch.arange(states, device=device)[:, None]
     d = torch.arange(width, device=device)[None, :]
@@ -241,7 +264,7 @@ def lab_forward(variant, observation, band, width, n_acc=None,
         runner = ('lab_spread' if name in SPREAD
                   else 'lab_mxu' if name in MXU else f'lab_{name}')
         raise ValueError(f'{name} runs through {runner}')
-    if name in PIPES:
+    if pipe_group(name):
         return lab_pipe(name, observation, band, width, param, batch_tile)
     if observation.device.type == 'cpu':
         return forward_reference(name, observation, band, width)
@@ -255,18 +278,35 @@ lab_forward.launches = 0
 
 
 def lab_pipe(variant, observation, band, width, n_acc=None,
-             batch_tile=DEFAULT_BATCH_TILE):
-    """The pipe variants (``pipe``, ``pipe2``, ``pipe4``, ``pipe8``,
-    ``pipe16``): their kernel (csrc/lab_pipe.cu) on CUDA tensors,
-    ``forward_reference`` on CPU tensors. Returns (batch, states)."""
+             batch_tile=DEFAULT_BATCH_TILE, run_time_group=False):
+    """The pipe variants (``pipeG``, any G >= 1; ``pipe`` is 8): their
+    kernel (csrc/lab_pipe.cu) on CUDA tensors, ``forward_reference`` on CPU
+    tensors. G = 2, 4, 8, 16 take their own instances unless
+    ``run_time_group``; any other G takes ``lab_pipe_group``, the body whose
+    G is an argument (clamped in the kernel to the width and to 32). Returns
+    (batch, states)."""
     name, param, batch_tile = parse_spec(
         f'{variant}:{"" if n_acc is None else n_acc}:{batch_tile}')
-    if name not in PIPES:
+    group = pipe_group(name)
+    if group is None:
         raise ValueError(f'{name} is not a pipe variant')
     if observation.device.type == 'cpu':
         return forward_reference(name, observation, band, width)
-    out = _launch_forward('lab_pipe', name, param, batch_tile, observation,
-                          band, width)
+    if name in PIPES and not run_time_group:
+        out = _launch_forward('lab_pipe', name, param, batch_tile,
+                              observation, band, width)
+    else:
+        _check_inputs(observation, band, width)
+        batch, frames, states = observation.shape
+        out = torch.empty((batch, states), dtype=torch.float32,
+                          device=observation.device)
+        lib = _library('lab_pipe')
+        with torch.cuda.device(observation.device):
+            code = lib.lab_pipe_group(
+                build.pointer(observation), build.pointer(band),
+                build.pointer(out), group, param, batch_tile, batch, frames,
+                states, width, build.stream(observation.device))
+        build.raise_on_error(lib, f'lab_pipe_group ({name})', code)
     lab_pipe.launches += 1
     return out
 
@@ -649,6 +689,10 @@ def _library(name):
     entry = getattr(lib, name)
     entry.argtypes = _ARGTYPES[name]
     entry.restype = ctypes.c_int
+    if name == 'lab_pipe':
+        lib.lab_pipe_group.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.lab_pipe_group.restype = ctypes.c_int
     return lib
 
 

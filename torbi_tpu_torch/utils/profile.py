@@ -210,16 +210,20 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def time_stages(observation, batch_frames, transition, initial, iters=8):
+def time_stages(observation, batch_frames, transition, initial, iters=8,
+                log_input=True, apply_epsilon=False):
     """Forward kernel, backtrace kernel, the whole decode, and one call, for
     one input.
 
     Inputs are tensors on one device, as ``dispatch.decode`` takes them:
-    observation (batch, frames, states) log-probabilities (its state
-    dimension may be padded to the next multiple of 128), batch_frames,
-    transition, initial. The forward and backtrace stages call the kernels
-    that ``dispatch.kernel_route`` picks for this input, as ``decode``
-    does: K1 (cluster or per-CTA design), K4 or K2, then K3, K5 or K6 (a
+    observation (batch, frames, states) log-probabilities (probabilities
+    when ``log_input=False``; its state dimension may be padded to the next
+    multiple of 128), batch_frames, transition, initial; ``apply_epsilon``
+    as ``decode`` takes it (``from_probabilities`` sets it). The forward
+    and backtrace stages call the kernels that ``dispatch.kernel_route``
+    picks for this input, as ``decode`` does: K1 (cluster or per-CTA
+    design) or K4 converting the observation as they load it, or K2 on the
+    observation ``dispatch.convert`` made first, then K3, K5 or K6 (a
     constant transition, which dispatch decodes in closed form, times K1's
     per-CTA design and the chase on it; a long single sequence, which
     dispatch may auto-chunk, times the serial route's kernels). Returns
@@ -254,13 +258,20 @@ def time_stages(observation, batch_frames, transition, initial, iters=8):
         finite_observation=True)
     (forward_name, forward), (backtrace_name, chase) = dispatch.kernel_route(
         transition, band, observation.shape[0])
+    # The banded kernels convert as they load (dispatch's fold); the dense
+    # route's conversion is glue, outside the forward stage
+    flags = {}
+    if band is None:
+        obs = dispatch.convert(obs, log_input, apply_epsilon)
+    else:
+        flags = {'log_input': log_input, 'apply_epsilon': apply_epsilon}
 
     _log(f'stage: forward ({forward_name})')
     forward_ms = time_submissions(
-        lambda: forward(obs, batch_frames, initial),
+        lambda: forward(obs, batch_frames, initial, **flags),
         lambda result: result[1][0, 0], iters) * 1e3
 
-    post_seq, posterior = forward(obs, batch_frames, initial)
+    post_seq, posterior = forward(obs, batch_frames, initial, **flags)
     _log(f'stage: backtrace ({backtrace_name})')
     backtrace_ms = time_submissions(
         lambda: chase(post_seq, posterior, batch_frames),
@@ -270,7 +281,8 @@ def time_stages(observation, batch_frames, transition, initial, iters=8):
     def pipeline():
         return dispatch.decode(
             observation, batch_frames, transition, initial,
-            finite_observation=True, device=device)
+            finite_observation=True, log_input=log_input,
+            apply_epsilon=apply_epsilon, device=device)
 
     _log('stage: dispatch.decode')
     pipeline_ms = time_submissions(
