@@ -27,11 +27,19 @@ just after each:
   hold no elementwise exp or log;
 - the dense path: a random dense 1440-state transition at 8 x 64, and the
   README toy -- the dense forward kernel (K2), then K3;
+- the batch-1 kernels: K4 (its band tile in registers, the mbarrier
+  exchange, one cluster of 16 CTAs) at 1 x 10,240 and 1 x 2048, in the
+  three conversions, on every sequence of every band edge and at its
+  widest band; K5's phase-1 table
+  (backtrace_pointers) against its plain version, and K5's path (both
+  phases) against the step-by-step chase at both shapes, on every
+  sequence of the chase edges and on a pure -inf band, timed per phase,
+  each phase with its own launch counter;
 - the batch-1 paths, one pitch sequence of 10,240 frames (bench.py's batch-1
   shape): the default auto-chunk route (entropy-chunk rows through K1 and
   K3), the serial route with auto-chunking off (the batch-1 forward K4,
   then the fused chase K5), a 2048-frame sequence (K4, K5), the window
-  chase (K6) on a pure -inf band, a band too wide for K4's shared memory
+  chase (K6) on a pure -inf band, a band too wide for K4's register tile
   (K1's cluster design, K5), a band too wide for any cluster layout (K1's
   per-CTA design, K5), and the uniform transition's closed form. The
   auto-chunk route is timed on a new observation every call (its plan
@@ -43,20 +51,24 @@ just after each:
   at 1536 states the tensor-core mxushift at every accumulator count and
   hybrid:K at K 1, 8, 81, the mod-M mod12 and mod12k (both outputs) at
   every accumulator count and tile, mod12 also un-permuted against full;
-  the spread kernel with clusters of 8 and 16, every chase variant in both
+  the spread kernel and the exchange probe spread_async with clusters of 8
+  and 16, every chase variant in both
   thread shapes; pipeG at a run-time G: 3, 5, 24 and the groups with
   instances of their own), then timed at full width through the labs' entry
   points:
   the forward variants at 512 x 512 x 1440 (width 175) beside K1 and the
   H100 ideals, mxushift, hybrid, mod12 and mod12k at 512 x 512 x 1536
   beside full:4:4 at that shape, the spread variants at 1 x 10,240 beside
-  K4, the chase variants over 10,240 steps beside K5 and K6. The output of
+  K4 (spread_sync against spread_async: the cluster barrier's exchange
+  against the mbarrier exchange), the chase variants over 10,240 steps
+  beside K5 and K6. The output of
   every timed run is held bitwise against its plain version on the same
   inputs, at that full size;
 - the committed reference paths (``utils/fixtures.py``,
   ``torbi_tpu_torch/assets/reference_paths.npz``): every case, decoded by
   torbi_tpu on the CPU when the file was written, decoded on the card
-  through ``from_probabilities`` and held against it bitwise;
+  through ``from_probabilities`` and held against it bitwise, the serial
+  cases through K4 and K5;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -87,7 +99,7 @@ DENSE_BATCH, DENSE_FRAMES = 8, 64
 SINGLE_FRAMES, SHORT_FRAMES = 10240, 2048
 # Half-width of the pure -inf band of the window phase (the pitch band's)
 WINDOW_HALFWIDTH = 87
-# A band over the pitch floor too wide for K4's shared memory at 1440 states
+# A band over the pitch floor too wide for K4's register tile at 1440 states
 # (width 261), and the frames of the phases that check that limit; a band
 # too wide for any layout of K1's cluster design (width 401)
 WIDE_HALFWIDTH, EDGE_FRAMES = 130, 256
@@ -166,6 +178,11 @@ def max_abs_err(torch, got, expected):
         return 0.0
     diff = (got.double() - expected.double()).abs()
     return float(torch.nan_to_num(diff, nan=float('inf')).max())
+
+
+def k5_launched(counts):
+    """Whether both phases of K5 launched in a run's launch counts"""
+    return counts['backtrace_pointers'] >= 1 and counts['chase_pointers'] >= 1
 
 
 def require_equal(torch, name, got, expected):
@@ -272,6 +289,50 @@ def hold_folded(torch, dispatch, label, fn, raw, rest):
     return err
 
 
+def sass_opcodes(build, library):
+    """{function: [opcode, ...]} of a built library's SASS (cuobjdump
+    -sass), NOPs left out"""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    out = subprocess.run([tool, '-sass', str(build.target(library))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        fail(f'cuobjdump -sass failed on {library}: {out.stderr.strip()}')
+    opcodes = {}
+    function = None
+    for line in out.stdout.splitlines():
+        match = re.match(r'\s*Function : (\S+)', line)
+        if match:
+            function = match.group(1)
+            opcodes[function] = []
+            continue
+        match = re.match(r'\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;', line)
+        if function and match:
+            op = match.group(1).split()
+            op = op[1] if op[0].startswith('@') else op[0]
+            if not op.startswith('NOP'):
+                opcodes[function].append(op)
+    return opcodes
+
+
+def sass_pointer_instructions(build):
+    """FP32 and select instructions per candidate of K5's phase 1
+    (pointers_kernel), from its SASS: the adds, compares and selects from
+    the kernel's first FADD to its last (the candidate loop: each candidate
+    is one FADD; the combine with the floor candidate after the loop is
+    left out), over its FADDs"""
+    found = [ops for function, ops in sass_opcodes(
+        build, 'backtrace_batch1').items() if 'pointers_kernel' in function]
+    if len(found) != 1:
+        fail(f'cuobjdump: {len(found)} functions match pointers_kernel')
+    kinds = [op.split('.')[0] for op in found[0]]
+    adds = [n for n, kind in enumerate(kinds) if kind == 'FADD']
+    if not adds:
+        fail('cuobjdump: pointers_kernel holds no FADD')
+    loop = kinds[adds[0]:adds[-1] + 1]
+    return sum(kind in ('FADD', 'FSETP', 'FSEL', 'SEL', 'FMNMX')
+               for kind in loop) / len(adds)
+
+
 def sass_conversion_counts(build):
     """SASS instructions (and MUFU instructions among them) per converted
     value, read with cuobjdump from the built K1 library: each instance of
@@ -281,26 +342,8 @@ def sass_conversion_counts(build):
     Static counts: the compiler may schedule the instances differently
     around the conversion, so the three are estimates of one number.
     Returns {(log_input, apply_epsilon): {kernel: (all, mufu)}}"""
-    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
-    out = subprocess.run([tool, '-sass', str(build.target('band_forward'))],
-                         capture_output=True, text=True, timeout=300)
-    if out.returncode:
-        fail(f'cuobjdump -sass failed on band_forward: {out.stderr.strip()}')
-    counts = {}
-    function = None
-    for line in out.stdout.splitlines():
-        match = re.match(r'\s*Function : (\S+)', line)
-        if match:
-            function = match.group(1)
-            counts[function] = [0, 0]
-            continue
-        match = re.match(r'\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;', line)
-        if function and match:
-            op = match.group(1).split()
-            op = op[1] if op[0].startswith('@') else op[0]
-            if not op.startswith('NOP'):
-                counts[function][0] += 1
-                counts[function][1] += op.startswith('MUFU')
+    counts = {function: [len(ops), sum(op.startswith('MUFU') for op in ops)]
+              for function, ops in sass_opcodes(build, 'band_forward').items()}
     kernels = {f'K1 {nb} per cluster': (f'band_cluster_kernelILi{nb}ELi{{}}E',
                                         places)
                for nb, places in ((1, 3), (4, 12), (32, 48))}
@@ -324,10 +367,11 @@ def sass_conversion_counts(build):
     return result
 
 
-def hold_fixtures(torch, fixtures, device):
+def hold_fixtures(torch, fixtures, device, reset_counts, read_counts):
     """Decode every committed fixture case on the card through
-    from_probabilities and hold its path against torbi_tpu's, bitwise.
-    Returns the number of cases held"""
+    from_probabilities and hold its path against torbi_tpu's, bitwise; the
+    serial cases must launch K4 and K5 (the counters reset just before and
+    read just after each). Returns the number of cases held"""
     committed = fixtures.load()
     names = [case.name for case in fixtures.CASES]
     if sorted(committed) != sorted(names):
@@ -339,8 +383,14 @@ def hold_fixtures(torch, fixtures, device):
         if fixtures.inputs_hash(case, inputs) != digest:
             fail(f'fixture {case.name}: the inputs made here differ from '
                  'those the committed paths were decoded from')
+        reset_counts()
         got = fixtures.decode(case, inputs, device.index)
         torch.cuda.synchronize()
+        counts = read_counts()
+        if case.name in fixtures.SERIAL and (
+                counts['band_spread'] < 1 or not k5_launched(counts)):
+            fail(f'fixture {case.name} did not take the serial route (K4, '
+                 f'K5): launches {counts}')
         if got.device != device or not np.array_equal(
                 got.cpu().numpy(), expected):
             differ = int((got.cpu().numpy() != expected).sum())
@@ -747,10 +797,22 @@ def main():
             kernels['band_forward_cta']['max_abs_err'], hold_folded(
                 torch, dispatch, f'K1 band_forward_cta folded {edge.name}',
                 band.viterbi_forward_band_cta, t_obs, t_rest))
-        fold_spread_err = max(fold_spread_err, hold_folded(
-            torch, dispatch, f'K4 band_spread folded {edge.name}, sequence 0',
-            band.viterbi_forward_band_spread, t_obs[:1].contiguous(),
-            (e_bf[:1],) + t_rest[1:]))
+        # K4 on every sequence of the edge, one at a time: against its
+        # plain version, and folded in every conversion
+        for seq in range(e_obs.shape[0]):
+            one = (e_obs[seq:seq + 1].contiguous(),
+                   e_bf[seq:seq + 1].contiguous()) + e_args[2:]
+            fold_spread_err = max(fold_spread_err, max_abs_err(
+                torch, band.viterbi_forward_band_spread(*one)[0],
+                band.band_spread_reference(*one)[0]))
+            if fold_spread_err:
+                fail(f'K4 band_spread {edge.name}, sequence {seq}: differs '
+                     f'from its plain version (max abs err '
+                     f'{fold_spread_err}; tolerance: bitwise)')
+            fold_spread_err = max(fold_spread_err, hold_folded(
+                torch, dispatch, f'K4 band_spread folded {edge.name}, '
+                f'sequence {seq}', band.viterbi_forward_band_spread,
+                t_obs[seq:seq + 1].contiguous(), one[1:]))
     big = torch.Generator(device).manual_seed(2)
     chase_cases = [
         (edge.name, *(torch.from_numpy(a).to(device)
@@ -768,11 +830,28 @@ def main():
                     c_post, c_trans, c_post[:, -1], c_bf),
                 backtrace.backtrace_reference(
                     c_post, c_trans, c_post[:, -1], c_bf)))
+    # K5 on every chase edge, one sequence at a time (a dense transition:
+    # its phase 1 over every offset)
+    for name, c_post, c_trans, c_bf in chase_cases[:-1]:
+        for seq in range(c_post.shape[0]):
+            one = c_post[seq:seq + 1].contiguous()
+            bf_one = c_bf[seq:seq + 1].contiguous()
+            got = backtrace.backtrace_fused1(one, c_trans, one[:, -1], bf_one)
+            want = backtrace.backtrace_fused1_reference(
+                one, c_trans, one[:, -1], bf_one)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f'K5 backtrace_fused1 {name}, sequence {seq}: differs '
+                     f'from its plain version in '
+                     f'{int((got != want).sum())} positions (tolerance: '
+                     'exact)')
     del chase_cases, c_trans
     info(f'edge list: {len(edges.BAND_EDGES)} band edges (K1 at '
-         f'{len(band.CLUSTER_TILES)} cluster sizes and per CTA, K3; K1 and '
-         f'K4 folded in {len(CONVERSIONS)} conversions) and '
-         f'{len(edges.CHASE_EDGES) + 1} chase edges bitwise')
+         f'{len(band.CLUSTER_TILES)} cluster sizes and per CTA, K3; K4 on '
+         f'each sequence; K1 and K4 folded in {len(CONVERSIONS)} '
+         f'conversions) and {len(edges.CHASE_EDGES) + 1} chase edges bitwise '
+         '(K3; K5 on each sequence of the first '
+         f'{len(edges.CHASE_EDGES)})')
 
     counters = {
         'band_forward': band.viterbi_forward_band,
@@ -780,7 +859,8 @@ def main():
         'band_spread': band.viterbi_forward_band_spread,
         'dense_forward': dense.viterbi_forward_dense,
         'backtrace': backtrace.backtrace_posteriors,
-        'backtrace_fused1': backtrace.backtrace_fused1,
+        'backtrace_pointers': backtrace.backtrace_pointers,
+        'chase_pointers': backtrace.chase_pointers,
         'backtrace_window': backtrace.backtrace_window,
     }
 
@@ -927,30 +1007,44 @@ def main():
     bf1 = torch.tensor([SINGLE_FRAMES], dtype=torch.int32, device=device)
     steps1 = valid_steps(bf1, SINGLE_FRAMES)
 
-    # K4: the batch-1 banded forward, and K1 on the same sequence for
+    # K4: the batch-1 banded forward at both serial shapes (1 x 10,240 and
+    # 1 x 2048) against its plain version, and K1 on the same sequence for
     # comparison
     post1, posterior1 = band.viterbi_forward_band_spread(
         single_k, bf1, init, band_tuple, band_matrix)
     post1_r, _ = band.band_spread_reference(
         single_k, bf1, init, band_tuple, band_matrix)
     torch.cuda.synchronize()
-    err = require_equal(torch, 'K4 band_spread', post1, post1_r)
+    err = require_equal(torch, f'K4 band_spread at 1 x {SINGLE_FRAMES}',
+                        post1, post1_r)
     del post1_r
+    short_k = single_k[:, :SHORT_FRAMES].contiguous()
+    bf_short = torch.tensor([SHORT_FRAMES], dtype=torch.int32, device=device)
+    post_s, posterior_s = band.viterbi_forward_band_spread(
+        short_k, bf_short, init, band_tuple, band_matrix)
+    err = max(err, require_equal(
+        torch, f'K4 band_spread at 1 x {SHORT_FRAMES}', post_s,
+        band.band_spread_reference(
+            short_k, bf_short, init, band_tuple, band_matrix)[0]))
     k4_ms = cuda_ms(torch, lambda: band.viterbi_forward_band_spread(
-        single_k, bf1, init, band_tuple, band_matrix), iters=5)
+        single_k, bf1, init, band_tuple, band_matrix), iters=3)
     k4_plain_ms = cuda_ms(torch, lambda: band.band_spread_reference(
         single_k, bf1, init, band_tuple, band_matrix), iters=1, warmup=0)
     k1_single_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(
         single_k, bf1, init, band_tuple, band_matrix), iters=1)
     k4_bytes = (2 * SINGLE_FRAMES * STATES + width * STATES + STATES) * 4
     k4_ops = steps1 * (2 * in_range + 3 * STATES)
+    k4_layout = band.spread_layout(STATES, width, lo)
     kernels['band_spread'] = dict(
         name='band_spread', route='cuda',
         source='torbi_tpu_torch/csrc/band_spread.cu',
         replaces='torbi_tpu/ops/band.py:843', path='batch1-serial',
         max_abs_err=err, ms=k4_ms, plain_ms=k4_plain_ms,
         bound=bound_ms(k4_bytes, k4_ops), library_ms=None,
-        smem_bound_ms=steps1 * in_range / smem_words_per_s * 1e3)
+        smem_bound_ms=steps1 * in_range / smem_words_per_s * 1e3,
+        cluster=band.SPREAD_CLUSTER, chain_frames=steps1,
+        tile=f'{k4_layout["threads"]} threads, 4 destinations x '
+             f'{k4_layout["dmax"]} offsets a thread')
     info(f'K4 band_spread: {k4_ms:.3f} ms ({k4_ms * 1e3 / steps1:.3f} '
          f'us/frame), plain {k4_plain_ms:.1f} ms; K1 (cluster design) on '
          'the same sequence '
@@ -976,17 +1070,25 @@ def main():
 
     k4_turns = [cuda_ms(torch, fn, iters=3) for fn in (
         k4_folded, k4_after_epsilon, k4_after_epsilon, k4_folded)]
+    k4_all_ops = k4_ops + (1 + steps1) * STATES * conv_per_value
     kernels['band_spread'].update(
         ms=(k4_turns[0] + k4_turns[3]) / 2, unfolded_ms=k4_ms,
         epsilon_plus_kernel_ms=(k4_turns[1] + k4_turns[2]) / 2,
-        bound=bound_ms(k4_bytes, k4_ops
-                       + (1 + steps1) * STATES * conv_per_value))
+        bound=bound_ms(k4_bytes, k4_all_ops),
+        cluster_bound_ms=k4_all_ops / (
+            profile.FP32_LANES_PER_SM * band.SPREAD_CLUSTER * clock_hz) * 1e3)
+    kernels['band_spread']['max_abs_err'] = max(
+        kernels['band_spread']['max_abs_err'], hold_folded(
+            torch, dispatch, f'K4 band_spread folded at 1 x {SHORT_FRAMES}',
+            band.viterbi_forward_band_spread,
+            single[:, :SHORT_FRAMES].contiguous(),
+            (bf_short, init, band_tuple, band_matrix)))
     info(f'K4 folded against the epsilon step + K4, in turns (ms): folded '
          f'{k4_turns[0]:.3f}, epsilon + K4 {k4_turns[1]:.3f}, epsilon + K4 '
          f'{k4_turns[2]:.3f}, folded {k4_turns[3]:.3f} (K4 alone on a '
          f'converted sequence {k4_ms:.3f})')
 
-    # K4's shared-memory limit: the widest band that band.spread_fits
+    # K4's widest band: the widest band that band.spread_fits
     # admits at 1440 states runs bitwise against the plain version; one
     # offset wider the kernel refuses, so dispatch and kernel agree
     wide_host = triangular_log(STATES, WIDE_HALFWIDTH, TINY)
@@ -1021,30 +1123,87 @@ def main():
         fail(f'K4 launched a band of width {edge + 1}, which '
              f'band.spread_fits refuses')
 
-    # K5: the fused batch-1 chase on K4's stream, and K3 for comparison
-    idx1 = backtrace.backtrace_fused1(post1, trans, posterior1, bf1)
+    # K5: phase 1's table and phase 2's path on that table against their
+    # plain versions, then the path of both phases against the step-by-step
+    # chase (backtrace_fused1_reference) on both serial shapes; timed per
+    # phase and as one call; K3 for comparison
+    table = backtrace.backtrace_pointers(post1, band_tuple, band_matrix, bf1)
+    table_r, table_plain_ms = cuda_once(
+        torch, lambda: backtrace.backtrace_pointers_reference(
+            post1, band_tuple, band_matrix, bf1))
+    table_err = require_equal(
+        torch, f'K5 phase 1 (backtrace_pointers) table at 1 x '
+        f'{SINGLE_FRAMES}', table, table_r)
+    del table_r
+    block = backtrace.chase_block(STATES)
+    chased_r, chase_plain_ms = cuda_once(
+        torch, lambda: backtrace.chase_pointers_reference(
+            table, posterior1, bf1, block))
+    chase_err = require_equal(
+        torch, f'K5 phase 2 (chase_pointers) path at 1 x {SINGLE_FRAMES} '
+        f'in blocks of {block}', backtrace.chase_pointers(
+            table, posterior1, bf1), chased_r)
+    del chased_r
+    idx1 = backtrace.backtrace_fused1(
+        post1, trans, posterior1, bf1, band_tuple, band_matrix)
     idx1_r = backtrace.backtrace_fused1_reference(
         post1, trans, posterior1, bf1)
     torch.cuda.synchronize()
-    err = require_equal(torch, 'K5 backtrace_fused1', idx1, idx1_r)
+    err = require_equal(torch, f'K5 backtrace_fused1 at 1 x {SINGLE_FRAMES}',
+                        idx1, idx1_r)
+    err = max(err, require_equal(
+        torch, f'K5 backtrace_fused1 at 1 x {SHORT_FRAMES}',
+        backtrace.backtrace_fused1(post_s, trans, posterior_s, bf_short,
+                                   band_tuple, band_matrix),
+        backtrace.backtrace_fused1_reference(
+            post_s, trans, posterior_s, bf_short)))
+    del post_s, posterior_s
     k5_ms = cuda_ms(torch, lambda: backtrace.backtrace_fused1(
-        post1, trans, posterior1, bf1), iters=5)
+        post1, trans, posterior1, bf1, band_tuple, band_matrix), iters=5)
+    k5_phase_ms = (
+        cuda_ms(torch, lambda: backtrace.backtrace_pointers(
+            post1, band_tuple, band_matrix, bf1), iters=5),
+        cuda_ms(torch, lambda: backtrace.chase_pointers(
+            table, posterior1, bf1), iters=5))
+    del table
     k5_plain_ms = cuda_ms(torch, lambda: backtrace.backtrace_fused1_reference(
         post1, trans, posterior1, bf1), iters=1, warmup=0)
     k3_single_ms = cuda_ms(torch, lambda: backtrace.backtrace_posteriors(
         post1, trans, posterior1, bf1), iters=1)
-    k5_bytes = (steps1 * STATES + STATES + STATES * STATES
-                + SINGLE_FRAMES) * 4
-    k5_ops = (steps1 + 1) * 2 * STATES
-    kernels['backtrace_fused1'] = dict(
-        name='backtrace_fused1', route='cuda',
-        source='torbi_tpu_torch/csrc/backtrace_batch1.cu',
+    # The bounds of the parallel design. Phase 1: the in-band candidates at
+    # the instructions per candidate of its compiled loop (SASS) and the
+    # floor's row argmax (an add, a compare, a select per value); the
+    # stream rows it reads, the band matrix, the int16 table it writes.
+    # Phase 2: one lookup per state and step; the table it reads, the
+    # posterior, the path it writes
+    per_candidate = sass_pointer_instructions(build)
+    k5_ops = steps1 * (in_range * per_candidate + 3 * STATES)
+    k5_bytes = (steps1 * STATES + width * STATES) * 4 + SINGLE_FRAMES * (
+        STATES * 2)
+    chase_ops = steps1 * STATES
+    chase_bytes = SINGLE_FRAMES * STATES * 2 + (STATES + SINGLE_FRAMES) * 4
+    k5_common = dict(
+        route='cuda', source='torbi_tpu_torch/csrc/backtrace_batch1.cu',
         replaces='torbi_tpu/ops/backtrace.py:652', path='batch1-serial',
-        max_abs_err=err, ms=k5_ms, plain_ms=k5_plain_ms,
-        bound=bound_ms(k5_bytes, k5_ops), library_ms=None)
-    info(f'K5 backtrace_fused1: {k5_ms:.3f} ms ({k5_ms * 1e3 / steps1:.3f} '
-         f'us/step), plain {k5_plain_ms:.1f} ms; K3 on the same stream '
-         f'{k3_single_ms:.3f} ms ({k3_single_ms * 1e3 / steps1:.3f} us/step)')
+        library_ms=None)
+    kernels['backtrace_pointers'] = dict(
+        k5_common, name='backtrace_pointers', max_abs_err=table_err,
+        ms=k5_phase_ms[0], plain_ms=table_plain_ms,
+        bound=bound_ms(k5_bytes, k5_ops),
+        sass_instructions_per_candidate=per_candidate,
+        fused1_ms=k5_ms, fused1_reference_ms=k5_plain_ms,
+        fused1_max_abs_err=err, chain_steps_removed=steps1)
+    kernels['chase_pointers'] = dict(
+        k5_common, name='chase_pointers', max_abs_err=max(chase_err, err),
+        ms=k5_phase_ms[1], plain_ms=chase_plain_ms,
+        bound=bound_ms(chase_bytes, chase_ops), block_frames=block)
+    info(f'K5 backtrace_fused1: {k5_ms:.3f} ms (phase 1 '
+         f'{k5_phase_ms[0]:.3f}, phase 2 {k5_phase_ms[1]:.3f}; '
+         f'{per_candidate:.3f} SASS instructions per phase-1 candidate), '
+         f'plain {k5_plain_ms:.1f} ms (phase 1 alone {table_plain_ms:.1f}, '
+         f'phase 2 alone {chase_plain_ms:.1f}); '
+         f'K3 on the same stream {k3_single_ms:.3f} ms '
+         f'({k3_single_ms * 1e3 / steps1:.3f} us/step)')
     del post1, posterior1
 
     # K6: the window chase on a pure -inf band (the triangular transition
@@ -1064,8 +1223,14 @@ def main():
         wpost, pure, wposterior, bf1, pure_band)
     torch.cuda.synchronize()
     err = require_equal(torch, 'K6 backtrace_window', idx6, idx6_r)
-    if not torch.equal(
-            idx6, backtrace.backtrace_fused1(wpost, pure, wposterior, bf1)):
+    idx5 = backtrace.backtrace_fused1(
+        wpost, pure, wposterior, bf1, pure_band, pure_matrix)
+    kernels['chase_pointers']['max_abs_err'] = max(
+        kernels['chase_pointers']['max_abs_err'], require_equal(
+            torch, 'K5 backtrace_fused1 on the pure -inf band', idx5,
+            backtrace.backtrace_fused1_reference(
+                wpost, pure, wposterior, bf1)))
+    if not torch.equal(idx6, idx5):
         fail('K6 differs from K5 on the pure -inf band')
     info('K6 backtrace_window: equal to K5 on the pure -inf band')
     k6_ms = cuda_ms(torch, lambda: backtrace.backtrace_window(
@@ -1124,7 +1289,8 @@ def main():
     chunked, chunk_counts = run_path('batch-1 auto-chunk path', single_call)
     if chunk_counts['band_forward'] < 1 or chunk_counts['backtrace'] < 1:
         fail('the auto-chunk path did not launch K1 and K3')
-    if chunk_counts['band_spread'] or chunk_counts['backtrace_fused1']:
+    if (chunk_counts['band_spread'] or chunk_counts['backtrace_pointers']
+            or chunk_counts['chase_pointers']):
         fail('the auto-chunk path launched a batch-1 kernel')
     if chunk_counts['band_forward_cta']:
         fail('the auto-chunk path launched K1\'s per-CTA design')
@@ -1272,7 +1438,7 @@ def main():
         torbi_tpu_torch.BATCH1_AUTO_CHUNK = False
         serial, serial_counts = run_path('batch-1 serial path', single_call)
         if (serial_counts['band_spread'] < 1
-                or serial_counts['backtrace_fused1'] < 1):
+                or not k5_launched(serial_counts)):
             fail('the serial batch-1 path did not launch K4 and K5')
         require_same('serial batch-1 path', serial,
                      single_call(backend='scan'),
@@ -1304,7 +1470,7 @@ def main():
         EDGE_FRAMES)
     if (wide_counts['band_forward'] < 1 or wide_counts['band_spread']
             or wide_counts['band_forward_cta']
-            or wide_counts['backtrace_fused1'] < 1):
+            or not k5_launched(wide_counts)):
         fail('the wide-band path did not take K1\'s cluster design and K5')
     require_same('wide-band path', wide_out,
                  single_call(single[:, :EDGE_FRAMES], trans_in=wide,
@@ -1365,7 +1531,7 @@ def main():
         EDGE_FRAMES)
     if (cta_counts['band_forward_cta'] < 1 or cta_counts['band_forward']
             or cta_counts['band_spread']
-            or cta_counts['backtrace_fused1'] < 1):
+            or not k5_launched(cta_counts)):
         fail('the per-CTA band path did not take K1\'s per-CTA design and '
              'K5')
     require_same('per-CTA band path', cta_out,
@@ -1378,7 +1544,7 @@ def main():
     short_out, short_counts = run_path(
         'batch-1 short path', lambda: single_call(short), SHORT_FRAMES)
     if (short_counts['band_spread'] < 1
-            or short_counts['backtrace_fused1'] < 1):
+            or not k5_launched(short_counts)):
         fail('the 2048-frame path did not launch K4 and K5')
     require_same('short path', short_out, single_call(short, backend='scan'),
                  'the plain scan route on the card')
@@ -1407,9 +1573,10 @@ def main():
 
     # 6b. What the card decodes against torbi_tpu: every committed fixture
     # case (utils/fixtures.py) through from_probabilities, bitwise
-    held = hold_fixtures(torch, fixtures, device)
+    held = hold_fixtures(torch, fixtures, device, reset_counts, read_counts)
     info(f'fixtures: {held} cases decoded on the card equal torbi_tpu\'s '
-         'committed paths (tolerance: bitwise)')
+         f'committed paths (tolerance: bitwise); {", ".join(fixtures.SERIAL)} '
+         'through K4 and K5')
 
     # 7. The lab kernels against their plain versions, bitwise, at small
     # shapes: every forward body at every accumulator count (or tile) with
@@ -1509,6 +1676,11 @@ def main():
                      f', cluster {cluster})')
             require_equal(torch, label, kernel_lab.lab_spread(
                 spread_seq, spread_band, width, cluster, sync_only), want)
+            if sync_only:
+                require_equal(
+                    torch, f'lab_spread (spread_async, cluster {cluster})',
+                    kernel_lab.lab_spread(spread_seq, spread_band, width,
+                                          cluster, True, 'async'), want)
     chase_trans, chase_post = chase_lab.lab_inputs(
         LAB_CHECK_STEPS, STATES, device)
     for variant in chase_lab.VARIANTS:
@@ -1685,7 +1857,8 @@ def main():
              f'candidates per SM and clock{extra}, on {card}')
 
     spread_lab = lab_run('lab_spread', kernel_lab, [
-        '--variants', 'spread,spread:16,spread_sync,spread_sync:16',
+        '--variants', 'spread,spread:16,spread_sync,spread_sync:16,'
+        'spread_async,spread_async:16',
         '--batch', '1', '--frames', str(SINGLE_FRAMES), *shape])
     spread_seq, spread_band = spread_lab['inputs']
     spread_seq = spread_seq[0]
@@ -1697,7 +1870,7 @@ def main():
         if not sync_only:
             lab_plain['spread'] = ms
     for spec, got in spread_lab['outputs'].items():
-        want = wanted[spec.startswith('spread_sync')]
+        want = wanted[spec.split(':')[0] != 'spread']
         lab_err['lab_spread'] = max(lab_err.get('lab_spread', 0.0),
                                     max_abs_err(torch, got, want))
         if not torch.equal(got, want):
@@ -1712,6 +1885,13 @@ def main():
         info(f'lab_spread {spec}: {row["ms"]:.3f} ms, '
              f'{row["ms_per_frame"] * 1e3:.3f} us/frame (K4 '
              f'{k4_ms * 1e3 / steps1:.3f} us/frame), on {card}')
+    exchange = {spec: row['ms_per_frame'] * 1e3 for spec, row in
+                spread_lab['results'].items() if spec != 'spread'
+                and spec != 'spread:16'}
+    info('exchange probe, us/frame: ' + ', '.join(
+        f'{spec} {value:.3f}' for spec, value in exchange.items())
+         + ' (spread_sync: remote stores and a cluster barrier; '
+         'spread_async: the mbarrier exchange K4 runs)')
 
     chase_lab_run = lab_run('lab_chase', chase_lab, [
         '--variants', ','.join(chase_lab.VARIANTS), '--frames',
@@ -1804,7 +1984,8 @@ def main():
             (SINGLE_FRAMES * STATES + wpad * STATES + STATES) * 4,
             2 * spread_candidates + (SINGLE_FRAMES - 1) * STATES),
         library_ms=None,
-        smem_bound_ms=spread_candidates / smem_words_per_s * 1e3)
+        smem_bound_ms=spread_candidates / smem_words_per_s * 1e3,
+        exchange_us_per_frame=exchange)
     kernels['lab_chase'] = dict(
         name='lab_chase', route='cuda',
         source='torbi_tpu_torch/csrc/lab_chase.cu',
@@ -1850,7 +2031,12 @@ def main():
             ('headline', stages, band_counts),
             ('batch-1 serial', stages1, serial_counts)):
         launched = {name for name, count in counts.items() if count}
-        if set(timed['kernels']) != launched:
+        # dispatch names K5 by its function; its phases count apart
+        names = set(timed['kernels'])
+        if 'backtrace_fused1' in names:
+            names = (names - {'backtrace_fused1'}) | {
+                'backtrace_pointers', 'chase_pointers'}
+        if names != launched:
             fail(f'time_stages timed {timed["kernels"]} on the {label} '
                  f'route, whose decode launched {sorted(launched)}')
     info('time_stages timed the kernels each route launched')
@@ -1883,8 +2069,8 @@ def main():
         'batch1-cta': cta_counts, **lab_counts}
     lines = []
     for name in ('band_forward', 'band_forward_cta', 'band_spread',
-                 'dense_forward', 'backtrace', 'backtrace_fused1',
-                 'backtrace_window', 'lab_forward',
+                 'dense_forward', 'backtrace', 'backtrace_pointers',
+                 'chase_pointers', 'backtrace_window', 'lab_forward',
                  'lab_pipe', 'lab_mxushift', 'lab_mod12', 'lab_mod12k',
                  'lab_spread', 'lab_chase'):
         entry = dict(kernels[name])

@@ -325,13 +325,21 @@ def test_state_limits_fall_back(knobs, monkeypatch):
     assert calls == ['K1', 'K5', 'K1', 'K3']
 
 
-@pytest.mark.parametrize('width, fits', [(175, True), (259, True),
-                                         (260, False), (720, False)])
+@pytest.mark.parametrize('width, fits', [(175, True), (256, True),
+                                         (257, False), (720, False)])
 def test_spread_fits_pitch_states(width, fits):
-    """At 1440 states K4 holds the pitch band (175) and bands up to 259 in
-    the 227 KB of shared memory a Hopper block may opt in to"""
+    """At 1440 states K4's cluster of 16 CTAs holds the pitch band (175)
+    and bands up to 256 in its register tile (8 lanes x 32 offsets at 192
+    threads of the 256 the tile allows). Its shared memory: two mbarriers,
+    two windows of 4 slices of 92 (the most at any lo) plus 8 x 24 slack,
+    two outgoing slices, two tables of 16 CTA maxima and 6 warp maxima, a
+    ring of 4 x 192 observation values"""
+    layout = band.spread_layout(1440, width)
+    assert layout['fits'] is fits
     assert band.spread_fits(1440, width) is fits
-    assert band.spread_smem_bytes(1440, 175) == 4 * (6192 + 175 * 200)
+    assert layout['threads'] == 192
+    assert band.spread_smem_bytes(1440, 175) == 4 * (
+        4 + 2 * (4 * 92 + 8 * 24) + 2 * 92 + 32 + 12 + 4 * 192)
 
 
 def test_wide_band_takes_k1(knobs, monkeypatch):

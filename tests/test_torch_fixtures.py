@@ -3,12 +3,14 @@ against torbi_tpu, and the port's CPU route against them.
 
 Each case of ``torbi_tpu_torch/utils/fixtures.py`` is decoded through
 ``torbi_tpu.from_probabilities`` on the CPU, as the port's other tests run
-it: the scan route for every case but the long pitch sequence, which goes
-through the kernel backend in interpret mode as
+it: the scan route for every case but two kinds. The long pitch sequence
+goes through the kernel backend in interpret mode as
 ``tests/test_torch_autochunk.py`` runs it, with the JAX package's default
 frame buckets (the ones the port's auto-chunk rule copies), so that both
-packages decode it as entropy-chunk rows. The committed file must equal
-those paths and hold the hash of the inputs they came from; the port's
+packages decode it as entropy-chunk rows. The serial cases go through its
+serial batch-1 route (spread forward, fused chase) in interpret mode, as
+the port's go through K4 and K5. The committed file must equal those
+paths and hold the hash of the inputs they came from; the port's
 ``from_probabilities`` on the CPU must return the same paths, bitwise.
 ``chip_smoke.py`` holds the card to the same file.
 
@@ -31,7 +33,7 @@ import torch  # noqa: E402
 import torbi_tpu  # noqa: E402
 from torbi_tpu.config import defaults as jax_defaults  # noqa: E402
 from torbi_tpu.ops import autochunk as jax_autochunk  # noqa: E402
-from torbi_tpu_torch.ops import autochunk  # noqa: E402
+from torbi_tpu_torch.ops import autochunk, dispatch  # noqa: E402
 from torbi_tpu_torch.utils import fixtures  # noqa: E402
 
 AUTOCHUNK = 'autochunk-pitch'
@@ -52,9 +54,35 @@ def _engaged(module):
     return (lambda: setattr(module, 'decode_chunked', orig)), engaged
 
 
+def serial_reference_paths(case):
+    """torbi_tpu's path for a serial case, through its serial batch-1
+    route (the spread forward, then the fused chase) in interpret mode"""
+    from torbi_tpu.ops import backtrace as jax_backtrace
+
+    observation, batch_frames, transition, initial = fixtures.case_inputs(case)
+    orig = jax_backtrace.backtrace_posteriors12_fused1
+    engaged = []
+
+    def spy(*args, **kwargs):
+        engaged.append(True)
+        return orig(*args, **kwargs)
+
+    jax_backtrace.backtrace_posteriors12_fused1 = spy
+    try:
+        paths = np.asarray(torbi_tpu.from_probabilities(
+            observation, batch_frames=batch_frames, transition=transition,
+            initial=initial, log_probs=case.log_probs, backend='pallas'))
+    finally:
+        jax_backtrace.backtrace_posteriors12_fused1 = orig
+    assert engaged, 'torbi_tpu did not take its fused batch-1 chase'
+    return paths
+
+
 def reference_paths(case):
     """torbi_tpu's path for ``case`` on the CPU, int32 numpy"""
     observation, batch_frames, transition, initial = fixtures.case_inputs(case)
+    if case.name in fixtures.SERIAL:
+        return serial_reference_paths(case)
     if case.name != AUTOCHUNK:
         return np.asarray(torbi_tpu.from_probabilities(
             observation, batch_frames=batch_frames, transition=transition,
@@ -104,12 +132,17 @@ def test_port_cpu_route_matches(committed, name):
     bitwise; the long sequence through its auto-chunk route"""
     case = CASES[name]
     restore, engaged = _engaged(autochunk)
+    chases = []
+    orig = dispatch.backtrace_fused1
+    dispatch.backtrace_fused1 = lambda *args: chases.append(1) or orig(*args)
     try:
         got = fixtures.decode(case, fixtures.case_inputs(case), 'cpu')
     finally:
         restore()
+        dispatch.backtrace_fused1 = orig
     assert got.dtype == torch.int32 and got.device.type == 'cpu'
     assert engaged == ([True] if name == AUTOCHUNK else [])
+    assert bool(chases) == (name in fixtures.SERIAL)
     np.testing.assert_array_equal(got.numpy(), committed[name][0])
 
 

@@ -48,8 +48,8 @@ BAND_MAX_FRACTION = 0.5
 
 # Batch-1 banded forward: True sends a single banded sequence (width > 0)
 # through K4 (csrc/band_spread.cu), which spreads the one sequence's
-# destinations over a cluster of CTAs on several SMs; False keeps K1, which
-# runs one sequence on one SM. Same values either way.
+# destinations over a cluster of 16 CTAs, its band in registers; False (or
+# a band K4's layout does not hold) keeps K1. Same values either way.
 BAND_BATCH1_SPREAD = True
 
 # Batch-1 chase over the band window only (K6, csrc/backtrace_batch1.cu):
@@ -59,10 +59,10 @@ BAND_BATCH1_SPREAD = True
 # so a floor band keeps the full-width chase.
 BACKTRACE_BATCH1_WINDOW = False
 
-# Batch-1 full-width chase (K5, csrc/backtrace_batch1.cu): one CTA chases
-# the single sequence with the stream rows staged ahead in shared memory.
-# Takes precedence over BACKTRACE_BATCH1_WINDOW; False (with the window
-# off) keeps K3.
+# Batch-1 full-width chase (K5, csrc/backtrace_batch1.cu): every
+# backpointer of the single sequence in parallel on the whole card, then a
+# blocked chase of them. Takes precedence over BACKTRACE_BATCH1_WINDOW;
+# False (with the window off) keeps K3.
 BACKTRACE_BATCH1_FUSED = True
 
 # Batch-1 auto-chunking: a single long banded sequence (width > 0) decodes

@@ -19,33 +19,71 @@
 // (_band_kernel_spread's obs_col, torbi_tpu/ops/band.py:882-884): each
 // value takes the log of a probability (log_input = 0) and the epsilon step
 // (apply_epsilon = 1) once it has landed in the staging ring, never in the
-// copy (common.cuh, convert_obs): each thread converts its own cells of a
-// frame in place while the barrier before that frame completes. Only
-// frames before batch_frames are staged and converted.
+// copy (common.cuh, convert_obs). Only frames before batch_frames are
+// staged and converted.
 //
 // Bound on the H100 at 1 x 10,240 frames x 1440 pitch states (band width
 // 175): 10,239 frames x 244,344 in-band candidates at an add and a max each
-// is 5.0e9 FP32 operations, 0.075 ms at 67 TFLOP/s; the 118 MB that must
-// move (observation in, stream out) take 0.035 ms at 3.35 TB/s. Neither is
-// the real limit: the frames form a chain of 10,239 dependent steps, each a
-// round of candidates and a barrier, so latency per frame decides the time.
+// is 5.0e9 FP32 instructions, 0.15 ms at 128 per SM and clock (1.98 GHz)
+// on all 132 SMs, but 1.23 ms on the 16 SMs of the cluster; the 118 MB
+// that must move (observation in, stream out) take 0.035 ms at 3.35 TB/s.
+// The frames form a chain of 10,239 dependent steps, each a round of
+// candidates and an exchange between the CTAs, so latency per frame
+// decides the time.
 //
-// Why not K1: K1 gives a sequence to one CTA, so at batch 1 it runs on one
-// SM of 132. Design: a cluster of 8 CTAs on 8 SMs. CTA r owns destinations
-// [r * per_cta, (r + 1) * per_cta) and keeps its slice of the band matrix
-// resident in its shared memory (175 x 200 floats, 140 KB at the pitch
-// shape), so the matrix is read from device memory once; a band too wide
-// for the 227 KB opt-in (at 1440 states, wider than 259) is refused, and
-// dispatch sends it to K1. Every CTA keeps a
-// full, double-buffered copy of the posterior; each new value is written
-// into all 8 copies through distributed shared memory, and each warp's
-// maximum (for the floor term) into all 8 CTAs' tables of warp maxima. One
-// cluster barrier per frame publishes both. Inside a CTA, 4 neighbouring
-// lanes share a destination, take every 4th band offset each, and combine
-// with two xor shuffles; 8 destinations per warp. The observation rows are
-// staged kStages frames ahead with cp.async into a per-thread ring. The
-// cluster barrier of each frame is split (arrive, then wait), with the
-// next frame's observation converted in between.
+// Design: a cluster of C = 16 CTAs on 16 SMs (ops/band.py::SPREAD_CLUSTER,
+// a non-portable size): the exchange below costs less per frame in 16 than
+// in 8, the portable size (the spread lab's probe times both), the
+// candidates per CTA halve, and 16 holds every band 8 would. CTA r owns
+// destinations [r P, (r + 1) P), P = ceil(states / C) rounded up to a
+// multiple of 4.
+//
+// The band lives in registers. A thread owns R = 4 consecutive
+// destinations and a run of D = ceil(width / 8) consecutive band offsets
+// (8 lanes share the 4 destinations); its 4 x D band values never change,
+// so they are loaded once, into a register tile of 4 x DMAX (DMAX the
+// tile's offsets per lane: 8, 16, 24 or 32; the entries past D are -inf).
+// Per frame a lane loads DMAX + 3 sources, each feeding up to 4 candidates
+// of its run, into 2 x 4 accumulators; three xor shuffles combine the 8
+// lanes. A band wider than 8 x 32 = 256 offsets, or a shape whose threads
+// exceed the tile's register budget (Tile::MAX_THREADS), is refused and
+// dispatch sends it to K1 (ops/band.py::spread_layout mirrors this
+// layout).
+//
+// Each CTA keeps a double-buffered window of the posterior, not a full
+// copy: the slices q in [r + a, r + a + slices) whole, a = floor(lo / P),
+// which hold every source its destinations read, [r P + lo, r P + lo + P +
+// width - 1); slices outside [0, C) and values past the states stay -inf.
+// The exchange, per frame: every thread writes its new values into the
+// CTA's outgoing slice in its own shared memory and each warp its maximum;
+// one __syncthreads; then warp 0 sends the slice (P floats, one bulk copy,
+// cp.async.bulk ... mbarrier::complete_tx) into the window of every CTA
+// that holds it, and the slice's maximum (st.async ... complete_tx) into
+// every CTA's table of maxima. Each CTA waits on its own mbarrier (one per
+// buffer) until the bytes it expects have landed: its window's slices and
+// C maxima. No cluster barrier runs per frame.
+//
+// Why the double buffers are safe without one: a CTA computes frame t + 1
+// only after it has the maxima of frame t from every CTA (the floor term
+// needs them, and with no floor they are exchanged all the same), and a CTA
+// sends its frame-t maximum only after every one of its threads has read
+// its frame t - 1 window and its own barrier's frame t - 2 phase has
+// completed. So when a CTA writes frame t + 1 into buffer (t + 1) & 1 of
+// another, that CTA has finished frame t, and with it every read of frame
+// t - 1's values in that buffer; and that buffer's barrier has completed
+// the phase of frame t - 1, so the new bytes count toward frame t + 1's
+// phase (bytes may arrive before the receiver arms that phase with the
+// bytes it expects: the phase completes once both are in). The same holds
+// whatever the band's shape: an asymmetric band (lo >= 0), whose windows
+// do not reach back, is kept in step by the maxima. The outgoing slice is
+// double-buffered for the same reason: frame t + 2 rewrites it only after
+// every receiver has taken frame t's copy.
+//
+// The observation rows are staged kStages frames ahead with cp.async into a
+// per-thread ring. Each writer thread converts its own value of frame t + 1
+// in place once it has landed (ready(t + 1)), right after it sends frame
+// t and before it waits for frame t's maxima, so the conversion overlaps
+// the exchange.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -55,220 +93,300 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;           // CTAs per cluster (portable maximum)
-constexpr int kGroups = 4;            // lanes sharing one destination
-constexpr int kDestsPerWarp = 32 / kGroups;
-constexpr int kStages = 4;            // observation frames staged ahead
+constexpr int kR = 4;         // consecutive destinations per thread
+constexpr int kLanes = 8;     // lanes sharing them, each a run of offsets
+constexpr int kNacc = 2;      // accumulators per destination
+constexpr int kStages = 4;    // observation frames staged ahead
+constexpr int kCluster = 16;  // CTAs in the cluster (SPREAD_CLUSTER)
 
-struct Layout {
-  int per_cta;      // destinations per CTA
-  int warps;        // warps per CTA
-  int slots;        // destinations per group of 4 lanes
-  int band_stride;  // row stride of the resident band slice
+// The register tile: DMAX band offsets per lane (4 x DMAX registers), and
+// the most threads per CTA that leave each thread room for them
+template <int DMAX>
+struct Tile;
+template <>
+struct Tile<8> {
+  static constexpr int MAX_THREADS = 512;
+};
+template <>
+struct Tile<16> {
+  static constexpr int MAX_THREADS = 512;
+};
+template <>
+struct Tile<24> {
+  static constexpr int MAX_THREADS = 384;
+};
+template <>
+struct Tile<32> {
+  static constexpr int MAX_THREADS = 256;
 };
 
-__host__ __device__ inline Layout make_layout(int states) {
+// The tile for a run of offsets per lane; 0 when none holds it
+__host__ __device__ inline int tile_of(int run) {
+  return run <= 8 ? 8 : run <= 16 ? 16 : run <= 24 ? 24 : run <= 32 ? 32 : 0;
+}
+
+__host__ __device__ inline int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
+struct Layout {
+  int per_cta;  // P, destinations per CTA, a multiple of 4
+  int groups;   // P / 4 destination groups
+  int threads;  // per CTA, a warp multiple
+  int run;      // D, band offsets per lane
+  int dmax;     // the tile's offsets per lane
+  int a;        // the window's first slice, relative to the CTA's own
+  int slices;   // slices in the window at this lo
+  int offset;   // window index of destination 0's source at offset 0
+  int window;   // floats per window buffer, for any lo
+  int win_off, out_off, max_off, part_off, ring_off, floats;  // sections
+};
+
+// The layout ops/band.py::spread_layout mirrors, section by section: two
+// mbarriers (16 bytes), the two window buffers, the two outgoing slices,
+// the two tables of CTA maxima, the two tables of warp maxima, the ring
+__host__ __device__ inline Layout make_layout(int states, int width,
+                                             int lo) {
   Layout l;
-  l.per_cta = (states + kCluster - 1) / kCluster;
-  const int dest_warps = (l.per_cta + kDestsPerWarp - 1) / kDestsPerWarp;
-  l.warps = dest_warps < 32 ? dest_warps : 32;
-  l.slots = (l.per_cta + l.warps * kDestsPerWarp - 1) /
-            (l.warps * kDestsPerWarp);
-  // 8 (mod 32): the 4 lane groups of a warp read 4 band rows at once, and
-  // this stride puts their 32 words in 32 different banks
-  const int over = l.per_cta > 8 ? l.per_cta - 8 : 0;
-  l.band_stride = (over + 31) / 32 * 32 + 8;
+  const int slice = (states + kCluster - 1) / kCluster;
+  l.per_cta = (slice + kR - 1) / kR * kR;
+  l.groups = l.per_cta / kR;
+  l.threads = (l.groups * kLanes + 31) / 32 * 32;
+  l.run = (width + kLanes - 1) / kLanes;
+  l.dmax = tile_of(l.run);
+  l.a = floor_div(lo, l.per_cta);
+  l.slices = floor_div(l.per_cta + lo + width - 2, l.per_cta) - l.a + 1;
+  l.offset = lo - l.a * l.per_cta;
+  // The most slices a window spans at any lo, and slack for the reads of
+  // the tile's padding offsets (their band entries are -inf)
+  const int most = (2 * l.per_cta + width - 3) / l.per_cta + 1;
+  l.window = most * l.per_cta + kLanes * l.dmax;
+  l.win_off = 4;
+  l.out_off = l.win_off + 2 * l.window;
+  l.max_off = l.out_off + 2 * l.per_cta;
+  l.part_off = l.max_off + (2 * kCluster + 3) / 4 * 4;
+  l.ring_off = l.part_off + (2 * (l.threads / 32) + 3) / 4 * 4;
+  l.floats = l.ring_off + kStages * l.threads;
   return l;
 }
 
-// Floats of shared memory: the double-buffered posterior, the
-// double-buffered table of warp maxima, the observation ring, then the band
-// slice. torbi_tpu_torch/ops/band.py::spread_smem_bytes computes the same
-// size, so that dispatch sends a band that does not fit to K1
-__host__ __device__ inline size_t smem_floats(const Layout& l, int states,
-                                             int width) {
-  return 2 * static_cast<size_t>(states) + 2 * kCluster * l.warps +
-         static_cast<size_t>(kStages) * l.slots * l.warps * 32 +
-         static_cast<size_t>(width) * l.band_stride;
-}
-
-template <int CONV>
-__global__ void __launch_bounds__(1024) band_spread_kernel(
-    const float* __restrict__ obs, const int* __restrict__ batch_frames,
-    const float* __restrict__ initial, const float* __restrict__ band,
-    float* __restrict__ post_seq, int frames, int states, int lo, int width,
-    float floor_value, int has_floor) {
-  extern __shared__ float smem[];
+template <int DMAX, int CONV>
+__global__ void __launch_bounds__(Tile<DMAX>::MAX_THREADS, 1)
+    band_spread_kernel(const float* __restrict__ obs,
+                       const int* __restrict__ batch_frames,
+                       const float* __restrict__ initial,
+                       const float* __restrict__ band,
+                       float* __restrict__ post_seq, int frames, int states,
+                       int lo, int width, float floor_value, int has_floor) {
+  extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Layout l = make_layout(states);
+  const Layout l = make_layout(states, width, lo);
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane & (kGroups - 1);
-  const int dl = lane / kGroups;
-  const int nthreads = l.warps * 32;
-  const int table = kCluster * l.warps;  // warp maxima per buffer
-
-  float* post = smem;                  // [2][states]
-  float* red = post + 2 * states;      // [2][table]
-  float* ring = red + 2 * table;       // [kStages][slots][nthreads]
-  float* band_s = ring + kStages * l.slots * nthreads;  // [width][stride]
-
-  const int j0 = rank * l.per_cta;
-  const int count = max(0, min(l.per_cta, states - j0));
+  const int warps = l.threads >> 5;
+  const int g = tid & (kLanes - 1);
+  const int dg = tid / kLanes;
+  const int P = l.per_cta;
+  const int j0 = rank * P;
+  const int count = max(0, min(P, states - j0));
   const int t_end = min(max(batch_frames[0], 1), frames);
 
-  for (int e = tid; e < width * count; e += nthreads) {
-    const int d = e / count;
-    const int jl = e - d * count;
-    band_s[d * l.band_stride + jl] =
-        band[static_cast<size_t>(d) * states + j0 + jl];
-  }
-  // The 4 lanes of a destination write its value into CTAs g and g + 4;
-  // lanes 0-7 write the warp's maximum into CTA `lane`
-  float* post_a = cluster.map_shared_rank(post, g);
-  float* post_b = cluster.map_shared_rank(post, g + kGroups);
-  float* red_r = cluster.map_shared_rank(red, lane & (kCluster - 1));
+  const unsigned bars = torbi::smem_address(smem);  // [2] mbarriers
+  float* win = smem + l.win_off;     // [2][window]
+  float* out = smem + l.out_off;     // [2][P]
+  float* maxima = smem + l.max_off;  // [2][kCluster]
+  float* part = smem + l.part_off;   // [2][warps]
+  float* ring = smem + l.ring_off;   // [kStages][threads]
 
-  // Stage the observation of frame t, slot by slot, into ring stage t
-  auto stage = [&](int t) {
-    if (t < t_end) {
-      float* cell = ring + (t % kStages) * l.slots * nthreads + tid;
-      for (int s = 0; s < l.slots; ++s) {
-        const int jl = (s * l.warps + warp) * kDestsPerWarp + dl;
-        if (jl < count)
-          torbi::cp_async4(cell + s * nthreads,
-                           obs + static_cast<size_t>(t) * states + j0 + jl);
-      }
+  // Lane g < 4 of a group writes destination 4 dg + g
+  const int jl_out = dg * kR + g;
+  const bool writer = g < kR && dg < l.groups && jl_out < count;
+  const int j_out = j0 + jl_out;
+  // This CTA's slice goes to the CTAs r whose window holds it; it expects
+  // its window's slices inside [0, C) and C maxima per frame
+  const int r_first = max(0, rank - l.a - l.slices + 1);
+  const int r_last = min(kCluster - 1, rank - l.a);
+  const int q_first = max(0, rank + l.a);
+  const int q_last = min(kCluster - 1, rank + l.a + l.slices - 1);
+  const int expected = (max(0, q_last - q_first + 1) * P + kCluster) * 4;
+
+  for (int e = tid; e < 2 * l.window; e += blockDim.x)
+    win[e] = torbi::neg_inf();
+  for (int e = tid; e < 2 * P; e += blockDim.x) out[e] = torbi::neg_inf();
+  if (tid == 0) {
+    torbi::mbarrier_init(bars, 1);
+    torbi::mbarrier_init(bars + 8, 1);
+    torbi::mbarrier_init_fence();
+    torbi::mbarrier_expect(bars, expected);  // frame 0's phase
+  }
+  // The band tile: offsets [g D, g D + D) of destinations 4 dg .. 4 dg + 3
+  float band_r[DMAX][kR];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    const int d = g * l.run + k;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int jl = dg * kR + i;
+      band_r[k][i] = k < l.run && d < width && dg < l.groups && jl < count
+                         ? band[static_cast<size_t>(d) * states + j0 + jl]
+                         : torbi::neg_inf();
     }
+  }
+  // Window index of this lane's first source
+  const int first = dg < l.groups ? dg * kR + g * l.run + l.offset : 0;
+
+  // Stage the observation of frame t into ring stage t % kStages
+  auto stage = [&](int t) {
+    if (t < t_end && writer)
+      torbi::cp_async4(ring + (t % kStages) * l.threads + tid,
+                       obs + static_cast<size_t>(t) * states + j_out);
     torbi::cp_async_commit();
   };
   for (int t = 1; t <= kStages; ++t) stage(t);
-  // Frame t's staged values, once landed, converted in place (each thread
-  // reads only its own cells); run while the barrier before frame t
-  // completes, so the conversion waits in no frame's chain
+  // Frame t's staged value, once landed, converted in place
   auto ready = [&](int t) {
     torbi::cp_async_wait<kStages - 1>();
     if constexpr (CONV != 0) {
-      if (t < t_end) {
-        float* cell = ring + (t % kStages) * l.slots * nthreads + tid;
-        for (int s = 0; s < l.slots; ++s) {
-          const int jl = (s * l.warps + warp) * kDestsPerWarp + dl;
-          if (jl < count)
-            cell[s * nthreads] = torbi::convert_obs<CONV>(cell[s * nthreads]);
-        }
+      if (t < t_end && writer) {
+        float* cell = ring + (t % kStages) * l.threads + tid;
+        *cell = torbi::convert_obs<CONV>(*cell);
       }
     }
   };
 
-  // Every CTA of the cluster runs before any remote store
+  // Send buffer `buf` (this CTA's values of one frame, already in out[buf])
+  // to the windows that hold it, and its maximum to every CTA
+  auto send = [&](int buf, float value) {
+    const float m = torbi::warp_max(value);
+    if (lane == 0) part[buf * warps + warp] = m;
+    torbi::fence_async_shared();
+    __syncthreads();
+    if (warp == 0) {
+      float s = torbi::neg_inf();
+      for (int w = lane; w < warps; w += 32)
+        s = fmaxf(s, part[buf * warps + w]);
+      s = torbi::warp_max(s);
+      const unsigned bar = bars + 8 * buf;
+      if (lane < kCluster)
+        torbi::store_async(
+            torbi::remote_address(
+                torbi::smem_address(maxima + buf * kCluster + rank), lane),
+            s, torbi::remote_address(bar, lane));
+      const unsigned src = torbi::smem_address(out + buf * P);
+      for (int r = r_first + lane; r <= r_last; r += 32)
+        torbi::bulk_copy(
+            torbi::remote_address(
+                torbi::smem_address(win + buf * l.window +
+                                    (rank - r - l.a) * P),
+                r),
+            src, P * 4, torbi::remote_address(bar, r));
+    }
+  };
+
+  // Every barrier of the cluster is set up before any remote operation
   cluster.sync();
 
   // Frame 0: post = obs[0] + initial
-  float wmax = torbi::neg_inf();
-  for (int s = 0; s < l.slots; ++s) {
-    const int jl = (s * l.warps + warp) * kDestsPerWarp + dl;
-    if (jl < count) {
-      const int j = j0 + jl;
-      const float v = torbi::convert_obs<CONV>(obs[j]) + initial[j];
-      if (g == 0) post_seq[j] = v;
-      post_a[j] = v;
-      post_b[j] = v;
-      wmax = fmaxf(wmax, v);
-    }
+  float mine = torbi::neg_inf();
+  if (writer) {
+    mine = torbi::convert_obs<CONV>(obs[j_out]) + initial[j_out];
+    post_seq[j_out] = mine;
+    out[jl_out] = mine;
   }
-  wmax = torbi::warp_max(wmax);
-  if (lane < kCluster) red_r[rank * l.warps + warp] = wmax;
-  torbi::cluster_arrive();
+  send(0, mine);
   ready(1);
-  torbi::cluster_wait();
 
   for (int t = 1; t < t_end; ++t) {
     const int cur = (t - 1) & 1;
-    const float* pc = post + cur * states;
+    torbi::mbarrier_wait(bars + 8 * cur, ((t - 1) >> 1) & 1);
+    if (tid == 0) torbi::mbarrier_expect(bars + 8 * (t & 1), expected);
     float base = torbi::neg_inf();
     if (has_floor) {
-      float m = torbi::neg_inf();
-      for (int e = lane; e < table; e += 32) m = fmaxf(m, red[cur * table + e]);
+      const float m =
+          lane < kCluster ? maxima[cur * kCluster + lane] : torbi::neg_inf();
       base = torbi::warp_max(m) + floor_value;
     }
-    const float* cell = ring + (t % kStages) * l.slots * nthreads + tid;
-    const int nxt = (cur ^ 1) * states;
-    wmax = torbi::neg_inf();
-    for (int s = 0; s < l.slots; ++s) {
-      const int jl = (s * l.warps + warp) * kDestsPerWarp + dl;
-      const bool live = jl < count;
-      float acc = base;
-      if (live) {
-        const int j = j0 + jl;
-        const int d_begin = max(0, -lo - j);
-        const int d_end = min(width, states - lo - j);
-        const float* src = pc + j + lo;
-        // This lane takes the offsets d = g (mod 4)
-#pragma unroll 4
-        for (int d = d_begin + ((g - d_begin) & (kGroups - 1)); d < d_end;
-             d += kGroups) {
-          acc = fmaxf(acc, src[d] + band_s[d * l.band_stride + jl]);
-        }
-      }
-      acc = fmaxf(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
-      acc = fmaxf(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
-      if (live) {
-        const int j = j0 + jl;
-        const float v = cell[s * nthreads] + acc;
-        if (g == 0) post_seq[static_cast<size_t>(t) * states + j] = v;
-        post_a[nxt + j] = v;
-        post_b[nxt + j] = v;
-        wmax = fmaxf(wmax, v);
+    float acc[kNacc][kR];
+#pragma unroll
+    for (int n = 0; n < kNacc; ++n)
+#pragma unroll
+      for (int i = 0; i < kR; ++i) acc[n][i] = torbi::neg_inf();
+    // Source m of the run feeds offset k = m - i of destination i
+    const float* src = win + cur * l.window + first;
+#pragma unroll
+    for (int m = 0; m < DMAX + kR - 1; ++m) {
+      const float s = src[m];
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const int k = m - i;
+        if (k >= 0 && k < DMAX)
+          acc[k & 1][i] = fmaxf(acc[k & 1][i], s + band_r[k][i]);
       }
     }
-    wmax = torbi::warp_max(wmax);
-    if (lane < kCluster) red_r[(cur ^ 1) * table + rank * l.warps + warp] = wmax;
+    float pick = torbi::neg_inf();
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      float v = acc[0][i];
+#pragma unroll
+      for (int n = 1; n < kNacc; ++n) v = fmaxf(v, acc[n][i]);
+#pragma unroll
+      for (int off = 1; off < kLanes; off <<= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+      if (g == i) pick = v;
+    }
+    if (writer) {
+      mine = ring[(t % kStages) * l.threads + tid] + fmaxf(pick, base);
+      post_seq[static_cast<size_t>(t) * states + j_out] = mine;
+      out[(t & 1) * P + jl_out] = mine;
+    }
+    send(t & 1, writer ? mine : torbi::neg_inf());
     // The ring stage just read is refilled with frame t + kStages
     stage(t + kStages);
-    torbi::cluster_arrive();
     ready(t + 1);
-    torbi::cluster_wait();
   }
   torbi::cp_async_wait_all();
+  // Every copy into this CTA has landed, then no CTA leaves before the
+  // copies out of its memory have landed too
+  const int last = t_end - 1;
+  torbi::mbarrier_wait(bars + 8 * (last & 1), (last >> 1) & 1);
+  cluster.sync();
 
   // Frames past the valid length hold the last posterior
-  const float* last = post + ((t_end - 1) & 1) * states;
-  for (int t = t_end; t < frames; ++t)
-    for (int jl = tid; jl < count; jl += nthreads)
-      post_seq[static_cast<size_t>(t) * states + j0 + jl] = last[j0 + jl];
+  if (writer)
+    for (int t = t_end; t < frames; ++t)
+      post_seq[static_cast<size_t>(t) * states + j_out] = mine;
 }
 
-}  // namespace
-
-// obs, post_seq: (1, frames, states) float32; batch_frames: (1,) int32;
-// initial: (states,) float32; band: (width, states) float32 with
-// band[d, j] = transition[j, j + d + lo]. The observation is log-space
-// when log_input is set, else probabilities; apply_epsilon applies the
-// epsilon step. Launches one cluster of 8 CTAs, each with its band slice in
-// shared memory. Returns a cudaError_t code: cudaErrorInvalidValue when
-// that slice does not fit the card's opt-in shared memory per block.
-extern "C" int band_spread(const float* obs, const int* batch_frames,
-                           const float* initial, const float* band,
-                           float* post_seq, int frames, int states, int lo,
-                           int width, float floor_value, int has_floor,
-                           int log_input, int apply_epsilon, void* stream) {
-  if (frames <= 0 || states <= 0 || width < 0) return cudaErrorInvalidValue;
+template <int DMAX, int CONV>
+int launch(const float* obs, const int* batch_frames, const float* initial,
+           const float* band, float* post_seq, int frames, int states, int lo,
+           int width, float floor_value, int has_floor, cudaStream_t stream) {
   size_t optin = 0;
   const cudaError_t err = torbi::optin_smem(&optin);
   if (err != cudaSuccess) return err;
-  const Layout l = make_layout(states);
-  const size_t smem = smem_floats(l, states, width) * sizeof(float);
-  if (smem > optin) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TORBI_CONV_CASE(CONV)                                                \
-  case CONV:                                                                 \
-    return torbi::launch_cluster(                                            \
-        band_spread_kernel<CONV>, kCluster, dim3(kCluster),                  \
-        dim3(l.warps * 32), smem, s, obs, batch_frames, initial, band,       \
-        post_seq, frames, states, lo, width, floor_value, has_floor);
-  switch (torbi::conversion(log_input, apply_epsilon)) {
+  const Layout l = make_layout(states, width, lo);
+  const size_t smem = static_cast<size_t>(l.floats) * sizeof(float);
+  if (l.threads > Tile<DMAX>::MAX_THREADS || smem > optin)
+    return cudaErrorInvalidValue;
+  return torbi::launch_cluster(
+      band_spread_kernel<DMAX, CONV>, kCluster, dim3(kCluster),
+      dim3(l.threads), smem, stream, obs, batch_frames, initial, band,
+      post_seq, frames, states, lo, width, floor_value, has_floor);
+}
+
+template <int DMAX>
+int launch_conv(int conv, const float* obs, const int* batch_frames,
+                const float* initial, const float* band, float* post_seq,
+                int frames, int states, int lo, int width, float floor_value,
+                int has_floor, cudaStream_t stream) {
+#define TORBI_CONV_CASE(CONV)                                               \
+  case CONV:                                                                \
+    return launch<DMAX, CONV>(obs, batch_frames, initial, band, post_seq,   \
+                              frames, states, lo, width, floor_value,       \
+                              has_floor, stream);
+  switch (conv) {
     TORBI_CONV_CASE(0)
     TORBI_CONV_CASE(1)
     TORBI_CONV_CASE(2)
@@ -277,4 +395,46 @@ extern "C" int band_spread(const float* obs, const int* batch_frames,
       return cudaErrorInvalidValue;
   }
 #undef TORBI_CONV_CASE
+}
+
+int launch_tile(int conv, const float* obs, const int* batch_frames,
+                const float* initial, const float* band, float* post_seq,
+                int frames, int states, int lo, int width, float floor_value,
+                int has_floor, cudaStream_t stream) {
+#define TORBI_TILE_CASE(DMAX)                                               \
+  case DMAX:                                                                \
+    return launch_conv<DMAX>(conv, obs, batch_frames, initial, band,        \
+                             post_seq, frames, states, lo, width,           \
+                             floor_value, has_floor, stream);
+  switch (tile_of((width + kLanes - 1) / kLanes)) {
+    TORBI_TILE_CASE(8)
+    TORBI_TILE_CASE(16)
+    TORBI_TILE_CASE(24)
+    TORBI_TILE_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TORBI_TILE_CASE
+}
+
+}  // namespace
+
+// obs, post_seq: (1, frames, states) float32; batch_frames: (1,) int32;
+// initial: (states,) float32; band: (width, states) float32 with
+// band[d, j] = transition[j, j + d + lo]. The observation is log-space
+// when log_input is set, else probabilities; apply_epsilon applies the
+// epsilon step. Launches one cluster of 16 CTAs. Returns a cudaError_t
+// code: cudaErrorInvalidValue for a band wider than 256, or a layout that
+// exceeds the tile's threads or the card's opt-in shared memory
+// (ops/band.py::spread_layout says which).
+extern "C" int band_spread(const float* obs, const int* batch_frames,
+                           const float* initial, const float* band,
+                           float* post_seq, int frames, int states, int lo,
+                           int width, float floor_value, int has_floor,
+                           int log_input, int apply_epsilon, void* stream) {
+  if (frames <= 0 || states <= 0 || width < 1) return cudaErrorInvalidValue;
+  return launch_tile(torbi::conversion(log_input, apply_epsilon), obs,
+                     batch_frames, initial, band, post_seq, frames, states,
+                     lo, width, floor_value, has_floor,
+                     static_cast<cudaStream_t>(stream));
 }

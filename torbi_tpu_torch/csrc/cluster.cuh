@@ -1,6 +1,7 @@
 // Helpers of the kernels that stage rows with cp.async and run on thread
 // block clusters: K1's cluster design (csrc/band_forward.cu), K4
-// (csrc/band_spread.cu) and the chases (csrc/chase.cuh).
+// (csrc/band_spread.cu, with the mbarrier exchange below), the spread lab
+// (csrc/lab_spread.cu) and the chases (csrc/chase.cuh).
 #pragma once
 
 #include <cstddef>
@@ -41,6 +42,98 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The asynchronous exchange of K4 (csrc/band_spread.cu) and the spread
+// lab's probe (csrc/lab_spread.cu): each CTA waits on an mbarrier in its
+// own shared memory for the bytes it expects, and the senders' bulk copies
+// and async stores complete transactions on the receiver's barrier. No
+// cluster barrier runs per frame. Addresses are 32-bit shared-memory
+// addresses: shared::cta ones from smem_address, shared::cluster ones (in
+// another CTA of the cluster, or this one) from remote_address.
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of the same offset in CTA `rank`'s memory
+__device__ __forceinline__ unsigned remote_address(unsigned address,
+                                                   int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(address), "r"(rank));
+  return out;
+}
+
+// Initialise an mbarrier that completes a phase on `count` arrivals, then
+// make the initialisation visible to the cluster (before the cluster
+// barrier that precedes any remote operation)
+__device__ __forceinline__ void mbarrier_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive on the barrier and expect `bytes` more transaction bytes in its
+// current phase. Bytes may complete before this runs: the phase completes
+// once both the arrival and every expected byte are in
+__device__ __forceinline__ void mbarrier_expect(unsigned bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of the given parity has completed. A wait past
+// 2^35 clocks (about 17 s; a frame takes microseconds) traps, so that a
+// fault in an exchange ends the launch with an error instead of hanging it
+__device__ __forceinline__ void mbarrier_wait(unsigned bar, int parity) {
+  unsigned done = 0;
+  const long long start = clock64();
+  do {
+    if (clock64() - start > (1LL << 35)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Make this thread's shared-memory stores visible to bulk copies
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from this
+// CTA's shared memory to `dst` (shared::cluster), completing them on the
+// barrier `bar` (shared::cluster, in the destination's CTA)
+__device__ __forceinline__ void bulk_copy(unsigned dst, unsigned src,
+                                          int bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Store one float at `dst` (shared::cluster), completing its 4 bytes on the
+// barrier `bar` of the destination's CTA
+__device__ __forceinline__ void store_async(unsigned dst, float value,
+                                            unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
+      " [%0], %1, [%2];\n" ::"r"(dst),
+      "r"(__float_as_uint(value)), "r"(bar)
+      : "memory");
 }
 
 // Shared memory a block of this card may opt in to, in bytes

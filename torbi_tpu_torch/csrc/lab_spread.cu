@@ -31,6 +31,7 @@
 // of the next frame is loaded into registers while the frame computes.
 #include <cooperative_groups.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -48,9 +49,12 @@ struct Layout {
   int band_stride;  // row stride of the resident band slice
 };
 
-__host__ __device__ inline Layout make_layout(int states, int cluster) {
+// per_cta is a multiple of `multiple` (1; 4 for the probe's bulk copies)
+__host__ __device__ inline Layout make_layout(int states, int cluster,
+                                             int multiple = 1) {
   Layout l;
-  l.per_cta = (states + cluster - 1) / cluster;
+  l.per_cta = ((states + cluster - 1) / cluster + multiple - 1) / multiple *
+              multiple;
   const int dest_warps = (l.per_cta + kDestsPerWarp - 1) / kDestsPerWarp;
   l.warps = dest_warps < 32 ? dest_warps : 32;
   l.slots = (l.per_cta + l.warps * kDestsPerWarp - 1) /
@@ -222,6 +226,185 @@ int launch(const float* obs, const float* band, float* out, int frames,
   return cudaGetLastError();
 }
 
+// Whether CTA r's circular window [r P + lo, r P + lo + P + width - 1)
+// holds part of slice q, [q P, min(q P + P, states))
+__device__ inline bool window_holds(int r, int q, int per_cta, int states,
+                                    int lo, int width) {
+  const int q0 = q * per_cta;
+  const int q1 = min(q0 + per_cta, states);
+  if (q0 >= q1) return false;
+  const int a = r * per_cta + lo;
+  const int len = per_cta + width - 1;
+  if (len >= states) return true;
+  for (int m = -1; m <= 1; ++m)
+    if (q0 + m * states < a + len && a < q1 + m * states) return true;
+  return false;
+}
+
+// The window slot of slice q in CTA r: the slices it holds, in order
+__device__ inline int window_slot(int r, int q, int per_cta, int states,
+                                  int lo, int width) {
+  int slot = 0;
+  for (int p = 0; p < q; ++p)
+    slot += window_holds(r, p, per_cta, states, lo, width);
+  return slot;
+}
+
+// Floats of the probe's shared memory: two mbarriers, the two windows (at
+// most CLUSTER slices each), the two outgoing slices, the two tables of
+// CTA maxima, the two tables of warp maxima
+inline size_t async_floats(const Layout& l, int cluster) {
+  return 4 + 2 * static_cast<size_t>(cluster) * l.per_cta + 2 * l.per_cta +
+         (2 * cluster + 3) / 4 * 4 + (2 * l.warps + 3) / 4 * 4;
+}
+
+template <int CLUSTER>
+__global__ void __launch_bounds__(1024) lab_spread_async_kernel(
+    const float* __restrict__ obs, float* __restrict__ out, int frames,
+    int states, int width) {
+  extern __shared__ __align__(16) float async_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Layout l = make_layout(states, CLUSTER, 4);
+  const int P = l.per_cta;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int dl = lane / kGroups;
+  const int nthreads = l.warps * 32;
+  const int lo = -(width / 2);
+  const unsigned bars = torbi::smem_address(async_smem);
+  float* win = async_smem + 4;                           // [2][CLUSTER * P]
+  float* outgoing = win + 2 * CLUSTER * P;         // [2][P]
+  float* maxima = outgoing + 2 * P;                // [2][CLUSTER]
+  float* part = maxima + (2 * CLUSTER + 3) / 4 * 4;  // [2][warps]
+  const int j0 = rank * P;
+  const int count = max(0, min(P, states - j0));
+
+  // The bytes this CTA expects per frame: its window's slices and the
+  // CLUSTER maxima; its own slice's slot in its window
+  int held = 0;
+  for (int q = 0; q < CLUSTER; ++q)
+    held += window_holds(rank, q, P, states, lo, width);
+  const int expected = (held * P + CLUSTER) * 4;
+  const int own = window_slot(rank, rank, P, states, lo, width);
+  // Lane r of warp 0 sends to CTA r, when its window holds this slice
+  bool sends = false;
+  int slot = 0;
+  if (warp == 0 && lane < CLUSTER) {
+    sends = window_holds(lane, rank, P, states, lo, width);
+    slot = window_slot(lane, rank, P, states, lo, width);
+  }
+  if (tid == 0) {
+    torbi::mbarrier_init(bars, 1);
+    torbi::mbarrier_init(bars + 8, 1);
+    torbi::mbarrier_init_fence();
+    torbi::mbarrier_expect(bars, expected);
+  }
+  int jl[kMaxSlots];
+  bool live[kMaxSlots];
+#pragma unroll
+  for (int s = 0; s < kMaxSlots; ++s) {
+    jl[s] = (s * l.warps + warp) * kDestsPerWarp + dl;
+    live[s] = s < l.slots && jl[s] < count && (lane & (kGroups - 1)) == 0;
+  }
+  float nobs[kMaxSlots];
+#pragma unroll
+  for (int s = 0; s < kMaxSlots; ++s)
+    nobs[s] = live[s] && frames > 1 ? __ldg(obs + states + j0 + jl[s]) : 0.f;
+
+  auto send = [&](int buf, float value) {
+    const float m = torbi::warp_max(value);
+    if (lane == 0) part[buf * l.warps + warp] = m;
+    torbi::fence_async_shared();
+    __syncthreads();
+    if (warp == 0) {
+      float v = torbi::neg_inf();
+      for (int w = lane; w < l.warps; w += 32)
+        v = fmaxf(v, part[buf * l.warps + w]);
+      v = torbi::warp_max(v);
+      if (lane < CLUSTER) {
+        const unsigned bar = torbi::remote_address(bars + 8 * buf, lane);
+        torbi::store_async(
+            torbi::remote_address(
+                torbi::smem_address(maxima + buf * CLUSTER + rank), lane),
+            v, bar);
+        if (sends)
+          torbi::bulk_copy(
+              torbi::remote_address(
+                  torbi::smem_address(win + buf * CLUSTER * P + slot * P),
+                  lane),
+              torbi::smem_address(outgoing + buf * P), P * 4, bar);
+      }
+    }
+  };
+
+  for (int e = tid; e < 2 * P; e += nthreads) outgoing[e] = torbi::neg_inf();
+  cluster.sync();
+  float wmax = torbi::neg_inf();
+#pragma unroll
+  for (int s = 0; s < kMaxSlots; ++s)
+    if (live[s]) {
+      const float v = obs[j0 + jl[s]];
+      outgoing[jl[s]] = v;
+      wmax = fmaxf(wmax, v);
+    }
+  send(0, wmax);
+
+  for (int t = 1; t < frames; ++t) {
+    const int cur = (t - 1) & 1;
+    torbi::mbarrier_wait(bars + 8 * cur, ((t - 1) >> 1) & 1);
+    if (tid == 0) torbi::mbarrier_expect(bars + 8 * (t & 1), expected);
+    const float* pc = win + cur * CLUSTER * P + own * P;
+    wmax = torbi::neg_inf();
+#pragma unroll
+    for (int s = 0; s < kMaxSlots; ++s) {
+      const float o = nobs[s];
+      nobs[s] = live[s] && t + 1 < frames
+                    ? __ldg(obs + static_cast<size_t>(t + 1) * states + j0 +
+                            jl[s])
+                    : 0.f;
+      if (live[s]) {
+        const float v = o + pc[jl[s]];
+        outgoing[(t & 1) * P + jl[s]] = v;
+        wmax = fmaxf(wmax, v);
+      }
+    }
+    send(t & 1, wmax);
+  }
+  const int last = frames - 1;
+  torbi::mbarrier_wait(bars + 8 * (last & 1), (last >> 1) & 1);
+  cluster.sync();
+  for (int e = tid; e < count; e += nthreads)
+    out[j0 + e] = outgoing[(last & 1) * P + e];
+}
+
+template <int CLUSTER>
+int launch_async(const float* obs, float* out, int frames, int states,
+                 int width, cudaStream_t stream) {
+  auto kernel = lab_spread_async_kernel<CLUSTER>;
+  const Layout l = make_layout(states, CLUSTER, 4);
+  if (l.slots > kMaxSlots) return cudaErrorInvalidValue;
+  const size_t smem = async_floats(l, CLUSTER) * sizeof(float);
+  size_t optin = 0;
+  cudaError_t err = torbi::optin_smem(&optin);
+  if (err != cudaSuccess) return err;
+  if (smem > optin) return cudaErrorInvalidValue;
+  if (CLUSTER > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  int clusters = 0;
+  err = torbi::max_active_clusters(kernel, CLUSTER, dim3(l.warps * 32), smem,
+                                   &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  return torbi::launch_cluster(kernel, CLUSTER, dim3(CLUSTER),
+                               dim3(l.warps * 32), smem, stream, obs, out,
+                               frames, states, width);
+}
+
 }  // namespace
 
 // obs: (frames, states) float32, one sequence; band: (>= width, states)
@@ -243,5 +426,22 @@ extern "C" int lab_spread(const float* obs, const float* band, float* out,
     return sync_only
                ? launch<16, true>(obs, band, out, frames, states, width, s)
                : launch<16, false>(obs, band, out, frames, states, width, s);
+  return cudaErrorInvalidValue;
+}
+
+// The exchange probe spread_async: spread_sync's function (obs: (frames,
+// states) float32, one sequence; out: (states,) float32) with K4's
+// mbarrier exchange over a cluster of 8 or 16 CTAs. Needs 1 <= width <=
+// states. Returns a cudaError_t code: cudaErrorInvalidConfiguration when
+// the card cannot place the cluster.
+extern "C" int lab_spread_async(const float* obs, float* out, int frames,
+                                int states, int width, int cluster,
+                                void* stream) {
+  if (frames <= 0 || states <= 0 || width < 1 || width > states)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster == 8) return launch_async<8>(obs, out, frames, states, width, s);
+  if (cluster == 16)
+    return launch_async<16>(obs, out, frames, states, width, s);
   return cudaErrorInvalidValue;
 }

@@ -27,7 +27,9 @@ slice resident in shared memory across a cluster of 8 CTAs, each CTA a
 window of the posterior; ``cluster_layout`` mirrors its layout and
 ``cluster_plan`` its launches) wherever its layout fits, else the per-CTA
 design ``viterbi_forward_band_cta``. One sequence on its own (batch 1)
-takes the K4 kernel, ``viterbi_forward_band_spread``, with the same
+takes the K4 kernel, ``viterbi_forward_band_spread`` (its band in
+registers across a cluster of 16 CTAs that exchange slices of the posterior
+through mbarriers; ``spread_layout`` mirrors its layout), with the same
 values.
 
 Exactness preconditions (``gate_band`` enforces them; dispatch falls back to
@@ -45,9 +47,23 @@ from ..utils.cache import identity_cached as _identity_cached
 
 NEG_INF = float('-inf')
 
-# The shared memory a Hopper block may opt in to (227 KB). K4 refuses a
-# band whose layout (spread_smem_bytes) exceeds the card's; dispatch sends
-# such a single sequence to K1
+# K4 (csrc/band_spread.cu, spread_layout): one cluster of SPREAD_CLUSTER =
+# 16 CTAs, a non-portable size the H100 places. The spread lab's exchange
+# probe costs less per frame at 16 than at 8, the portable size (NVIDIA H100
+# 80GB HBM3, 700 W: 0.732 and 0.944 us/frame; K4 itself 1.121 and 1.388),
+# and 16 holds every band 8 would (256 offsets wide against 192 at 1440
+# states). 8 lanes share 4 destinations, each lane a run of band offsets
+# held in a register tile of 8, 16, 24 or 32 offsets, for which
+# SPREAD_TILES gives the most threads per CTA: at each,
+# 4 x tile band registers plus SPREAD_REGISTER_OVERHEAD others fit the 65,536
+# registers of an SM. K4 refuses a band its layout does not fit (wider than
+# 8 x 32 = 256, too many threads, or shared memory past the card's 227 KB
+# opt-in, SPREAD_SMEM_BYTES); dispatch sends such a single sequence to K1
+SPREAD_CLUSTER = 16
+SPREAD_LANES = 8
+SPREAD_TILES = {8: 512, 16: 512, 24: 384, 32: 256}
+SPREAD_REGISTER_OVERHEAD = 48
+SPREAD_STAGES = 4
 SPREAD_SMEM_BYTES = 227 * 1024
 
 # K1's cluster design (csrc/band_forward.cu, Tile and cluster_layout):
@@ -455,23 +471,69 @@ def viterbi_forward_band_cta(observation, batch_frames, initial, band,
 viterbi_forward_band_cta.launches = 0
 
 
+def spread_layout(states, width, lo=0):
+    """The layout of K4 (csrc/band_spread.cu, make_layout) over its cluster
+    of SPREAD_CLUSTER CTAs: CTA r owns ``per_cta`` destinations (a multiple
+    of 4); a thread owns 4 of them and a ``run`` of ceil(width / 8) band
+    offsets, held in a register tile of ``dmax``
+    offsets (the least of SPREAD_TILES that holds the run, None when none
+    does); each CTA keeps two windows of ``slices`` whole slices from slice
+    r + ``a`` on (``window`` floats each, enough for any lo), two outgoing
+    slices, two tables of CTA maxima, two of warp maxima and a ring of
+    SPREAD_STAGES observation rows.
+
+    Returns a dict: per_cta, groups, threads, run, dmax, a, slices,
+    offset (the window index of destination 0's source at offset 0),
+    window, smem_bytes, and fits (a tile holds the run, the threads are
+    within its limit, the shared memory within SPREAD_SMEM_BYTES)."""
+    cluster = SPREAD_CLUSTER
+    per_cta = -(-(-(-states // cluster)) // 4) * 4
+    groups = per_cta // 4
+    threads = -(-(groups * SPREAD_LANES) // 32) * 32
+    run = -(-width // SPREAD_LANES)
+    dmax = min((tile for tile in SPREAD_TILES if tile >= run), default=None)
+    a = lo // per_cta
+    slices = (per_cta + lo + width - 2) // per_cta - a + 1
+    most = (2 * per_cta + width - 3) // per_cta + 1
+    window = most * per_cta + SPREAD_LANES * (dmax or 0)
+    floats = (4 + 2 * window + 2 * per_cta + -(-(2 * cluster) // 4) * 4
+              + -(-(2 * (threads // 32)) // 4) * 4 + SPREAD_STAGES * threads)
+    fits = (width >= 1 and dmax is not None
+            and threads <= SPREAD_TILES[dmax]
+            and 4 * floats <= SPREAD_SMEM_BYTES)
+    return {
+        'per_cta': per_cta, 'groups': groups, 'threads': threads, 'run': run,
+        'dmax': dmax, 'a': a, 'slices': slices, 'offset': lo - a * per_cta,
+        'window': window, 'smem_bytes': 4 * floats, 'fits': fits}
+
+
+def spread_exchange(states, width, lo):
+    """K4's exchange at this shape: ``receivers[q]``, the (rank, window
+    slot) of every CTA whose window holds slice q, and ``expected[r]``, the
+    bytes CTA r waits for per frame (its window's slices inside the cluster
+    and one maximum from each CTA). Returns (receivers, expected)"""
+    cluster = SPREAD_CLUSTER
+    layout = spread_layout(states, width, lo)
+    p, a, slices = layout['per_cta'], layout['a'], layout['slices']
+    receivers = [
+        [(r, q - r - a) for r in range(max(0, q - a - slices + 1),
+                                       min(cluster - 1, q - a) + 1)]
+        for q in range(cluster)]
+    expected = [
+        (len(range(max(0, r + a), min(cluster - 1, r + a + slices - 1) + 1))
+         * p + cluster) * 4
+        for r in range(cluster)]
+    return receivers, expected
+
+
 def spread_smem_bytes(states, width):
-    """Shared memory per CTA of K4 (csrc/band_spread.cu, make_layout and
-    smem_floats): a cluster of 8 CTAs, 8 destinations per warp, each CTA
-    holding two copies of the posterior, two tables of warp maxima, a ring
-    of 4 staged observation rows and its (width, stride) band slice"""
-    per_cta = -(-states // 8)
-    warps = min(32, -(-per_cta // 8))
-    slots = -(-per_cta // (warps * 8))
-    stride = -(-max(per_cta - 8, 0) // 32) * 32 + 8
-    floats = (2 * states + 2 * 8 * warps + 4 * slots * warps * 32
-              + width * stride)
-    return 4 * floats
+    """Shared memory per CTA of K4 at this shape (``spread_layout``)"""
+    return spread_layout(states, width)['smem_bytes']
 
 
 def spread_fits(states, width):
     """Whether K4 takes a band of this width at this many states"""
-    return spread_smem_bytes(states, width) <= SPREAD_SMEM_BYTES
+    return spread_layout(states, width)['fits']
 
 
 def band_spread_reference(observation, batch_frames, initial, band,
@@ -491,10 +553,10 @@ def viterbi_forward_band_spread(observation, batch_frames, initial, band,
                                 band_matrix, log_input=True,
                                 apply_epsilon=False):
     """Batch-1 banded forward pass: the K4 kernel (csrc/band_spread.cu),
-    which spreads one sequence over a cluster of CTAs, on CUDA tensors; its
-    plain version on CPU tensors. Arguments and results as in
-    ``band_forward_reference`` with batch 1. On the card it raises when
-    the band does not fit (``spread_fits``)."""
+    which spreads one sequence over a cluster of SPREAD_CLUSTER CTAs, on
+    CUDA tensors; its plain version on CPU tensors.
+    Arguments and results as in ``band_forward_reference`` with batch 1.
+    On the card it raises when the band does not fit (``spread_layout``)."""
     lo, width, floor = band
     if width == 0 and floor is None:
         raise ValueError(

@@ -20,9 +20,10 @@ JAX package:
    more frames decodes as entropy-chunk rows through K1 and K3
    (ops/autochunk.py) when ``BATCH1_AUTO_CHUNK`` is set and a plan pays;
 2. otherwise the forward pass is K4 (``BAND_BATCH1_SPREAD``, when its
-   band slice fits shared memory, ``band.spread_fits``) or K1;
+   layout holds the band, ``band.spread_fits``) or K1;
 3. then the chase: K5 (``BACKTRACE_BATCH1_FUSED``, up to
-   ``backtrace.FUSED1_MAX_STATES`` states), else K6
+   ``backtrace.FUSED1_MAX_STATES`` states; its backpointers come from the
+   gated band and the band matrix K4 reads), else K6
    (``BACKTRACE_BATCH1_WINDOW``, only for a band with no floor whose
    window fits, as the JAX gate measures it), else K3.
 
@@ -149,6 +150,7 @@ def kernel_route(transition, band, batch):
 
         forward = ('dense_forward', dense_forward)
     else:
+        # K4 and K5 read the same band matrix
         matrix = _band_matrix(transition, band)
         spread = (batch == 1 and band[1] > 0
                   and torbi_tpu_torch.BAND_BATCH1_SPREAD
@@ -164,7 +166,7 @@ def kernel_route(transition, band, batch):
              if batch == 1 and band is not None else None)
     if chase == 'fused':
         return forward, ('backtrace_fused1', lambda post, posterior, bf: (
-            backtrace_fused1(post, transition, posterior, bf)))
+            backtrace_fused1(post, transition, posterior, bf, band, matrix)))
     if chase == 'window':
         return forward, ('backtrace_window', lambda post, posterior, bf: (
             backtrace_window(post, transition, posterior, bf, band)))

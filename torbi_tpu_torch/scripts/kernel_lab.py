@@ -32,6 +32,8 @@ with, in natural state order, the candidate of each variant:
                                         over a cluster of CTAs, K4's design)
     spread_sync                         max, on sequence 0, in spread's
                                         layout (the barrier skeleton)
+    spread_async                        max, on sequence 0, with K4's
+                                        mbarrier exchange (the probe)
 
 The aliases compute the same function with another body: ``rowadd`` reads
 the band from shared memory, ``pipeG`` issues G source loads ahead (any G
@@ -55,7 +57,8 @@ destination (1, 2, 4, 8; default 4), and batch_tile sequences per CTA (1,
 2, 4, 8; default 4, K1's at the headline). For the tiled variants
 (tilted, ushare, ushare2, introt, subroll) the second field is R, the
 destinations per thread (2, 4, 8; default 4). For spread and spread_sync it
-is the cluster size (8, or 16 where the card allows it; default 8). For
+(and spread_async) is the cluster size (8, or 16 where the card allows
+it; default 8). For
 hybrid it is K, the residue classes on the tensor cores (default 4, the
 JAX lab's n_acc default); mxushift and hybrid hold 16 sequences per CTA,
 the mma's rows (batch_tile 16 only).
@@ -110,8 +113,9 @@ FUNCTIONS = {
         'loopk', 'rowadd', 'tilted', 'ushare', 'ushare2', 'spread')
     + PIPES + MXU}
 FUNCTIONS['spread_sync'] = 'max'
+FUNCTIONS['spread_async'] = 'max'
 TILED = ('tilted', 'ushare', 'ushare2', 'introt', 'subroll')
-SPREAD = ('spread', 'spread_sync')
+SPREAD = ('spread', 'spread_sync', 'spread_async')
 N_ACCS = (1, 2, 4, 8)
 TILES = (2, 4, 8)
 BATCH_TILES = (1, 2, 4, 8)
@@ -343,13 +347,22 @@ def spread_reference(observation, band, width, sync_only=False):
 
 
 def lab_spread(observation, band, width, cluster=DEFAULT_CLUSTER,
-               sync_only=False):
+               sync_only=False, exchange='barrier'):
     """The spread lab: its kernel (csrc/lab_spread.cu, one cluster of
     ``cluster`` CTAs) on CUDA tensors, ``spread_reference`` on CPU tensors.
-    observation: (frames, states) float32, one sequence. Raises when the
-    card refuses the cluster. Returns the (states,) final posterior."""
+    observation: (frames, states) float32, one sequence. ``exchange`` is
+    'barrier' (remote stores and a cluster barrier per frame) or 'async'
+    (K4's mbarrier exchange, the probe ``spread_async``: ``sync_only``'s
+    function only). Raises when the card refuses the cluster. Returns the
+    (states,) final posterior."""
     if cluster not in CLUSTERS:
         raise ValueError(f'cluster must be one of {CLUSTERS}')
+    if exchange not in ('barrier', 'async'):
+        raise ValueError(
+            f"exchange must be 'barrier' or 'async', got {exchange!r}")
+    if exchange == 'async' and not sync_only:
+        raise ValueError('the async exchange probe computes sync_only\'s '
+                         'function only')
     if observation.device.type == 'cpu':
         return spread_reference(observation, band, width, sync_only)
     frames, states = observation.shape
@@ -358,11 +371,17 @@ def lab_spread(observation, band, width, cluster=DEFAULT_CLUSTER,
                       device=observation.device)
     lib = _library('lab_spread')
     with torch.cuda.device(observation.device):
-        code = lib.lab_spread(
-            build.pointer(observation), build.pointer(band),
-            build.pointer(out), frames, states, width, cluster,
-            int(sync_only), build.stream(observation.device))
-    probe = ', sync only' if sync_only else ''
+        if exchange == 'async':
+            code = lib.lab_spread_async(
+                build.pointer(observation), build.pointer(out), frames,
+                states, width, cluster, build.stream(observation.device))
+        else:
+            code = lib.lab_spread(
+                build.pointer(observation), build.pointer(band),
+                build.pointer(out), frames, states, width, cluster,
+                int(sync_only), build.stream(observation.device))
+    probe = {'async': ', async exchange', 'barrier': ''}[exchange]
+    probe += ', sync only' if sync_only else ''
     build.raise_on_error(lib, f'lab_spread (cluster {cluster}{probe})', code)
     lab_spread.launches += 1
     return out
@@ -693,6 +712,10 @@ def _library(name):
         lib.lab_pipe_group.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.lab_pipe_group.restype = ctypes.c_int
+    if name == 'lab_spread':
+        lib.lab_spread_async.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.lab_spread_async.restype = ctypes.c_int
     return lib
 
 
@@ -754,8 +777,9 @@ def run_spec(spec, observation, band, width, iters):
         batch = 1
 
         def call():
-            last['output'] = lab_spread(sequence, band, width, param,
-                                        name == 'spread_sync')
+            last['output'] = lab_spread(
+                sequence, band, width, param, name != 'spread',
+                'async' if name == 'spread_async' else 'barrier')
             return last['output']
 
         fetch = lambda result: result[0]  # noqa: E731

@@ -28,7 +28,13 @@ The cases:
   entries and whole frames of them (the epsilon step's subnormal ``exp``);
 - ``dense``: a random dense transition (K2, K3);
 - ``autochunk-pitch``: one pitch sequence of 4096 frames, which both
-  packages decode as entropy-chunk rows at their default settings.
+  packages decode as entropy-chunk rows at their default settings;
+- ``serial-pitch``, ``serial-ties``: single sequences under 4096 frames,
+  which both packages decode on their serial batch-1 route (the spread
+  forward, then the fused chase: K4 and K5 here): one pitch sequence of
+  1000 frames in log space whose valid length stops at 870, and a
+  40-state band over the floor whose observation and band hold small
+  integers, so that candidates tie, with a valid length of 19 of 24.
 
 Every case decodes through ``from_probabilities`` with its ``log_probs``.
 """
@@ -106,6 +112,29 @@ def _autochunk_pitch(seed):
     return obs, np.array([4096], np.int32), trans, None
 
 
+def _serial_pitch(seed):
+    obs = pitch.synthetic_posteriorgrams(1, 1000, pitch.PITCH_BINS, seed=seed)
+    trans = np.log(pitch.transition_matrix() + TINY).astype(np.float32)
+    return obs, np.array([870], np.int32), trans, None
+
+
+def _serial_ties(seed):
+    rng = np.random.default_rng(seed)
+    frames, states, lo, width = 24, 40, -4, 9
+    obs = rng.integers(-3, 1, size=(1, frames, states)).astype(np.float32)
+    trans = np.full((states, states), np.log(np.float32(TINY)), np.float32)
+    rows = np.arange(states)
+    for d in range(width):
+        cols = rows + lo + d
+        keep = (cols >= 0) & (cols < states)
+        trans[rows[keep], cols[keep]] = rng.integers(
+            -2, 1, size=int(keep.sum()))
+    return obs, np.array([19], np.int32), trans, None
+
+
+# The cases decoded on the serial batch-1 route
+SERIAL = ('serial-pitch', 'serial-ties')
+
 CASES = tuple(
     Case(f'edge-{edge.name}', True, 0, _edge(edge))
     for edge in edges.BAND_EDGES) + (
@@ -114,6 +143,8 @@ CASES = tuple(
     Case('tiny-entries', True, 13, _tiny_entries),
     Case('dense', True, 14, _dense),
     Case('autochunk-pitch', True, 15, _autochunk_pitch),
+    Case('serial-pitch', True, 16, _serial_pitch),
+    Case('serial-ties', True, 17, _serial_ties),
 )
 
 
