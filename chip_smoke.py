@@ -25,8 +25,19 @@ just after each:
   the edge list, and timed against the epsilon step plus the kernel; the
   headline also runs with ``log_probs=False``, and its traced call must
   hold no elementwise exp or log;
-- the dense path: a random dense 1440-state transition at 8 x 64, and the
-  README toy -- the dense forward kernel (K2), then K3;
+- the dense path: the README toy, a random dense 1440-state transition at
+  8 x 64 (two short sequences) and a random dense 1280-state transition at
+  512 x 512 (seed 0, two short sequences) -- the dense forward kernel (K2:
+  one persistent CTA per SM, its transition slice in shared memory or
+  streamed, the group barriers), then K3. K2 is held bitwise against its
+  plain version at those shapes (at 512 x 512 all sequences, the plain
+  version in sub-batches of 64) and at the edges of its launch plan (1, 3
+  and 130 sequences at 96 and 2048 states, 3 x 97; each also on the
+  cheapest plan of either slice mode), timed beside its bounds
+  (operations: the FP32 instructions per candidate of its SASS loop;
+  shared memory), and its plan printed; the path at 512 x 512 x 1280 equals the
+  plain scan route on the card, is timed by the host clock and traced
+  once (idle share, top device ops);
 - the batch-1 kernels: K4 (its band tile in registers, the mbarrier
   exchange, one cluster of 16 CTAs) at 1 x 10,240 and 1 x 2048, in the
   three conversions, on every sequence of every band edge and at its
@@ -41,7 +52,12 @@ just after each:
   then the fused chase K5), a 2048-frame sequence (K4, K5), the window
   chase (K6) on a pure -inf band, a band too wide for K4's register tile
   (K1's cluster design, K5), a band too wide for any cluster layout (K1's
-  per-CTA design, K5), and the uniform transition's closed form. The
+  per-CTA design, K5), and the uniform transition's closed form. K6 is
+  K5's two phases without the floor pass: its phase-1 table and its path
+  are held against their plain versions and its path against K5 at
+  1 x 10,240, 1 x 2048 and on every sequence of the pure-band edges; the
+  window route must launch both of its phases and never K5's phase 1
+  (the floor pass). The
   auto-chunk route is timed on a new observation every call (its plan
   computed each time), from a host array, and with its plan cached;
 - the labs (``python -m torbi_tpu_torch.scripts.kernel_lab`` and
@@ -94,6 +110,13 @@ ROOT = Path(__file__).resolve().parent
 TINY = np.finfo(np.float32).tiny
 BATCH, FRAMES, STATES = 512, 512, 1440
 DENSE_BATCH, DENSE_FRAMES = 8, 64
+# K2's throughput shape (README's dense shape), the edges of its launch
+# plan (batch, states) at a few ragged frames, and the sub-batch of its
+# plain version there
+DENSE_BIG_BATCH, DENSE_BIG_FRAMES, DENSE_BIG_STATES = 512, 512, 1280
+DENSE_EDGES = ((1, 96), (3, 96), (130, 96), (1, 2048), (3, 2048),
+               (130, 2048), (3, 97))
+DENSE_EDGE_FRAMES, DENSE_SUB = 24, 64
 # The batch-1 shape of bench.py: one sequence of 10,240 frames, and a short
 # one below the auto-chunk threshold
 SINGLE_FRAMES, SHORT_FRAMES = 10240, 2048
@@ -289,48 +312,90 @@ def hold_folded(torch, dispatch, label, fn, raw, rest):
     return err
 
 
-def sass_opcodes(build, library):
-    """{function: [opcode, ...]} of a built library's SASS (cuobjdump
-    -sass), NOPs left out"""
+def sass_listing(build, library):
+    """{function: [(address, opcode), ...]} of a built library's SASS
+    (cuobjdump -sass), NOPs left out"""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     out = subprocess.run([tool, '-sass', str(build.target(library))],
                          capture_output=True, text=True, timeout=300)
     if out.returncode:
         fail(f'cuobjdump -sass failed on {library}: {out.stderr.strip()}')
-    opcodes = {}
+    listing = {}
     function = None
     for line in out.stdout.splitlines():
         match = re.match(r'\s*Function : (\S+)', line)
         if match:
             function = match.group(1)
-            opcodes[function] = []
+            listing[function] = []
             continue
-        match = re.match(r'\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;', line)
+        match = re.match(r'\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;', line)
         if function and match:
-            op = match.group(1).split()
-            op = op[1] if op[0].startswith('@') else op[0]
+            words = match.group(2).split()
+            op = words[1] if words[0].startswith('@') else words[0]
             if not op.startswith('NOP'):
-                opcodes[function].append(op)
-    return opcodes
+                listing[function].append(
+                    (int(match.group(1), 16), match.group(2)))
+    return listing
 
 
-def sass_pointer_instructions(build):
+def sass_opcodes(build, library):
+    """{function: [opcode, ...]} of a built library's SASS, NOPs left out"""
+    return {function: [
+        text.split()[1] if text.startswith('@') else text.split()[0]
+        for _, text in body]
+        for function, body in sass_listing(build, library).items()}
+
+
+# The SASS kinds an operations bound counts: FP32 adds, compares, minima
+# and maxima, and selects
+FP32_KINDS = ('FADD', 'FSETP', 'FSEL', 'SEL', 'FMNMX')
+
+
+def sass_pointer_instructions(build, pattern='pointers_kernelILb1E'):
     """FP32 and select instructions per candidate of K5's phase 1
-    (pointers_kernel), from its SASS: the adds, compares and selects from
-    the kernel's first FADD to its last (the candidate loop: each candidate
-    is one FADD; the combine with the floor candidate after the loop is
-    left out), over its FADDs"""
+    (pointers_kernel with its floor term; without it, K6's), from its
+    SASS: the adds, compares and selects from the kernel's first FADD to
+    its last (the candidate loop: each candidate is one FADD; the combine
+    with the floor candidate after the loop is left out), over its FADDs"""
     found = [ops for function, ops in sass_opcodes(
-        build, 'backtrace_batch1').items() if 'pointers_kernel' in function]
+        build, 'backtrace_batch1').items() if pattern in function]
     if len(found) != 1:
-        fail(f'cuobjdump: {len(found)} functions match pointers_kernel')
+        fail(f'cuobjdump: {len(found)} functions match {pattern}')
     kinds = [op.split('.')[0] for op in found[0]]
     adds = [n for n, kind in enumerate(kinds) if kind == 'FADD']
     if not adds:
-        fail('cuobjdump: pointers_kernel holds no FADD')
+        fail(f'cuobjdump: {pattern} holds no FADD')
     loop = kinds[adds[0]:adds[-1] + 1]
-    return sum(kind in ('FADD', 'FSETP', 'FSEL', 'SEL', 'FMNMX')
-               for kind in loop) / len(adds)
+    return sum(kind in FP32_KINDS for kind in loop) / len(adds)
+
+
+def sass_loop_instructions(build, library, pattern):
+    """Instructions per candidate in the candidate loop of a kernel whose
+    every candidate is one FADD, from its SASS: of the bodies of its
+    backward branches, the one densest in FADDs (the innermost candidate
+    loop). Returns (every instruction of it, loads, address arithmetic
+    and the branch included, over its FADDs; its FP32 and select
+    instructions over its FADDs, as sass_pointer_instructions counts)"""
+    found = [body for function, body in sass_listing(build, library).items()
+             if pattern in function]
+    if len(found) != 1:
+        fail(f'cuobjdump: {len(found)} functions match {pattern}')
+    best = None
+    for address, text in found[0]:
+        target = re.search(r'\bBRA\b.*?(0x[0-9a-f]+)', text)
+        if not target or int(target.group(1), 16) >= address:
+            continue
+        body = [op.split()[1] if op.startswith('@') else op.split()[0]
+                for at, op in found[0]
+                if int(target.group(1), 16) <= at <= address]
+        kinds = [op.split('.')[0] for op in body]
+        adds = kinds.count('FADD')
+        if adds and (best is None or adds / len(body) > best[2] / best[0]):
+            best = (len(body), sum(kind in FP32_KINDS for kind in kinds),
+                    adds)
+    if best is None:
+        fail(f'cuobjdump: no loop with an FADD in {pattern}')
+    return best[0] / best[2], best[1] / best[2]
 
 
 def sass_conversion_counts(build):
@@ -365,6 +430,52 @@ def sass_conversion_counts(build):
                 (with_conv[0] - base[0]) / places,
                 (with_conv[1] - base[1]) / places)
     return result
+
+
+def dense_big_inputs(torch, device):
+    """K2's throughput shape, made on the card from seed 0: log-uniform
+    observations, a row-normalised random transition in log space, a
+    uniform initial distribution; the last two sequences stop early"""
+    generator = torch.Generator(device).manual_seed(0)
+    trans = torch.rand((DENSE_BIG_STATES, DENSE_BIG_STATES),
+                       generator=generator, device=device)
+    trans = torch.log(trans / trans.sum(dim=1, keepdim=True) + TINY)
+    obs = torch.log(torch.rand(
+        (DENSE_BIG_BATCH, DENSE_BIG_FRAMES, DENSE_BIG_STATES),
+        generator=generator, device=device) + TINY)
+    initial = torch.full((DENSE_BIG_STATES,), -float(np.log(
+        DENSE_BIG_STATES)), device=device)
+    lengths = torch.tensor(
+        [DENSE_BIG_FRAMES] * (DENSE_BIG_BATCH - 2)
+        + [DENSE_BIG_FRAMES // 2, 7], dtype=torch.int32, device=device)
+    return obs, lengths, trans, initial
+
+
+def trace_dense(trace_dir):
+    """Child process of the dense phase: one call of the dense path at the
+    throughput shape under the profiler (a process traces the card once),
+    after a warm-up call; writes its idle share and top device ops to
+    trace_dir/summary.json"""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import torbi_tpu_torch
+    from torbi_tpu_torch.utils import profile
+
+    device = torch.device('cuda', 0)
+    obs, lengths, trans, initial = dense_big_inputs(torch, device)
+
+    def call():
+        return torbi_tpu_torch.from_probabilities(
+            obs, batch_frames=lengths, transition=trans, initial=initial,
+            log_probs=True, gpu=0)
+
+    call()
+    torch.cuda.synchronize()
+    profile.capture(call, trace_dir)
+    summary = {'busy': profile.device_busy(trace_dir),
+               'rows': profile.device_op_times(trace_dir)[:6]}
+    (Path(trace_dir) / 'summary.json').write_text(json.dumps(summary))
 
 
 def hold_fixtures(torch, fixtures, device, reset_counts, read_counts):
@@ -687,8 +798,11 @@ def main():
     info(f'K3 backtrace: {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms')
     del post_k, posterior_k
 
-    # K2: dense forward at the dense path's shape and on the toy; K3 on
-    # its output
+    # K2: the dense forward at the latency shape (8 x 64 x 1440, two short
+    # sequences), on the toy, at the edges of its launch plan and at the
+    # throughput shape (512 x 512 x 1280, the last two sequences short),
+    # each held bitwise against its plain version, the throughput shape
+    # whole, the plain version in sub-batches; K3 on its output
     rng = np.random.default_rng(1)
     dense_obs_host = np.log(
         rng.dirichlet(np.ones(STATES), size=(DENSE_BATCH, DENSE_FRAMES))
@@ -704,12 +818,31 @@ def main():
     if band.detect_band(dense_trans) is not None:
         fail('the random dense transition was detected as banded')
     dense_obs_k = dispatch.convert(dense_obs, True, True).contiguous()
-    dpost_k, dposterior_k = dense.viterbi_forward_dense(
-        dense_obs_k, dense_bf, dense_trans, init)
-    dpost_r, _ = dense.dense_forward_reference(
-        dense_obs_k, dense_bf, dense_trans, init)
+
+    def dense_reference(args):
+        """The plain K2 in sub-batches, to bound its memory"""
+        return torch.cat([dense.dense_forward_reference(
+            args[0][start:start + DENSE_SUB], args[1][start:start + DENSE_SUB],
+            *args[2:])[0] for start in range(0, args[0].shape[0], DENSE_SUB)])
+
+    def plan_text(plan):
+        return (f'{plan["groups"]} groups x {plan["dest_groups"]} CTAs, '
+                f'{plan["bc"]} sequences (passes of {plan["bp"]}) x '
+                f'{plan["jc"]} destinations a CTA, {plan["threads"]} '
+                f'threads, split {plan["split"]}, chunks of {plan["chunk"]} '
+                f'sources ({"16-byte copies" if plan["vec"] else "loads"}), '
+                f'transition {"resident" if plan["resident"] else "streamed"}'
+                f', {plan["smem_bytes"]} shared bytes')
+
+    dense_args = (dense_obs_k, dense_bf, dense_trans, init)
+    dpost_k, dposterior_k = dense.viterbi_forward_dense(*dense_args)
+    dpost_r, _ = dense.dense_forward_reference(*dense_args)
     torch.cuda.synchronize()
-    err = require_equal(torch, 'K2 dense_forward', dpost_k, dpost_r)
+    err = require_equal(torch, 'K2 dense_forward at '
+                        f'{DENSE_BATCH} x {DENSE_FRAMES} x {STATES}',
+                        dpost_k, dpost_r)
+    info(f'K2 plan at {DENSE_BATCH} x {STATES}: '
+         + plan_text(dense.dense_plan(DENSE_BATCH, STATES, sms)))
     toy_obs = torch.log(torch.tensor([[
         [0.25, 0.5, 0.25],
         [0.25, 0.25, 0.5],
@@ -726,22 +859,121 @@ def main():
         toy_obs, toy_bf, toy_trans, toy_init)
     err = max(err, require_equal(
         torch, 'K2 dense_forward (toy)', tpost_k, tpost_r))
-    k2_ms = cuda_ms(torch, lambda: dense.viterbi_forward_dense(
-        dense_obs_k, dense_bf, dense_trans, init), iters=5)
-    k2_plain_ms = cuda_ms(torch, lambda: dense.dense_forward_reference(
-        dense_obs_k, dense_bf, dense_trans, init), iters=1, warmup=0)
-    dsteps = valid_steps(dense_bf, DENSE_FRAMES)
-    k2_bytes = (2 * DENSE_BATCH * DENSE_FRAMES * STATES + STATES * STATES
-                + STATES) * 4
-    k2_ops = dsteps * (2 * STATES * STATES + STATES)
+    # The plan's edges: one, three and 130 sequences at 96 and 2048 states
+    # (at 130 x 2048 the plan streams the transition slice) and 97 states
+    # (rows off 16 bytes: loads, not copies), ragged, with one-frame
+    # sequences; random log-probabilities made on the card
+    edge_gen = torch.Generator(device).manual_seed(3)
+    for batch_e, states_e in DENSE_EDGES:
+        lengths = torch.randint(1, DENSE_EDGE_FRAMES + 1, (batch_e,),
+                                generator=edge_gen, device=device)
+        lengths[0] = DENSE_EDGE_FRAMES
+        lengths[-1] = 1
+        e_args = (torch.log(torch.rand(
+            (batch_e, DENSE_EDGE_FRAMES, states_e), generator=edge_gen,
+            device=device) + TINY), lengths.to(torch.int32),
+            torch.log(torch.rand((states_e, states_e), generator=edge_gen,
+                                 device=device) + TINY),
+            torch.log(torch.rand((states_e,), generator=edge_gen,
+                                 device=device) + TINY))
+        want = dense_reference(e_args)
+        plan = dense.dense_plan(batch_e, states_e, sms)
+        err = max(err, require_equal(
+            torch, f'K2 dense_forward at {batch_e} x {DENSE_EDGE_FRAMES} x '
+            f'{states_e} ({plan_text(plan)})',
+            dense.viterbi_forward_dense(*e_args)[0], want))
+        # Both slice modes wherever a plan holds them (the cheapest plan of
+        # each): the kernel's four instances (resident or streamed slice,
+        # copies or loads)
+        plans_e = list(dense.dense_plans(batch_e, states_e, sms))
+        for resident_mode in (True, False):
+            plan = min((p for p in plans_e if p['resident'] == resident_mode),
+                       key=lambda p: p['cost'], default=None)
+            if plan is not None:
+                err = max(err, require_equal(
+                    torch, f'K2 dense_forward at {batch_e} x '
+                    f'{DENSE_EDGE_FRAMES} x {states_e} ({plan_text(plan)})',
+                    dense.viterbi_forward_dense(*e_args, plan=plan)[0],
+                    want))
+    # The throughput shape, made on the card from seed 0
+    big_obs, big_bf, big_trans, big_init = dense_big_inputs(torch, device)
+    if band.detect_band(big_trans) is not None:
+        fail('the random dense transition at the throughput shape was '
+             'detected as banded')
+    big_args = (big_obs, big_bf, big_trans, big_init)
+    big_plan = dense.dense_plan(DENSE_BIG_BATCH, DENSE_BIG_STATES, sms)
+    big_want, big_plain_ms = cuda_once(torch,
+                                       lambda: dense_reference(big_args))
+    err = max(err, require_equal(
+        torch, f'K2 dense_forward at {DENSE_BIG_BATCH} x {DENSE_BIG_FRAMES} '
+        f'x {DENSE_BIG_STATES}, all {DENSE_BIG_BATCH} sequences',
+        dense.viterbi_forward_dense(*big_args)[0], big_want))
+    del big_want
+    info(f'K2 plan at {DENSE_BIG_BATCH} x {DENSE_BIG_STATES}: '
+         + plan_text(big_plan))
+    k2_ms = cuda_ms(torch, lambda: dense.viterbi_forward_dense(*dense_args),
+                    iters=5)
+    k2_big_ms = cuda_ms(
+        torch, lambda: dense.viterbi_forward_dense(*big_args), iters=5)
+    k2_plain_ms = cuda_ms(
+        torch, lambda: dense.dense_forward_reference(*dense_args), iters=1,
+        warmup=0)
+    # Bounds: the candidates these inputs need (valid steps x states^2) at
+    # the FP32 instructions per candidate of the kernel's loop (SASS, the
+    # instance the throughput plan takes: its add and its max), plus the
+    # observation add per output; every instruction of the loop, loads
+    # and address arithmetic included, is kept beside them as the design's
+    # figure; the smem bound at half a shared-memory word per candidate (a
+    # thread's 4 x 4 tile loads 16 + 16 words per 4 sources, 64
+    # candidates); the bytes: observation in, stream out, the transition
+    # once
+    k2_loop, k2_per_candidate = sass_loop_instructions(
+        build, 'dense_forward', 'dense_forward_kernelILb'
+        f'{int(big_plan["resident"])}ELb{int(big_plan["vec"])}E')
+    smem_words = 2 * dense.TILE / dense.TILE ** 2
+
+    def dense_bounds(batch, frames, states, lengths):
+        steps_d = valid_steps(lengths, frames)
+        candidates = steps_d * states * states
+        bound = bound_ms(
+            (2 * batch * frames * states + states * states + states) * 4,
+            candidates * k2_per_candidate + steps_d * states)
+        return (bound, candidates,
+                candidates * smem_words / smem_words_per_s * 1e3)
+
+    k2_bound, k2_cand, k2_smem = dense_bounds(
+        DENSE_BATCH, DENSE_FRAMES, STATES, dense_bf)
+    big_bound, big_cand, big_smem = dense_bounds(
+        DENSE_BIG_BATCH, DENSE_BIG_FRAMES, DENSE_BIG_STATES, big_bf)
+    big_rate = big_cand / (k2_big_ms * 1e-3) / (sms * clock_hz)
     kernels['dense_forward'] = dict(
         name='dense_forward', route='cuda',
         source='torbi_tpu_torch/csrc/dense_forward.cu',
         replaces='torbi_tpu/ops/pallas.py:48', path='dense',
-        max_abs_err=err, ms=k2_ms, plain_ms=k2_plain_ms,
-        bound=bound_ms(k2_bytes, k2_ops), library_ms=None)
-    info(f'K2 dense_forward: {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms '
-         f'({DENSE_BATCH} x {DENSE_FRAMES} x {STATES})')
+        max_abs_err=err, ms=k2_ms, plain_ms=k2_plain_ms, bound=k2_bound,
+        library_ms=None, smem_bound_ms=k2_smem,
+        sass_fp32_per_candidate=k2_per_candidate,
+        sass_instructions_per_candidate=k2_loop,
+        shape=f'{DENSE_BATCH} x {DENSE_FRAMES} x {STATES}',
+        throughput_shape=f'{DENSE_BIG_BATCH} x {DENSE_BIG_FRAMES} x '
+                         f'{DENSE_BIG_STATES}',
+        throughput_ms=k2_big_ms, throughput_plain_ms=big_plain_ms,
+        throughput_bound_ms=big_bound[0], throughput_bound_by=big_bound[1],
+        throughput_smem_bound_ms=big_smem,
+        throughput_candidates_per_sm_clock=big_rate,
+        plan=dense.dense_plan(DENSE_BATCH, STATES, sms),
+        throughput_plan=dense.dense_plan(
+            DENSE_BIG_BATCH, DENSE_BIG_STATES, sms))
+    info(f'K2 dense_forward at {DENSE_BATCH} x {DENSE_FRAMES} x {STATES}: '
+         f'{k2_ms:.4f} ms, bound {k2_bound[0]:.4f} ({k2_bound[1]}; smem '
+         f'{k2_smem:.4f}), plain {k2_plain_ms:.1f} ms; at '
+         f'{DENSE_BIG_BATCH} x {DENSE_BIG_FRAMES} x {DENSE_BIG_STATES}: '
+         f'{k2_big_ms:.3f} ms, bound {big_bound[0]:.3f} ({big_bound[1]}; '
+         f'smem {big_smem:.3f}), plain (in sub-batches of {DENSE_SUB}) '
+         f'{big_plain_ms:.1f} ms; {k2_per_candidate:.3f} FP32 SASS '
+         f'instructions per candidate ({k2_loop:.3f} in all), '
+         f'{big_rate:.2f} candidates per SM and clock '
+         '(CUDA events)')
     for label, post, posterior, tr, frames_of in (
             ('dense stream', dpost_k, dposterior_k, dense_trans, dense_bf),
             ('toy stream', tpost_k, tposterior_k, toy_trans, toy_bf)):
@@ -886,6 +1118,13 @@ def main():
     dense_out = torbi_tpu_torch.from_probabilities(
         dense_obs, batch_frames=dense_bf, transition=dense_trans,
         initial=init, log_probs=True, gpu=0)
+
+    def dense_big(**kwargs):
+        return torbi_tpu_torch.from_probabilities(
+            big_obs, batch_frames=big_bf, transition=big_trans,
+            initial=big_init, log_probs=True, gpu=0, **kwargs)
+
+    dense_big_out = dense_big()
     torch.cuda.synchronize()
     dense_counts = read_counts()
     info(f'dense path launches: {dense_counts}')
@@ -910,6 +1149,39 @@ def main():
         fail('dense path differs from the plain route on the CPU')
     info('dense path equals the plain scan route on the card and the '
          'plain route on the CPU')
+    if dense_counts['dense_forward'] < 3:
+        fail('the dense path at the throughput shape did not launch K2')
+    if not torch.equal(dense_big_out, dense_big(backend='scan')):
+        fail(f'dense path at {DENSE_BIG_BATCH} x {DENSE_BIG_FRAMES} x '
+             f'{DENSE_BIG_STATES} differs from the plain scan route on the '
+             'card')
+    dense_big_ms = host_ms(torch, dense_big)
+    # Traced in a child process: this process traces the headline later
+    trace_dir = ROOT / 'build' / 'smoke_trace_dense'
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), '--trace-dense',
+         str(trace_dir)], capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        fail(f'the traced dense call failed: {child.stderr[-2000:]}')
+    traced = json.loads((trace_dir / 'summary.json').read_text())
+    dense_busy, dense_rows = traced['busy'], traced['rows']
+    if not dense_rows:
+        fail('the profiler trace of the dense path holds no device event')
+    kernels['dense_forward'].update(
+        path_ms=dense_big_ms[0], path_idle_share=dense_busy['idle_share'])
+    info(f'dense path at {DENSE_BIG_BATCH} x {DENSE_BIG_FRAMES} x '
+         f'{DENSE_BIG_STATES} (from_probabilities): equals the plain scan '
+         f'route on the card; {dense_big_ms[0]:.3f} ms/call warm median of '
+         f'10 (min {dense_big_ms[1]:.3f}, max {dense_big_ms[2]:.3f}), '
+         f'{DENSE_BIG_BATCH * DENSE_BIG_FRAMES / dense_big_ms[0] * 1e3:.0f} '
+         f'timesteps/s, on {card}; traced call: device busy '
+         f'{dense_busy["busy_ms"]:.3f} of {dense_busy["span_ms"]:.3f} ms, '
+         f'idle share {dense_busy["idle_share"]:.4f}')
+    for row in dense_rows[:6]:
+        info(f'  dense trace {row["total_ms"]:9.3f} ms x{row["count"]:<3} '
+             f'{row["name"][:90]}')
+    del dense_big_out, big_obs, big_args
 
     # 4. The banded path (the headline) through from_probabilities
     def headline():
@@ -1176,7 +1448,7 @@ def main():
     # stream rows it reads, the band matrix, the int16 table it writes.
     # Phase 2: one lookup per state and step; the table it reads, the
     # posterior, the path it writes
-    per_candidate = sass_pointer_instructions(build)
+    per_candidate = sass_pointer_instructions(build, 'pointers_kernelILb1E')
     k5_ops = steps1 * (in_range * per_candidate + 3 * STATES)
     k5_bytes = (steps1 * STATES + width * STATES) * 4 + SINGLE_FRAMES * (
         STATES * 2)
@@ -1207,8 +1479,11 @@ def main():
     del post1, posterior1
 
     # K6: the window chase on a pure -inf band (the triangular transition
-    # of tests/test_autochunk.py at the pitch band's half-width), against
-    # its plain version and K5
+    # of tests/test_autochunk.py at the pitch band's half-width), K5's two
+    # phases without the floor pass: its phase-1 table against its plain
+    # version, its path against its plain version (the full chase) and K5
+    # at 1 x 10,240 and 1 x 2048 and on the pure-band edges, one sequence
+    # at a time; timed per phase
     pure = torch.from_numpy(
         triangular_log(STATES, WINDOW_HALFWIDTH, 0.0)).to(device)
     pure_band = band.detect_band(pure)
@@ -1217,44 +1492,111 @@ def main():
     pure_matrix = band.build_band_matrix(pure, pure_band[0], pure_band[1])
     wpost, wposterior = band.viterbi_forward_band_spread(
         single_k, bf1, init, pure_band, pure_matrix)
+    table6 = backtrace.window_pointers(wpost, pure_band, pure_matrix, bf1)
+    table6_r, table6_plain_ms = cuda_once(
+        torch, lambda: backtrace.backtrace_pointers_reference(
+            wpost, pure_band, pure_matrix, bf1))
+    err = require_equal(
+        torch, f'K6 phase 1 (window_pointers) table at 1 x {SINGLE_FRAMES}',
+        table6, table6_r)
+    del table6_r
+    window_cases = [(f'1 x {SINGLE_FRAMES}', wpost, wposterior, bf1, pure,
+                     pure_band, pure_matrix)]
+    short_post = wpost[:, :SHORT_FRAMES].contiguous()
+    window_cases.append((f'1 x {SHORT_FRAMES}', short_post,
+                         short_post[:, -1], bf_short, pure, pure_band,
+                         pure_matrix))
+    for edge in edges.BAND_EDGES:
+        if edge.floor:
+            continue
+        e_obs, e_bf, e_trans, e_init = (
+            torch.from_numpy(x).to(device)
+            for x in edges.band_edge_inputs(edge))
+        e_band = band.detect_band(e_trans)
+        e_matrix = band.build_band_matrix(e_trans, e_band[0], e_band[1])
+        e_post, _ = band.band_forward_reference(
+            e_obs, e_bf, e_init, e_band, e_matrix)
+        for seq in range(e_obs.shape[0]):
+            one = e_post[seq:seq + 1].contiguous()
+            window_cases.append((
+                f'{edge.name}, sequence {seq}', one, one[:, -1],
+                e_bf[seq:seq + 1].contiguous(), e_trans, e_band, e_matrix))
+    for label, w_post, w_posterior, w_bf, w_trans, w_band, w_matrix in (
+            window_cases):
+        got = backtrace.backtrace_window(
+            w_post, w_trans, w_posterior, w_bf, w_band, w_matrix)
+        for what, want in (
+                ('its plain version', backtrace.backtrace_window_reference(
+                    w_post, w_trans, w_posterior, w_bf, w_band)),
+                ('K5', backtrace.backtrace_fused1(
+                    w_post, w_trans, w_posterior, w_bf, w_band, w_matrix))):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f'K6 backtrace_window {label}: differs from {what} in '
+                     f'{int((got != want).sum())} positions (tolerance: '
+                     'exact)')
+        got = backtrace.window_pointers(w_post, w_band, w_matrix, w_bf)
+        want = backtrace.backtrace_pointers_reference(
+            w_post, w_band, w_matrix, w_bf)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f'K6 phase 1 table {label}: differs from its plain version '
+                 f'in {int((got != want).sum())} entries (tolerance: exact)')
+    info(f'K6 backtrace_window: table and path equal to their plain '
+         f'versions and the path to K5 on {len(window_cases)} pure-band '
+         'sequences (1 x 10,240, 1 x 2048, every sequence of the pure band '
+         'edges; tolerance: exact)')
     idx6 = backtrace.backtrace_window(
-        wpost, pure, wposterior, bf1, pure_band)
-    idx6_r = backtrace.backtrace_window_reference(
-        wpost, pure, wposterior, bf1, pure_band)
-    torch.cuda.synchronize()
-    err = require_equal(torch, 'K6 backtrace_window', idx6, idx6_r)
-    idx5 = backtrace.backtrace_fused1(
         wpost, pure, wposterior, bf1, pure_band, pure_matrix)
-    kernels['chase_pointers']['max_abs_err'] = max(
-        kernels['chase_pointers']['max_abs_err'], require_equal(
-            torch, 'K5 backtrace_fused1 on the pure -inf band', idx5,
-            backtrace.backtrace_fused1_reference(
-                wpost, pure, wposterior, bf1)))
-    if not torch.equal(idx6, idx5):
-        fail('K6 differs from K5 on the pure -inf band')
-    info('K6 backtrace_window: equal to K5 on the pure -inf band')
     k6_ms = cuda_ms(torch, lambda: backtrace.backtrace_window(
-        wpost, pure, wposterior, bf1, pure_band), iters=5)
+        wpost, pure, wposterior, bf1, pure_band, pure_matrix), iters=5)
+    k6_phase_ms = (
+        cuda_ms(torch, lambda: backtrace.window_pointers(
+            wpost, pure_band, pure_matrix, bf1), iters=5),
+        cuda_ms(torch, lambda: backtrace.chase_pointers(
+            table6, wposterior, bf1), iters=5))
     k6_plain_ms = cuda_ms(
         torch, lambda: backtrace.backtrace_window_reference(
             wpost, pure, wposterior, bf1, pure_band), iters=1, warmup=0)
-    # The window of each chase step, cut to [0, states), along this run's
-    # path: the stream and transition values the step needs
+    # The bound of the function: the chase along this path reads the
+    # window of each step (its stream row and transition row) and writes
+    # the path, a chain of steps1 dependent steps that no throughput bound
+    # sees. Beside it, the design's own figure: phase 1's in-band
+    # candidates at the FP32 SASS instructions per candidate of its loop
+    # (no floor term) and phase 2's lookup per state and step; the stream
+    # rows and band matrix read, the table written and read again, the
+    # path written
     lo_w, width_w = pure_band[0], pure_band[1]
+    per_candidate6 = sass_pointer_instructions(build, 'pointers_kernelILb0E')
+    k6_ops = steps1 * (in_range_pairs(STATES, lo_w, width_w) * per_candidate6
+                       + STATES)
+    k6_bytes = ((steps1 * STATES + width_w * STATES) * 4
+                + 2 * SINGLE_FRAMES * STATES * 2
+                + (STATES + SINGLE_FRAMES) * 4)
     path_states = idx6[0, 1:].long()
     window = int((torch.clamp(path_states + lo_w + width_w, max=STATES)
                   - torch.clamp(path_states + lo_w, min=0)).sum())
-    k6_bytes = (2 * window + STATES + SINGLE_FRAMES) * 4
-    k6_ops = 2 * window + 2 * STATES
+    chase_bound = bound_ms((2 * window + STATES + SINGLE_FRAMES) * 4,
+                           2 * window + 2 * STATES)
+    design_bound = bound_ms(k6_bytes, k6_ops)
     kernels['backtrace_window'] = dict(
         name='backtrace_window', route='cuda',
         source='torbi_tpu_torch/csrc/backtrace_batch1.cu',
         replaces='torbi_tpu/ops/backtrace.py:458', path='batch1-window',
         max_abs_err=err, ms=k6_ms, plain_ms=k6_plain_ms,
-        bound=bound_ms(k6_bytes, k6_ops), library_ms=None)
-    info(f'K6 backtrace_window: {k6_ms:.3f} ms ({k6_ms * 1e3 / steps1:.3f} '
-         f'us/step), plain {k6_plain_ms:.1f} ms')
-    del wpost, wposterior
+        bound=chase_bound, library_ms=None, chain_steps=steps1,
+        phase1_ms=k6_phase_ms[0], phase2_ms=k6_phase_ms[1],
+        phase1_plain_ms=table6_plain_ms,
+        sass_fp32_per_candidate=per_candidate6,
+        design_bound_ms=design_bound[0], design_bound_by=design_bound[1])
+    info(f'K6 backtrace_window: {k6_ms:.4f} ms (phase 1 '
+         f'{k6_phase_ms[0]:.4f}, phase 2 {k6_phase_ms[1]:.4f}; '
+         f'{per_candidate6:.3f} FP32 SASS instructions per phase-1 '
+         f'candidate), bound {chase_bound[0]:.5f} ({chase_bound[1]}; the '
+         f'chase along the path, a chain of {steps1} steps), the two '
+         f'phases\' own work {design_bound[0]:.4f} ({design_bound[1]}); '
+         f'plain {k6_plain_ms:.1f} ms (phase 1 alone {table6_plain_ms:.1f})')
+    del wpost, wposterior, table6, window_cases
 
     # 6. The batch-1 paths through from_probabilities, counters reset just
     # before and read just after each
@@ -1452,8 +1794,12 @@ def main():
         windowed, window_counts = run_path(
             'batch-1 window path', lambda: single_call(trans_in=pure))
         if (window_counts['backtrace_window'] < 1
+                or window_counts['chase_pointers'] < 1
                 or window_counts['band_spread'] < 1):
-            fail('the window path did not launch K4 and K6')
+            fail('the window path did not launch K4 and both phases of K6')
+        if window_counts['backtrace_pointers']:
+            fail('the window path launched K5\'s phase 1, which holds the '
+                 'floor pass')
         require_same('window path', windowed,
                      single_call(trans_in=pure, backend='scan'),
                      'the plain scan route on the card')
@@ -2096,7 +2442,10 @@ def main():
 
 if __name__ == '__main__':
     try:
-        main()
+        if sys.argv[1:2] == ['--trace-dense']:
+            trace_dense(sys.argv[2])
+        else:
+            main()
     except SystemExit:
         raise
     except BaseException:

@@ -96,3 +96,35 @@ def test_dense_forward_toy_matches_jax():
         torch.from_numpy(obs), torch.from_numpy(bf), torch.from_numpy(trans),
         torch.from_numpy(init))
     np.testing.assert_array_equal(post_seq.numpy(), expected_seq)
+
+
+@pytest.mark.parametrize('case', ['ragged-one-frame', 'ties'])
+def test_dense_forward_matches_jax_edges(case):
+    """Plain K2 bitwise equal to torbi_tpu's dense kernel on a ragged batch
+    with a one-frame sequence (its stream holds frame 0 throughout), and on
+    a transition and observation of small integers, where candidates tie
+    exactly"""
+    rng = np.random.default_rng(11)
+    if case == 'ragged-one-frame':
+        batch, frames, states = 5, 11, 40
+        obs = log_dirichlet(rng, (batch, frames), states)
+        trans = log_dirichlet(rng, states, states)
+        bf = np.array([11, 1, 6, 2, 11], dtype=np.int32)
+    else:
+        batch, frames, states = 3, 9, 33
+        obs = rng.integers(-3, 1, size=(batch, frames, states)).astype(
+            np.float32)
+        trans = rng.integers(-2, 1, size=(states, states)).astype(np.float32)
+        bf = np.array([9, 9, 4], dtype=np.int32)
+    init = log_dirichlet(rng, (), states)
+    expected_seq, expected_post = jax_forward(obs, bf, trans, init)
+    args = (torch.from_numpy(obs), torch.from_numpy(bf),
+            torch.from_numpy(trans), torch.from_numpy(init))
+    for fn in (dense.dense_forward_reference, dense.viterbi_forward_dense):
+        post_seq, posterior = fn(*args)
+        np.testing.assert_array_equal(post_seq.numpy(), expected_seq)
+        np.testing.assert_array_equal(posterior.numpy(), expected_post)
+    if case == 'ragged-one-frame':
+        np.testing.assert_array_equal(
+            post_seq[1].numpy(), np.broadcast_to(
+                post_seq[1, 0].numpy(), (frames, states)))

@@ -19,6 +19,7 @@ import torch
 
 import torbi_tpu
 import torbi_tpu_torch
+from torbi_tpu.ops import dispatch as jax_dispatch
 from torbi_tpu.ops import oracle
 from torbi_tpu.ops.dispatch import decode as jax_decode
 from torbi_tpu_torch.ops import backtrace, band, dispatch
@@ -276,3 +277,77 @@ def test_exchange_probe_computes_spread_sync():
         'spread_async', 16)
     with pytest.raises(ValueError, match='sync_only'):
         kernel_lab.lab_spread(obs[0], lab_band, 9, 8, False, 'async')
+
+
+# The window route (K6): K5's two phases on a pure -inf band, without the
+# floor pass. name: (states, frames, batch_frames, lo, width)
+WINDOW_CASES = {
+    'symmetric': (256, 40, 33, -7, 15),
+    'asymmetric': (384, 36, 36, 0, 9),
+    'edge-cut': (256, 30, 24, -60, 121),
+}
+
+
+@pytest.mark.parametrize('name', list(WINDOW_CASES))
+def test_window_route_matches_jax_window_chase(monkeypatch, name):
+    """The window route on the CPU runs K6's phases as their plain versions
+    (phase 1 from the pure band, then the blocked chase) and returns
+    torbi_tpu's path through its window chase, and the oracle's, bitwise:
+    a symmetric band, an asymmetric one (lo >= 0) and one cut by the state
+    edges"""
+    states, frames, length, lo, width = WINDOW_CASES[name]
+    for package in (torbi_tpu, torbi_tpu_torch):
+        for knob, value in (('BACKTRACE_BATCH1_FUSED', False),
+                            ('BACKTRACE_BATCH1_WINDOW', True),
+                            ('BATCH1_AUTO_CHUNK', False)):
+            monkeypatch.setattr(package, knob, value, raising=False)
+    monkeypatch.setattr(
+        torbi_tpu, 'BAND_KERNEL_LAYOUT', 'stitched', raising=False)
+    calls = []
+    for module, fn in ((dispatch, 'backtrace_window'),
+                       (backtrace, 'backtrace_pointers'),
+                       (backtrace, 'window_pointers'),
+                       (backtrace, 'backtrace_pointers_reference'),
+                       (backtrace, 'chase_pointers'),
+                       (backtrace, 'chase_pointers_reference')):
+        orig = getattr(module, fn)
+
+        def spy(*args, _orig=orig, _name=fn, **kwargs):
+            calls.append(_name)
+            return _orig(*args, **kwargs)
+
+        monkeypatch.setattr(module, fn, spy)
+    rng = np.random.default_rng(states + width)
+    trans = band_transition(rng, states, lo, width, floor=False, ties=False)
+    obs = np.log(rng.dirichlet(np.ones(states), size=(1, frames))
+                 .astype(np.float32) + TINY).astype(np.float32)
+    bf = np.array([length], np.int32)
+    init = np.log(np.full(states, 1.0 / states, dtype=np.float32) + TINY)
+    assert band.detect_band(torch.from_numpy(trans)) == (lo, width, None)
+    # torbi_tpu takes its window chase on this band
+    assert jax_dispatch._use_window_chase(
+        (lo, width, None), -(-states // 128) * 128, True)
+    got = dispatch.decode(
+        torch.from_numpy(obs), torch.from_numpy(bf), torch.from_numpy(trans),
+        torch.from_numpy(init), finite_observation=True, device='cpu')
+    assert calls == ['backtrace_window', 'window_pointers',
+                     'backtrace_pointers_reference', 'chase_pointers',
+                     'chase_pointers_reference']
+    expected = np.asarray(jax_decode(
+        jnp.asarray(obs), jnp.asarray(bf), jnp.asarray(trans),
+        jnp.asarray(init), backend='pallas', finite_observation=True))
+    np.testing.assert_array_equal(got.numpy(), expected)
+    np.testing.assert_array_equal(
+        expected, oracle.viterbi_numpy(obs, bf, trans, init))
+    # K6's phases on the forward stream against its function-level plain
+    # version (the full chase)
+    trans_t = torch.from_numpy(trans)
+    post_seq, posterior = band.band_forward_reference(
+        torch.from_numpy(obs), torch.from_numpy(bf), torch.from_numpy(init),
+        (lo, width, None), band.build_band_matrix(trans_t, lo, width))
+    torch.testing.assert_close(
+        backtrace.backtrace_window(post_seq, trans_t, posterior,
+                                   torch.from_numpy(bf), (lo, width, None)),
+        backtrace.backtrace_window_reference(
+            post_seq, trans_t, posterior, torch.from_numpy(bf),
+            (lo, width, None)), rtol=0, atol=0)

@@ -54,10 +54,10 @@
 // in and 29 MB table out take 0.026 ms at 3.35 TB/s. Phase 2 moves the
 // table once more and runs chains of B and t_top / B dependent loads.
 //
-// K6 design: one warp, no barrier, one step a frame. The window (175
-// states at the pitch shape) is 6 values a lane; the stream rows are
-// prefetched into L2 kPrefetch steps ahead, so both loads of a step come
-// from L2.
+// K6 design: K5's two phases on a pure -inf band, without the floor pass:
+// phase 1 is pointers_kernel with no floor term (backtrace_window below),
+// phase 2 the same blocked chase (chase_pointers), so no chain of one
+// dependent step a frame remains.
 //
 // K6 takes the argmax over the sources [idx + lo, idx + lo + width) cut to
 // [0, states) only. That is exact for a band with a -inf exterior: every
@@ -74,8 +74,6 @@ namespace {
 using torbi::settle;
 using torbi::take;
 using torbi::warp_reduce;
-
-constexpr int kPrefetch = 8;    // K6 stream rows prefetched ahead
 
 // Phase 1's tile: 64 destinations (16 groups of 4) x 32 rows (8 groups of
 // 4) per pass, offsets in chunks of kChunk
@@ -120,13 +118,15 @@ __global__ void __launch_bounds__(256) floor_argmax_kernel(
 
 // Phase 1: the table of backpointers. Block (x, y) takes destinations
 // [64 x, 64 x + 64) and rows [y kPasses kTileT, ...); row 0 and rows past
-// t_top get 0
+// t_top get 0. HAS_FLOOR adds the floor candidate of floor_argmax_kernel;
+// without it (a pure -inf band: K6, or K5 on such a band) the in-band
+// winner is the answer
+template <bool HAS_FLOOR>
 __global__ void __launch_bounds__(kGroupsX * kGroupsY) pointers_kernel(
     const float* __restrict__ post_seq, const float* __restrict__ band,
     const int* __restrict__ batch_frames,
     const float* __restrict__ floor_val, const int* __restrict__ floor_idx,
-    int16_t* __restrict__ bp, int frames, int states, int lo, int width,
-    int has_floor) {
+    int16_t* __restrict__ bp, int frames, int states, int lo, int width) {
   extern __shared__ __align__(16) float psmem[];
   float* band_s = psmem;                       // [kChunk][kTileJ]
   float* src_s = psmem + kChunk * kTileJ;      // [kTileT][kSrcStride]
@@ -228,7 +228,7 @@ __global__ void __launch_bounds__(kGroupsX * kGroupsY) pointers_kernel(
       const bool live = t >= 1 && t <= t_top;
       float fv = torbi::neg_inf();
       int fi = 0;
-      if (live && has_floor) {
+      if (HAS_FLOOR && live) {
         fv = floor_val[t];
         fi = floor_idx[t];
       }
@@ -239,7 +239,7 @@ __global__ void __launch_bounds__(kGroupsX * kGroupsY) pointers_kernel(
         const float m = best[q][i];
         const int inside = j + lo + arg[q][i];
         int index = inside;
-        if (has_floor) {
+        if constexpr (HAS_FLOOR) {
           if (m < fv) index = fi;
           else if (m == fv) index = min(inside, fi);
         }
@@ -320,51 +320,25 @@ __global__ void __launch_bounds__(32) chase_write_kernel(
   }
 }
 
-__device__ __forceinline__ void prefetch_row(const float* row, int states,
-                                             int lane) {
-  // One prefetch per 128-byte line
-  for (int i = lane * 32; i < states; i += 32 * 32)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + i));
-}
-
-__global__ void __launch_bounds__(32) backtrace_window_kernel(
-    const float* __restrict__ post_seq, const float* __restrict__ posterior,
-    const float* __restrict__ transition,
-    const int* __restrict__ batch_frames, int* __restrict__ out, int frames,
-    int states, int lo, int width) {
-  const int lane = threadIdx.x;
-  float best = torbi::neg_inf();
-  int best_i = INT_MAX;
-  for (int i = lane; i < states; i += 32) take(best, best_i, posterior[i], i);
-  warp_reduce(best, best_i);
-  int idx = settle(best, best_i);
-  const int t_top = min(batch_frames[0] - 1, frames - 1);
-  for (int p = max(t_top, 0) + lane; p < frames; p += 32) out[p] = idx;
-
-  for (int r = t_top - 1; r >= 0 && r >= t_top - kPrefetch; --r)
-    prefetch_row(post_seq + static_cast<size_t>(r) * states, states, lane);
-  for (int t = t_top; t >= 1; --t) {
-    if (t - 1 - kPrefetch >= 0)
-      prefetch_row(post_seq + static_cast<size_t>(t - 1 - kPrefetch) * states,
-                   states, lane);
-    const float* row = post_seq + static_cast<size_t>(t - 1) * states;
-    const float* trans = transition + static_cast<size_t>(idx) * states;
-    const int begin = max(0, idx + lo);
-    const int end = min(states, idx + lo + width);
-    best = torbi::neg_inf();
-    best_i = INT_MAX;
-#pragma unroll 8
-    for (int i = begin + lane; i < end; i += 32) {
-      const float v = row[i] + __ldg(trans + i);
-      if (best_i == INT_MAX || v > best) {
-        best = v;
-        best_i = i;
-      }
-    }
-    warp_reduce(best, best_i);
-    idx = settle(best, best_i);
-    if (lane == 0) out[t - 1] = idx;
-  }
+// Phase 1 at one shape: the table's grid and shared memory
+template <bool HAS_FLOOR>
+int launch_pointers(const float* post_seq, const float* band,
+                    const int* batch_frames, const float* floor_val,
+                    const int* floor_idx, int16_t* bp, int frames, int states,
+                    int lo, int width, cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(kChunk) * kTileJ + kTileT * kSrcStride) *
+      sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      pointers_kernel<HAS_FLOOR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((states + kTileJ - 1) / kTileJ,
+                  (frames + kPasses * kTileT - 1) / (kPasses * kTileT));
+  pointers_kernel<HAS_FLOOR><<<grid, kGroupsX * kGroupsY, smem, stream>>>(
+      post_seq, band, batch_frames, floor_val, floor_idx, bp, frames, states,
+      lo, width);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -390,19 +364,13 @@ extern "C" int backtrace_pointers(const float* post_seq, const float* band,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const size_t smem =
-      (static_cast<size_t>(kChunk) * kTileJ + kTileT * kSrcStride) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pointers_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((states + kTileJ - 1) / kTileJ,
-                  (frames + kPasses * kTileT - 1) / (kPasses * kTileT));
-  pointers_kernel<<<grid, kGroupsX * kGroupsY, smem, s>>>(
-      post_seq, band, batch_frames, floor_val, floor_idx, bp, frames, states,
-      lo, width, has_floor);
-  return cudaGetLastError();
+  return has_floor
+             ? launch_pointers<true>(post_seq, band, batch_frames, floor_val,
+                                     floor_idx, bp, frames, states, lo, width,
+                                     s)
+             : launch_pointers<false>(post_seq, band, batch_frames, floor_val,
+                                      floor_idx, bp, frames, states, lo,
+                                      width, s);
 }
 
 // Phase 2 of K5. bp: (frames, states) int16 from backtrace_pointers;
@@ -444,18 +412,18 @@ extern "C" int chase_pointers(const int16_t* bp, const float* posterior,
   return cudaGetLastError();
 }
 
-// post_seq: (1, frames, states) float32; posterior: (1, states) float32;
-// transition: (states, states) float32, row = destination; batch_frames:
-// (1,) int32; out: (1, frames) int32; lo and width (> 0) of a band with a
-// -inf exterior. Returns a cudaError_t code.
-extern "C" int backtrace_window(const float* post_seq, const float* posterior,
-                                const float* transition,
-                                const int* batch_frames, int* out,
+// Phase 1 of K6: backtrace_pointers on a pure -inf band, which launches no
+// floor pass. post_seq: (1, frames, states) float32; band: (width, states)
+// float32 with band[d, j] = transition[j, j + d + lo] and -inf outside the
+// band; batch_frames: (1,) int32; bp: (frames, states) int16, the table.
+// Returns a cudaError_t code.
+extern "C" int backtrace_window(const float* post_seq, const float* band,
+                                const int* batch_frames, int16_t* bp,
                                 int frames, int states, int lo, int width,
                                 void* stream) {
-  if (frames <= 0 || states <= 0 || width <= 0) return cudaErrorInvalidValue;
-  backtrace_window_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      post_seq, posterior, transition, batch_frames, out, frames, states, lo,
-      width);
-  return cudaGetLastError();
+  if (frames <= 0 || states <= 0 || states > 32768 || width < 1)
+    return cudaErrorInvalidValue;
+  return launch_pointers<false>(post_seq, band, batch_frames, nullptr,
+                                nullptr, bp, frames, states, lo, width,
+                                static_cast<cudaStream_t>(stream));
 }

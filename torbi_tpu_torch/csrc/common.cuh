@@ -53,15 +53,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Shared memory a forward kernel needs: a double-buffered posterior for nb
-// sequences plus a double-buffered (nb, 32) scratch of per-warp maxima
+// Shared memory K1's per-CTA design (csrc/band_forward.cu) needs: a
+// double-buffered posterior for nb sequences plus a double-buffered
+// (nb, 32) scratch of per-warp maxima
 inline size_t forward_smem_bytes(int nb, int states) {
   return (2 * static_cast<size_t>(nb) * states + 2 * 32 * nb) * sizeof(float);
 }
 
-// Sequences per CTA of the forward kernels. Several sequences share every
-// transition value a CTA reads (the band or dense matrix streams through
-// L2 once per frame and CTA), so large batches take 4; small batches take
+// Sequences per CTA of K1's per-CTA design. Several sequences share every
+// band value a CTA reads (the band streams through L2 once per frame and
+// CTA), so large batches take 4; small batches take
 // fewer to keep more SMs busy. Shrinks until the posteriors fit the opt-in
 // shared memory; returns 0 when one sequence does not fit.
 inline int forward_sequences_per_cta(int batch, int states) {
@@ -78,7 +79,7 @@ inline int forward_sequences_per_cta(int batch, int states) {
                                                                        : 0;
 }
 
-// Threads per forward CTA: a warp multiple, at most 512
+// Threads per CTA of K1's per-CTA design: a warp multiple, at most 512
 inline int forward_threads(int states) {
   int threads = ((states + 31) / 32) * 32;
   return threads < 32 ? 32 : (threads > 512 ? 512 : threads);

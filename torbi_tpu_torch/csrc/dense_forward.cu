@@ -9,152 +9,439 @@
 //   post'[j] = t < batch_frames[b] ? obs[b, t, j] + score[j] : post[j]
 // and at t = 0, post = obs[b, 0] + initial. Every output is written to
 // post_seq[b, t]. Each candidate is one fp32 add and fmaxf does not depend
-// on order, so the stream is bitwise that of the plain version
-// (torbi_tpu_torch/ops/dense.py::dense_forward_reference).
+// on order, so any split of the sources over threads, and any order of the
+// maxima, gives the stream of the plain version
+// (torbi_tpu_torch/ops/dense.py::dense_forward_reference) bitwise.
 //
-// Bound on the H100: batch * (frames - 1) * states^2 candidates at one add
-// and one max each over 33.5e12 FP32 operations per second (132 SMs x 128
-// lanes x 1.98 GHz); at 1440 states that is 0.12 us per sequence-frame,
-// against 3.4 ns for its 11.5 KB of observation in and posterior out at
-// 3.35 TB/s. So operations bound it.
+// Bound on the H100: a frame is a max-plus product (batch x states) (x)
+// (states x states), batch * (frames - 1) * states^2 candidates at an add
+// and a max each; at 512 x 512 x 1280 that is 4.3e11 candidates, about
+// 26 ms at 128 FP32 instructions per SM and clock (132 SMs, 1.98 GHz),
+// against 0.8 ms for the observation in and the stream out at 3.35 TB/s.
+// So operations bound it; chip_smoke.py counts the instructions per
+// candidate in this kernel's SASS. The frames form a chain: frame t needs
+// every destination of frame t - 1.
 //
-// Design: the frame loop of the banded kernel (one CTA holds NB sequences
-// with their posteriors double-buffered in shared memory, one
-// __syncthreads per frame). A warp takes one destination j at a time: its
-// lanes stride over the sources i, so the row transition[j] (8.3 MB for
-// all rows at 1440 states, resident in the 50 MB L2) is read coalesced
-// and once for all NB sequences, and the source reads from shared memory
-// are conflict-free. A warp max ends each destination; lane n writes
-// sequence n's value.
+// Design: one persistent CTA per SM, in a cooperative launch, for the
+// whole recursion. The CTAs form `groups` sequence groups of `dest_groups`
+// CTAs each; CTA (g, d) owns sequences [g bc, g bc + bc) and destinations
+// [d jc, d jc + jc) in every frame, so every (sequence, destination) has
+// one owner (ops/dense.py::dense_plan picks bc, jc and the rest for the
+// shape and checks that), and its transition rows serve all bc sequences.
+// The posterior needs no exchange buffer: frame t - 1's values are the
+// stream rows post_seq[b, t - 1], which every CTA writes to device memory
+// anyway; after a group's CTAs have written a frame, they meet at a
+// barrier of their group (an atomic counter in device memory) and read
+// the rows they need back through L2 (L1 is not coherent, and a line of
+// row t - 1 can hold the start of row t, so no read goes through L1).
+// Groups never wait for each other.
+//
+// Per frame a CTA reads its sequences' rows in chunks of `chunk` sources,
+// double-buffered in shared memory: chunk c + 1 is in flight while chunk c
+// is computed, as 16-byte cp.async.cg copies when the states are a
+// multiple of 4 (every row then starts on 16 bytes), else as loads and
+// stores. The transition slice stays in shared memory for the launch
+// (`resident`), or streams in the same chunks beside the posterior. The
+// plan weighs both at every group count and takes the cheaper by its cost
+// model: a resident slice saves reading it from L2 every frame and wins
+// where it leaves room for long chunks (1.43x at 8 x 1440, 1.88x at 1 x
+// 2048, at one group count); at 512 x 1280 it leaves room for chunks of 16 sources, where a
+// streamed one takes 168-192, and streaming wins (1.26x at 4 groups).
+// Both operands keep their natural [row][source] order, row strides a
+// multiple of 4 floats whose quarter is odd. A thread owns a register tile
+// of 4 sequences x 4 destinations, its rows spread over the CTA's (row
+// ty + q bp / 4, destination tx + r jc / 4), so that the lanes of a warp
+// load 16 bytes from consecutive rows, 8 rows on the 32 banks: per 4
+// sources it loads 4 + 4 float4 for 64 candidates, half a shared-memory
+// word per candidate, less where lanes share a load. When a CTA's tile
+// has fewer than 512 / 32 cells (a small batch), `split` lanes (a power of
+// two up to 32, adjacent in the warp) share a cell, each taking every
+// split-th group of 4 sources, and xor shuffles combine them. A CTA with
+// more cells than 512 threads takes its sequences in passes of `bp`, each
+// pass reading its own rows. A sequence past its batch_frames keeps the
+// value its thread wrote last frame; a group whose sequences have all
+// stopped computes no more and meets at no more barriers.
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
 
-template <int NB>
-__global__ void __launch_bounds__(512) dense_forward_kernel(
-    const float* __restrict__ obs, const int* __restrict__ batch_frames,
-    const float* __restrict__ initial, const float* __restrict__ transition,
-    float* __restrict__ post_seq, int batch, int frames, int states) {
-  extern __shared__ float smem[];
-  float* post = smem;  // [2][NB][states]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int b0 = blockIdx.x * NB;
+constexpr int kTile = 4;  // sequences and destinations per thread
+constexpr int kMaxThreads = 512;
+constexpr int kOut = kTile * kTile;
 
-  int bf[NB];
-  bool live[NB];
-#pragma unroll
-  for (int n = 0; n < NB; ++n) {
-    live[n] = b0 + n < batch;
-    bf[n] = live[n] ? batch_frames[b0 + n] : 0;
-  }
+// The launch plan of ops/dense.py::dense_plan
+struct Plan {
+  int bc;           // sequences per CTA, a multiple of bp
+  int bp;           // sequences per pass, a multiple of 4
+  int jc;           // destinations per CTA, a multiple of 4
+  int groups;       // sequence groups
+  int dest_groups;  // CTAs per group
+  int split;        // lanes sharing one cell of the tile
+  int chunk;        // sources per chunk, a multiple of max(8, 4 split)
+  int resident;     // the whole slice in shared memory
+  int vec;          // states a multiple of 4: 16-byte asynchronous copies
+  int threads;
+};
 
-  for (int j = tid; j < states; j += blockDim.x) {
-    const float init_j = initial[j];
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      float v = torbi::neg_inf();
-      if (live[n]) {
-        const size_t off = static_cast<size_t>(b0 + n) * frames * states + j;
-        v = obs[off] + init_j;
-        post_seq[off] = v;
-      }
-      post[n * states + j] = v;
-    }
+// Row strides in shared memory, in floats: a multiple of 4 whose quarter
+// is odd, so that 16-byte loads of 8 consecutive rows hit 32 banks once
+__host__ __device__ inline int chunk_stride(const Plan& p) {
+  return p.chunk + 4;
+}
+__host__ __device__ inline int slice_stride(const Plan& p, int states) {
+  return p.resident ? (states + 7) / 8 * 8 + 4 : chunk_stride(p);
+}
+
+// Floats of shared memory: the transition slice (whole, or two chunks)
+// and two chunks of the pass's posterior rows
+inline size_t smem_floats(const Plan& p, int states) {
+  const size_t slice = static_cast<size_t>(p.jc) * slice_stride(p, states);
+  return (p.resident ? slice : 2 * slice) +
+         2 * static_cast<size_t>(p.bp) * chunk_stride(p);
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Copy 16 bytes from device memory into shared memory asynchronously,
+// through L2 only
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   torbi::smem_address(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The barrier of a sequence group: every CTA adds one to the group's
+// counter once its stores are out, then waits until all `ctas` have added
+// `phase` times. A wait past 2^35 clocks (about 17 s) traps, so that a
+// fault ends the launch with an error instead of hanging it
+__device__ __forceinline__ void group_sync(unsigned* counter, int ctas,
+                                           int phase) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    const unsigned target = static_cast<unsigned>(phase) * ctas;
+    const long long start = clock64();
+    while (load_acquire(counter) < target)
+      if (clock64() - start > (1LL << 35)) __trap();
   }
   __syncthreads();
+}
 
-  int cur = 0;
-  for (int t = 1; t < frames; ++t) {
-    const float* pc = post + cur * NB * states;
-    float* pn = post + (cur ^ 1) * NB * states;
-
-    bool valid[NB];
-    bool any = false;
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      valid[n] = t < bf[n];
-      any = any || valid[n];
+// Copy `rows` rows of sources [i0, i0 + count) from `src` (row r at
+// src + r * src_stride) into `dst` (row r at dst + r * dst_stride), by
+// the whole CTA: 16-byte asynchronous copies, committed by the caller
+// (VEC: count, i0 and the stride multiples of 4), or loads through L2 and
+// stores, -inf past `limit` sources. Rows at or past `live` are left as
+// they are
+template <bool VEC>
+__device__ __forceinline__ void stage(float* dst, int dst_stride,
+                                      const float* src, size_t src_stride,
+                                      int rows, int live, int i0, int count,
+                                      int limit) {
+  if constexpr (VEC) {
+    const int quads = count / 4;
+    for (int e = threadIdx.x; e < rows * quads; e += blockDim.x) {
+      const int r = e / quads;
+      const int q = e - r * quads;
+      if (r < live)
+        cp_async16(dst + r * dst_stride + 4 * q,
+                   src + r * src_stride + i0 + 4 * q);
     }
-
-    for (int j = warp; j < states; j += nwarps) {
-      float acc[NB];
-#pragma unroll
-      for (int n = 0; n < NB; ++n) acc[n] = torbi::neg_inf();
-      if (any) {
-        const float* row = transition + static_cast<size_t>(j) * states;
-#pragma unroll 4
-        for (int i = lane; i < states; i += 32) {
-          const float tv = __ldg(row + i);
-#pragma unroll
-          for (int n = 0; n < NB; ++n)
-            acc[n] = fmaxf(acc[n], pc[n * states + i] + tv);
-        }
-#pragma unroll
-        for (int n = 0; n < NB; ++n) acc[n] = torbi::warp_max(acc[n]);
-      }
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        if (lane == n) {
-          float v = pc[n * states + j];
-          if (live[n]) {
-            const size_t off =
-                (static_cast<size_t>(b0 + n) * frames + t) * states + j;
-            if (valid[n]) v = obs[off] + acc[n];
-            post_seq[off] = v;
-          }
-          pn[n * states + j] = v;
-        }
-      }
+  } else {
+    for (int e = threadIdx.x; e < rows * count; e += blockDim.x) {
+      const int r = e / count;
+      const int i = e - r * count;
+      if (r < live)
+        dst[r * dst_stride + i] = i0 + i < limit
+                                      ? __ldcg(src + r * src_stride + i0 + i)
+                                      : torbi::neg_inf();
     }
-    __syncthreads();
-    cur ^= 1;
   }
 }
 
-template <int NB>
+template <bool RESIDENT, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
+    const float* __restrict__ obs, const int* __restrict__ batch_frames,
+    const float* __restrict__ initial, const float* __restrict__ transition,
+    float* __restrict__ post_seq, unsigned* __restrict__ counters, int batch,
+    int frames, int states, Plan p) {
+  extern __shared__ __align__(16) float smem[];
+  const int cs = chunk_stride(p);
+  const int ss = slice_stride(p, states);
+  // trans_s: [jc][ss] (resident) or [2][jc][cs]; post_s: [2][bp][cs]
+  float* trans_s = smem;
+  float* post_s =
+      smem + static_cast<size_t>(RESIDENT ? 1 : 2) * p.jc * ss;
+  __shared__ int group_end;
+  const int g = static_cast<int>(blockIdx.x) / p.dest_groups;
+  const int b0 = g * p.bc;
+  const int j0 = (static_cast<int>(blockIdx.x) % p.dest_groups) * p.jc;
+  const int tid = threadIdx.x;
+  const int k = tid % p.split;
+  const int cell = tid / p.split;
+  const int tx_n = p.jc / kTile;
+  const int ty_n = p.bp / kTile;
+  const int tx = cell % tx_n;
+  const int ty = cell / tx_n;
+  const bool active = ty < ty_n;
+  const int passes = p.bc / p.bp;
+  const int chunks = (states + p.chunk - 1) / p.chunk;
+  const size_t seq_stride = static_cast<size_t>(frames) * states;
+  const int jlive = min(p.jc, states - j0);
+
+  // In pass s this thread's outputs o = 4 q + r are sequence b0 + s bp +
+  // ty + q ty_n and destination j0 + tx + r tx_n (rows of a tile spread
+  // over the CTA's rows, so that a warp's 16-byte loads fall on
+  // consecutive rows); the split lane k with o % split == k writes them
+  bool dst_ok[kTile];
+#pragma unroll
+  for (int r = 0; r < kTile; ++r) dst_ok[r] = active && tx + r * tx_n < jlive;
+  auto seq_of = [&](int s, int q) {
+    return b0 + s * p.bp + ty + q * ty_n;
+  };
+  auto owns = [&](int s, int o) {
+    return (o % p.split) == k && dst_ok[o % kTile] &&
+           seq_of(s, o / kTile) < batch;
+  };
+  auto out_index = [&](int s, int o, int t) {
+    return static_cast<size_t>(seq_of(s, o / kTile)) * seq_stride +
+           static_cast<size_t>(t) * states + j0 + tx + (o % kTile) * tx_n;
+  };
+
+  // The frames this group computes: up to its longest sequence
+  if (tid == 0) group_end = 1;
+  __syncthreads();
+  for (int b = b0 + tid; b < min(b0 + p.bc, batch); b += blockDim.x)
+    atomicMax(&group_end, min(batch_frames[b], frames));
+  __syncthreads();
+  const int t_end = group_end;
+
+  if constexpr (RESIDENT) {
+    // trans_s[j][i] = transition[j0 + j, i]; -inf past the states and in
+    // the rows past them
+    for (int e = tid; e < p.jc * ss; e += blockDim.x) {
+      const int j = e / ss;
+      const int i = e - j * ss;
+      trans_s[e] = j < jlive && i < states
+                       ? transition[static_cast<size_t>(j0 + j) * states + i]
+                       : torbi::neg_inf();
+    }
+  }
+
+  // Chunk c of pass s in frame t into buffer c & 1: the pass's posterior
+  // rows of frame t - 1 (a stopped sequence's row holds its kept value:
+  // read all the same, its candidates go unused) and a streamed slice
+  auto issue = [&](int t, int s, int c) {
+    const int i0 = c * p.chunk;
+    const int count = min(p.chunk, states - i0);
+    const int rows = min(p.bp, batch - (b0 + s * p.bp));
+    stage<VEC>(post_s + static_cast<size_t>(c & 1) * p.bp * cs, cs,
+               post_seq + static_cast<size_t>(b0 + s * p.bp) * seq_stride +
+                   static_cast<size_t>(t - 1) * states,
+               seq_stride, p.bp, rows, i0, VEC ? count : p.chunk, states);
+    if constexpr (!RESIDENT)
+      stage<VEC>(trans_s + static_cast<size_t>(c & 1) * p.jc * cs, cs,
+                 transition + static_cast<size_t>(j0) * states, states,
+                 p.jc, jlive, i0, VEC ? count : p.chunk, states);
+    torbi::cp_async_commit();
+  };
+
+  // Frame 0: post = obs[0] + initial
+  for (int s = 0; s < passes; ++s)
+#pragma unroll
+    for (int o = 0; o < kOut; ++o)
+      if (owns(s, o)) {
+        const size_t at = out_index(s, o, 0);
+        post_seq[at] = obs[at] + initial[j0 + tx + (o % kTile) * tx_n];
+      }
+  if (t_end > 1) group_sync(counters + g, p.dest_groups, 1);
+
+  for (int t = 1; t < t_end; ++t) {
+    for (int s = 0; s < passes; ++s) {
+      int bfq[kTile];
+#pragma unroll
+      for (int q = 0; q < kTile; ++q)
+        bfq[q] = active && seq_of(s, q) < batch ? batch_frames[seq_of(s, q)]
+                                                : 0;
+      // This frame's observations of the live outputs, ahead of their use
+      float ob[kOut];
+#pragma unroll
+      for (int o = 0; o < kOut; ++o)
+        ob[o] = owns(s, o) && t < bfq[o / kTile]
+                    ? __ldg(obs + out_index(s, o, t))
+                    : 0.0f;
+      float acc[kTile][kTile];
+#pragma unroll
+      for (int q = 0; q < kTile; ++q)
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) acc[q][r] = torbi::neg_inf();
+
+      issue(t, s, 0);
+      for (int c = 0; c < chunks; ++c) {
+        // Chunk c + 1 goes in flight while chunk c is computed: buffer
+        // (c + 1) & 1 was last read by chunk c - 1, which every thread
+        // finished before the barrier that ended it
+        if (c + 1 < chunks) {
+          issue(t, s, c + 1);
+          torbi::cp_async_wait<1>();
+        } else {
+          torbi::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (active) {
+          const int quads = (min(p.chunk, states - c * p.chunk) + 3) / 4;
+          const float* ps = post_s + static_cast<size_t>(c & 1) * p.bp * cs +
+                            static_cast<size_t>(ty) * cs;
+          const float* ts =
+              RESIDENT ? trans_s + static_cast<size_t>(tx) * ss + c * p.chunk
+                       : trans_s + static_cast<size_t>(c & 1) * p.jc * cs +
+                             static_cast<size_t>(tx) * cs;
+          const size_t prow = static_cast<size_t>(ty_n) * cs;
+          const size_t trow = static_cast<size_t>(tx_n) * ss;
+#pragma unroll 2
+          for (int u = k; u < quads; u += p.split) {
+            float4 pv[kTile], tv[kTile];
+#pragma unroll
+            for (int q = 0; q < kTile; ++q)
+              pv[q] = *reinterpret_cast<const float4*>(ps + q * prow + 4 * u);
+#pragma unroll
+            for (int r = 0; r < kTile; ++r)
+              tv[r] = *reinterpret_cast<const float4*>(ts + r * trow + 4 * u);
+#pragma unroll
+            for (int q = 0; q < kTile; ++q)
+#pragma unroll
+              for (int r = 0; r < kTile; ++r) {
+                float a = acc[q][r];
+                a = fmaxf(a, pv[q].x + tv[r].x);
+                a = fmaxf(a, pv[q].y + tv[r].y);
+                a = fmaxf(a, pv[q].z + tv[r].z);
+                acc[q][r] = fmaxf(a, pv[q].w + tv[r].w);
+              }
+          }
+        }
+        __syncthreads();
+      }
+      // Combine the split lanes (adjacent, so within one warp)
+      for (int off = 1; off < p.split; off <<= 1)
+#pragma unroll
+        for (int q = 0; q < kTile; ++q)
+#pragma unroll
+          for (int r = 0; r < kTile; ++r)
+            acc[q][r] = fmaxf(acc[q][r],
+                              __shfl_xor_sync(0xffffffffu, acc[q][r], off));
+      // A stopped sequence keeps the value this thread wrote last frame
+#pragma unroll
+      for (int o = 0; o < kOut; ++o)
+        if (owns(s, o))
+          post_seq[out_index(s, o, t)] =
+              t < bfq[o / kTile] ? ob[o] + acc[o / kTile][o % kTile]
+                                 : __ldcg(post_seq + out_index(s, o, t - 1));
+    }
+    if (t + 1 < t_end) group_sync(counters + g, p.dest_groups, t + 1);
+  }
+  // Frames past the group's longest sequence hold the last posterior
+  if (t_end < frames)
+    for (int s = 0; s < passes; ++s)
+#pragma unroll
+      for (int o = 0; o < kOut; ++o)
+        if (owns(s, o)) {
+          const float v = __ldcg(post_seq + out_index(s, o, t_end - 1));
+          for (int t = t_end; t < frames; ++t)
+            post_seq[out_index(s, o, t)] = v;
+        }
+}
+
+template <bool RESIDENT, bool VEC>
 int launch(const float* obs, const int* batch_frames, const float* initial,
-           const float* transition, float* post_seq, int batch, int frames,
-           int states, cudaStream_t stream) {
-  // The per-warp scratch of the banded kernel is not used here, but the
-  // shared size rule is kept so both kernels take the same NB
-  const size_t smem = torbi::forward_smem_bytes(NB, states);
+           const float* transition, float* post_seq, unsigned* counters,
+           int batch, int frames, int states, const Plan& p,
+           cudaStream_t stream) {
+  auto kernel = dense_forward_kernel<RESIDENT, VEC>;
+  const size_t smem = smem_floats(p, states) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dense_forward_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((batch + NB - 1) / NB);
-  dense_forward_kernel<NB><<<grid, torbi::forward_threads(states), smem,
-                             stream>>>(obs, batch_frames, initial,
-                                       transition, post_seq, batch, frames,
-                                       states);
+  Plan plan = p;
+  void* args[] = {&obs,     &batch_frames, &initial, &transition,
+                  &post_seq, &counters,    &batch,   &frames,
+                  &states,   &plan};
+  // A cooperative launch refuses a grid whose CTAs the card cannot hold
+  // at once, which the group barriers need
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(kernel), dim3(p.groups * p.dest_groups),
+      dim3(p.threads), args, smem, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+bool valid(const Plan& p, int batch, int states, size_t optin) {
+  const int cells = (p.bp / kTile) * (p.jc / kTile);
+  const int step = 4 * p.split > 8 ? 4 * p.split : 8;
+  return p.bp >= kTile && p.bp % kTile == 0 && p.bc >= p.bp &&
+         p.bc % p.bp == 0 && p.jc >= kTile && p.jc % kTile == 0 &&
+         p.groups >= 1 && p.dest_groups >= 1 &&
+         static_cast<long long>(p.groups) * p.bc >= batch &&
+         static_cast<long long>(p.dest_groups) * p.jc >= states &&
+         (p.groups - 1) * p.bc < batch &&
+         (p.dest_groups - 1) * p.jc < states && p.split >= 1 &&
+         p.split <= 32 && (p.split & (p.split - 1)) == 0 &&
+         p.threads % 32 == 0 && p.threads <= kMaxThreads &&
+         p.threads >= cells * p.split && p.chunk >= step &&
+         p.chunk % step == 0 && (!p.vec || states % 4 == 0) &&
+         smem_floats(p, states) * sizeof(float) <= optin;
+}
+
+template <bool RESIDENT>
+int launch_vec(const float* obs, const int* batch_frames,
+               const float* initial, const float* transition,
+               float* post_seq, unsigned* counters, int batch, int frames,
+               int states, const Plan& p, cudaStream_t stream) {
+  return p.vec ? launch<RESIDENT, true>(obs, batch_frames, initial,
+                                        transition, post_seq, counters,
+                                        batch, frames, states, p, stream)
+               : launch<RESIDENT, false>(obs, batch_frames, initial,
+                                         transition, post_seq, counters,
+                                         batch, frames, states, p, stream);
 }
 
 }  // namespace
 
 // obs, post_seq: (batch, frames, states) float32; batch_frames: (batch,)
 // int32; initial: (states,) float32; transition: (states, states) float32,
-// row = destination. Returns a cudaError_t code.
+// row = destination; counters: (groups,) uint32 zeros, the group barriers.
+// The plan's fields as ops/dense.py::dense_plan gives them. Returns a
+// cudaError_t code: cudaErrorInvalidValue for a plan that does not own
+// every output once or does not fit the card.
 extern "C" int dense_forward(const float* obs, const int* batch_frames,
                              const float* initial, const float* transition,
-                             float* post_seq, int batch, int frames,
-                             int states, void* stream) {
+                             float* post_seq, unsigned* counters, int batch,
+                             int frames, int states, int bc, int bp, int jc,
+                             int groups, int dest_groups, int split,
+                             int chunk, int resident, int vec, int threads,
+                             void* stream) {
   if (batch <= 0 || frames <= 0 || states <= 0) return cudaErrorInvalidValue;
+  const Plan p = {bc,    bp,    jc,       groups, dest_groups,
+                  split, chunk, resident, vec,    threads};
+  size_t optin = 0;
+  cudaError_t err = torbi::optin_smem(&optin);
+  if (err != cudaSuccess) return err;
+  if (!valid(p, batch, states, optin)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (torbi::forward_sequences_per_cta(batch, states)) {
-    case 4:
-      return launch<4>(obs, batch_frames, initial, transition, post_seq,
-                       batch, frames, states, s);
-    case 2:
-      return launch<2>(obs, batch_frames, initial, transition, post_seq,
-                       batch, frames, states, s);
-    case 1:
-      return launch<1>(obs, batch_frames, initial, transition, post_seq,
-                       batch, frames, states, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return resident ? launch_vec<true>(obs, batch_frames, initial, transition,
+                                     post_seq, counters, batch, frames,
+                                     states, p, s)
+                  : launch_vec<false>(obs, batch_frames, initial, transition,
+                                      post_seq, counters, batch, frames,
+                                      states, p, s);
 }

@@ -15,10 +15,11 @@ argmax of the final posterior, and positions at or beyond
 
 One sequence on its own (batch 1) takes a chase of its own, with the same
 result: ``backtrace_fused1`` (K5, every state) or ``backtrace_window`` (K6,
-the band window only, for a pure -inf band). K5 runs in two phases, each
+the band window only, for a pure -inf band). Both run in two phases, each
 with a plain version: ``backtrace_pointers`` computes every backpointer of
-the sequence in parallel from the gated band (phase 1), and
-``chase_pointers`` follows them in blocks of frames (phase 2).
+the sequence in parallel from the gated band (phase 1; K6's phase 1 is the
+same pass without the floor term), and ``chase_pointers`` follows them in
+blocks of frames (phase 2).
 """
 import ctypes
 
@@ -334,24 +335,60 @@ def backtrace_fused1(post_seq, transition, posterior, batch_frames,
     return chase_pointers(pointers, posterior, batch_frames)
 
 
-def backtrace_window(post_seq, transition, posterior, batch_frames, band):
-    """Batch-1 chase over the band window only: the K6 kernel
-    (csrc/backtrace_batch1.cu) on CUDA tensors, its plain version on CPU
-    tensors. Each step takes the argmax over the sources
+def window_pointers(post_seq, band, band_matrix, batch_frames):
+    """K6's phase 1: every backpointer of one sequence from a pure -inf band
+    (csrc/backtrace_batch1.cu, backtrace_window: K5's phase-1 pass without
+    the floor term, and no floor pass) on CUDA tensors,
+    ``backtrace_pointers_reference`` on CPU tensors. Arguments and result
+    as there. Each launch counts in ``backtrace_window.launches``, K6's
+    counter."""
+    _require_batch1(post_seq)
+    _require_pure_band(band)
+    if post_seq.device.type == 'cpu':
+        return backtrace_pointers_reference(
+            post_seq, band, band_matrix, batch_frames)
+    lo, width, _ = band
+    device = post_seq.device
+    _, frames, states = post_seq.shape
+    build.check('post_seq', post_seq, (1, frames, states), torch.float32,
+                device)
+    build.check('band_matrix', band_matrix, (width, states), torch.float32,
+                device)
+    build.check('batch_frames', batch_frames, (1,), torch.int32, device)
+    table = torch.empty((frames, states), dtype=torch.int16, device=device)
+    if frames:
+        lib = _batch1_library()
+        with torch.cuda.device(device):
+            code = lib.backtrace_window(
+                build.pointer(post_seq), build.pointer(band_matrix),
+                build.pointer(batch_frames), build.pointer(table), frames,
+                states, lo, width, build.stream(device))
+        build.raise_on_error(lib, 'backtrace_window', code)
+        backtrace_window.launches += 1
+    return table
+
+
+def backtrace_window(post_seq, transition, posterior, batch_frames, band,
+                     band_matrix=None):
+    """Batch-1 chase over the band window only (K6), in two phases:
+    ``window_pointers`` (every backpointer from the band) and K5's phase 2
+    ``chase_pointers``, each its kernel on CUDA tensors and its plain
+    version on CPU tensors. Each step takes the argmax over the sources
     ``[index + lo, index + lo + width)`` cut to ``[0, states)``. Exact only
     on a pure -inf band (``band[2] is None``): with a finite floor a path
     can leave the window, so a floor band raises. Arguments and result as
     in ``backtrace_posteriors`` with batch 1, plus ``band`` from
-    ``detect_band``."""
-    if post_seq.device.type == 'cpu':
-        return backtrace_window_reference(
-            post_seq, transition, posterior, batch_frames, band)
+    ``detect_band`` and its band matrix (built here when None). Its phase 1
+    counts in ``backtrace_window.launches``, its phase 2 in
+    ``chase_pointers.launches``."""
+    _require_batch1(post_seq)
     _require_pure_band(band)
-    indices = _batch1_launch(
-        'backtrace_window', post_seq, transition, posterior, batch_frames,
-        band[0], band[1])
-    backtrace_window.launches += 1
-    return indices
+    if band_matrix is None:
+        from .band import build_band_matrix
+
+        band_matrix = build_band_matrix(transition, band[0], band[1])
+    pointers = window_pointers(post_seq, band, band_matrix, batch_frames)
+    return chase_pointers(pointers, posterior, batch_frames)
 
 
 backtrace_window.launches = 0
@@ -370,32 +407,6 @@ def _require_pure_band(band):
         raise ValueError(
             f'the window chase needs a pure -inf band of width > 0, got '
             f'{band}: a finite floor lets the path leave the window')
-
-
-def _batch1_launch(kernel, post_seq, transition, posterior, batch_frames,
-                   *window):
-    """Check the arguments of a batch-1 chase and launch ``kernel`` of
-    csrc/backtrace_batch1.cu; returns the (1, frames) int32 indices"""
-    _require_batch1(post_seq)
-    device = post_seq.device
-    _, frames, states = post_seq.shape
-    build.check('post_seq', post_seq, (1, frames, states), torch.float32,
-                device)
-    build.check('transition', transition, (states, states), torch.float32,
-                device)
-    build.check('batch_frames', batch_frames, (1,), torch.int32, device)
-    _check_posterior(posterior, 1, states, device)
-    indices = torch.empty((1, frames), dtype=torch.int32, device=device)
-    if frames:
-        lib = _batch1_library()
-        with torch.cuda.device(device):
-            code = getattr(lib, kernel)(
-                build.pointer(post_seq), build.pointer(posterior),
-                build.pointer(transition), build.pointer(batch_frames),
-                build.pointer(indices), frames, states, *window,
-                build.stream(device))
-        build.raise_on_error(lib, kernel, code)
-    return indices
 
 
 def _check_posterior(posterior, batch, states, device):
@@ -419,14 +430,12 @@ def _library():
 
 def _batch1_library():
     lib = build.library('backtrace_batch1')
-    pointers = [ctypes.c_void_p] * 5
     lib.backtrace_pointers.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.chase_pointers.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.backtrace_window.argtypes = pointers + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+    lib.backtrace_window.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.backtrace_pointers.restype = ctypes.c_int
     lib.chase_pointers.restype = ctypes.c_int
     lib.backtrace_window.restype = ctypes.c_int

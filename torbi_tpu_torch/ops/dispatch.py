@@ -134,7 +134,8 @@ def kernel_route(transition, band, batch):
     observation as they load it, K2 takes it converted (other flags
     raise). ``chase(post_seq, posterior, batch_frames)`` gives the indices
     through K3 ('backtrace'), K5 ('backtrace_fused1') or K6
-    ('backtrace_window').
+    ('backtrace_window'); K5 and K6 count their launches per phase (K5's
+    'backtrace_pointers', K6's 'backtrace_window', both 'chase_pointers').
     """
     import torbi_tpu_torch
 
@@ -150,7 +151,7 @@ def kernel_route(transition, band, batch):
 
         forward = ('dense_forward', dense_forward)
     else:
-        # K4 and K5 read the same band matrix
+        # K4, K5 and K6 read the same band matrix
         matrix = _band_matrix(transition, band)
         spread = (batch == 1 and band[1] > 0
                   and torbi_tpu_torch.BAND_BATCH1_SPREAD
@@ -169,7 +170,7 @@ def kernel_route(transition, band, batch):
             backtrace_fused1(post, transition, posterior, bf, band, matrix)))
     if chase == 'window':
         return forward, ('backtrace_window', lambda post, posterior, bf: (
-            backtrace_window(post, transition, posterior, bf, band)))
+            backtrace_window(post, transition, posterior, bf, band, matrix)))
     return forward, ('backtrace', lambda post, posterior, bf: (
         backtrace_posteriors(post, transition, posterior, bf)))
 
