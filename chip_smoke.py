@@ -11,18 +11,20 @@ just after each:
 - the banded path (the headline): 512 sequences x 512 frames of peaked
   synthetic pitch posteriorgrams under the 1440-state pitch transition
   taken to log(p + tiny) -- the banded forward kernel (K1) in its cluster
-  design, then the backtrace (K3). K1's two designs (the cluster design
-  ``band_forward`` and the per-CTA design ``band_forward_cta``) are both
-  held bitwise and timed at the headline and on the auto-chunk rows, and
-  K1 (at every cluster size) and K3 on every shape of the edge list
-  (``torbi_tpu_torch/utils/edges.py``, the list the CPU tests hold against
-  torbi_tpu), K3 also past 8 x 1024 states. The banded forward kernels
-  convert the observation as they load it (the log of a probability, the
-  epsilon step): K1 in both designs at every cluster size and K4 are held
+  design, then the backtrace (K3). K1's cluster design ``band_forward`` is
+  held bitwise and timed at the headline and on the auto-chunk rows, its
+  wide-band design ``band_forward_wide`` (one persistent CTA per SM) on the
+  auto-chunk rows beside it, and K1 (the cluster design at every cluster
+  size, the wide-band design in both slice modes) and K3 on every shape
+  of the edge list (``torbi_tpu_torch/utils/edges.py``, the list the CPU
+  tests hold against torbi_tpu), K3 also past 8 x 1024 states. The banded
+  forward kernels convert the observation as they load it (the log of a
+  probability, the epsilon step): K1 in both designs and K4 are held
   bitwise against the plain route (the conversion's torch ops, then the
   same kernel) in log and probability space, with log(tiny) and
-  0 < p < tiny entries, at the headline, on the auto-chunk rows and over
-  the edge list, and timed against the epsilon step plus the kernel; the
+  0 < p < tiny entries, at the headline (the cluster design), on the
+  auto-chunk rows, on a 401-wide band (the wide-band design) and over the
+  edge list, and timed against the epsilon step plus the kernel; the
   headline also runs with ``log_probs=False``, and its traced call must
   hold no elementwise exp or log;
 - the dense path: the README toy, a random dense 1440-state transition at
@@ -51,8 +53,9 @@ just after each:
   K3), the serial route with auto-chunking off (the batch-1 forward K4,
   then the fused chase K5), a 2048-frame sequence (K4, K5), the window
   chase (K6) on a pure -inf band, a band too wide for K4's register tile
-  (K1's cluster design, K5), a band too wide for any cluster layout (K1's
-  per-CTA design, K5), and the uniform transition's closed form. K6 is
+  (K1's cluster design, K5), a band too wide for any cluster layout (width
+  401: K1's wide-band design, K5), and the uniform transition's closed
+  form. K6 is
   K5's two phases without the floor pass: its phase-1 table and its path
   are held against their plain versions and its path against K5 at
   1 x 10,240, 1 x 2048 and on every sequence of the pure-band edges; the
@@ -60,6 +63,17 @@ just after each:
   (the floor pass). The
   auto-chunk route is timed on a new observation every call (its plan
   computed each time), from a host array, and with its plan cached;
+- the wide-band paths, bands no cluster layout holds (K1's wide-band
+  design): (a) 1 x 256 x 1440 at width 401 over log(tiny) through
+  ``from_probabilities`` (K1, then K5); (b) 512 x 512 x 1440 under the
+  pitch transition of a 20 ms hop (width 347), the kernel alone, in both
+  slice modes; (c) one pitch sequence of 10,240 frames under that
+  transition through ``from_probabilities``, its default auto-chunk route
+  (K1 on the rows, then K3); also 4096 states at width 175, and a band of
+  half of 8200 states (the slice streamed). The kernel is held bitwise
+  against its plain version at each, timed at (a) and (b) in turns
+  against K2 on the same transition as a dense matrix (the same
+  function), the paths against the plain scan route;
 - the labs (``python -m torbi_tpu_torch.scripts.kernel_lab`` and
   ``... .chase_lab``): each lab kernel held bitwise against its plain
   version at small shapes (every forward body, the pipe groups 2-16
@@ -84,7 +98,8 @@ just after each:
   ``torbi_tpu_torch/assets/reference_paths.npz``): every case, decoded by
   torbi_tpu on the CPU when the file was written, decoded on the card
   through ``from_probabilities`` and held against it bitwise, the serial
-  cases through K4 and K5;
+  cases through K4 and K5, the wide-band cases through K1's wide-band
+  design;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -126,7 +141,15 @@ WINDOW_HALFWIDTH = 87
 # (width 261), and the frames of the phases that check that limit; a band
 # too wide for any layout of K1's cluster design (width 401)
 WIDE_HALFWIDTH, EDGE_FRAMES = 130, 256
-CTA_HALFWIDTH = 200
+BAND401_HALFWIDTH = 200
+# The pitch transition at a 20 ms hop (160 samples at 8 kHz): a band of
+# width 347, which no cluster layout of K1 holds at 1440 states; K1's
+# wide-band design at 512 x 512 x 1440 (path b) and on one sequence of
+# 10,240 frames (path c); and 4096 states at the pitch band's width
+HOP_20MS = 160
+WIDE_STATES, WIDE_STATES_HALFWIDTH = 4096, 87
+# A band of half of 8200 states: the wide-band slice streams
+STREAMED_STATES, STREAMED_HALFWIDTH, STREAMED_FRAMES = 8200, 2000, 6
 # K3 past 8 x 1024 states: the chase without staging, on a dense transition
 BIG_STATES = 8200
 
@@ -208,6 +231,19 @@ def k5_launched(counts):
     return counts['backtrace_pointers'] >= 1 and counts['chase_pointers'] >= 1
 
 
+def slice_mode_plans(plans):
+    """The cheapest plan of each slice mode (resident, then streamed) of a
+    launch planner's ``plans``, where one of that mode fits"""
+    plans = list(plans)
+    chosen = []
+    for resident in (True, False):
+        plan = min((plan for plan in plans if plan['resident'] == resident),
+                   key=lambda plan: plan['cost'], default=None)
+        if plan is not None:
+            chosen.append(plan)
+    return chosen
+
+
 def require_equal(torch, name, got, expected):
     err = max_abs_err(torch, got, expected)
     if not torch.equal(got, expected):
@@ -236,18 +272,6 @@ def host_ms(torch, fn, calls=10):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
     return statistics.median(times), min(times), max(times)
-
-
-def triangular_log(states, halfwidth, tiny):
-    """log(p + tiny) of a triangular band transition of the given
-    half-width (tests/test_autochunk.py's): tiny 0 gives a pure -inf band,
-    TINY a band over the pitch transition's floor"""
-    bins = np.arange(states)
-    tri = np.clip(halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]),
-                  0, None)
-    with np.errstate(divide='ignore'):
-        return np.log((tri / tri.sum(axis=1, keepdims=True)).astype(np.float32)
-                      + np.float32(tiny)).astype(np.float32)
 
 
 def in_range_pairs(states, lo, width):
@@ -481,8 +505,9 @@ def trace_dense(trace_dir):
 def hold_fixtures(torch, fixtures, device, reset_counts, read_counts):
     """Decode every committed fixture case on the card through
     from_probabilities and hold its path against torbi_tpu's, bitwise; the
-    serial cases must launch K4 and K5 (the counters reset just before and
-    read just after each). Returns the number of cases held"""
+    serial cases must launch K4 and K5, the wide cases K1's wide-band
+    design (the counters reset just before and read just after each).
+    Returns the number of cases held"""
     committed = fixtures.load()
     names = [case.name for case in fixtures.CASES]
     if sorted(committed) != sorted(names):
@@ -502,6 +527,12 @@ def hold_fixtures(torch, fixtures, device, reset_counts, read_counts):
                 counts['band_spread'] < 1 or not k5_launched(counts)):
             fail(f'fixture {case.name} did not take the serial route (K4, '
                  f'K5): launches {counts}')
+        if case.name in fixtures.WIDE and (
+                counts['band_forward_wide'] < 1 or counts['band_forward']
+                or (case.name in fixtures.WIDE_SERIAL)
+                != k5_launched(counts)):
+            fail(f'fixture {case.name} did not take K1\'s wide-band design '
+                 f'(and K5 for one sequence): launches {counts}')
         if got.device != device or not np.array_equal(
                 got.cpu().numpy(), expected):
             differ = int((got.cpu().numpy() != expected).sum())
@@ -629,9 +660,7 @@ def main():
 
     # 2. Each kernel against its plain version on the card
     # K1 at the headline shape: the cluster design (band_forward, as
-    # band.cluster_plan launches it) and the per-CTA design
-    # (band_forward_cta), each against the plain version, then timed in
-    # turns (cluster, per-CTA, per-CTA, cluster)
+    # band.cluster_plan launches it) against the plain version, then timed
     k1_args = (obs_k, bf, init, band_tuple, band_matrix)
     resident = {size: band.resident_clusters(STATES, width, size, device)
                 for size in band.cluster_sizes(STATES, width)}
@@ -645,15 +674,9 @@ def main():
     torch.cuda.synchronize()
     err = require_equal(torch, 'K1 band_forward (cluster design)', post_k,
                         post_r)
-    cta_err = require_equal(
-        torch, 'K1 band_forward_cta (per-CTA design)',
-        band.viterbi_forward_band_cta(*k1_args)[0], post_r)
     del post_r
-    k1_turns = [cuda_ms(torch, lambda: fn(*k1_args), iters=5) for fn in (
-        band.viterbi_forward_band, band.viterbi_forward_band_cta,
-        band.viterbi_forward_band_cta, band.viterbi_forward_band)]
-    k1_ms = (k1_turns[0] + k1_turns[3]) / 2
-    k1_cta_ms = (k1_turns[1] + k1_turns[2]) / 2
+    k1_ms = cuda_ms(torch, lambda: band.viterbi_forward_band(*k1_args),
+                    iters=5)
     steps = valid_steps(bf, FRAMES)
     in_range = in_range_pairs(STATES, lo, width)
     k1_bytes = (2 * BATCH * FRAMES * STATES + width * STATES + STATES) * 4
@@ -667,17 +690,16 @@ def main():
         max_abs_err=err, ms=k1_ms, plain_ms=k1_plain_ms,
         bound=bound_ms(k1_bytes, k1_ops), library_ms=None,
         smem_bound_ms=steps * in_range / smem_words_per_s * 1e3)
-    # The per-CTA design's line takes its time, bound and plain time from
-    # the path that runs it (phase 6, the band no cluster layout holds);
-    # its headline time stands beside them
-    kernels['band_forward_cta'] = dict(
-        name='band_forward_cta', route='cuda',
-        source='torbi_tpu_torch/csrc/band_forward.cu',
-        replaces='torbi_tpu/ops/band.py:512', path='batch1-cta',
-        max_abs_err=cta_err, headline_ms=k1_cta_ms)
-    info(f'K1 at the headline, in turns (ms): cluster {k1_turns[0]:.3f}, '
-         f'per-CTA {k1_turns[1]:.3f}, per-CTA {k1_turns[2]:.3f}, cluster '
-         f'{k1_turns[3]:.3f}; plain {k1_plain_ms:.1f} ms')
+    # The wide-band design's line takes its time, bound and plain time
+    # from path (a), the band no cluster layout holds (phase 6); its
+    # throughput shape (b) and auto-chunk path (c) stand beside them
+    kernels['band_forward_wide'] = dict(
+        name='band_forward_wide', route='cuda',
+        source='torbi_tpu_torch/csrc/band_wide.cu',
+        replaces='torbi_tpu/ops/band.py:512', path='wide-band',
+        max_abs_err=0.0)
+    info(f'K1 at the headline (cluster design): {k1_ms:.3f} ms; plain '
+         f'{k1_plain_ms:.1f} ms')
 
     # K1 as the main path calls it, the conversion folded in: each design
     # (the cluster design as the plan launches it and at every cluster
@@ -699,11 +721,7 @@ def main():
                 torch, dispatch, f'K1 band_forward folded at the headline, '
                 f'{size} per cluster', band._forward_band_clusters, obs,
                 fold_rest + (size,)))
-    kernels['band_forward_cta']['max_abs_err'] = max(
-        kernels['band_forward_cta']['max_abs_err'], hold_folded(
-            torch, dispatch, 'K1 band_forward_cta folded at the headline',
-            band.viterbi_forward_band_cta, obs, fold_rest))
-    info('K1 folded (both designs, cluster sizes '
+    info('K1 folded (cluster sizes '
          f'{"/".join(map(str, band.CLUSTER_TILES))}) bitwise equal to the '
          'plain route at the headline, log and probability space')
 
@@ -736,14 +754,11 @@ def main():
          f'{kernels["band_forward"]["bound"][0]:.3f} '
          f'({kernels["band_forward"]["bound"][1]})')
     # Band bytes read from L2 per call, reckoned from the launch layout
-    # (not measured): the per-CTA design loads every in-range band value
-    # in every CTA (4 sequences each) and frame, counted as if each load
-    # went to L2; the cluster design loads each CTA's slice (the whole band
-    # per cluster) once per launch
+    # (not measured): the cluster design loads each CTA's slice (the whole
+    # band per cluster) once per launch
     info('K1 band bytes from L2 per headline call, estimated from the '
          'launch layout, not measured: cluster '
-         f'{clusters_of(k1_plan) * width * STATES * 4:.4g}, per-CTA '
-         f'{-(-BATCH // 4) * (FRAMES - 1) * in_range * 4:.4g}')
+         f'{clusters_of(k1_plan) * width * STATES * 4:.4g}')
 
     # K1's launch plan on the card: one whole wave (the clusters the card
     # holds at once) at each cluster size, whose ratios
@@ -831,8 +846,10 @@ def main():
                 f'{plan["jc"]} destinations a CTA, {plan["threads"]} '
                 f'threads, split {plan["split"]}, chunks of {plan["chunk"]} '
                 f'sources ({"16-byte copies" if plan["vec"] else "loads"}), '
-                f'transition {"resident" if plan["resident"] else "streamed"}'
-                f', {plan["smem_bytes"]} shared bytes')
+                f'slice {"resident" if plan["resident"] else "streamed"}'
+                + (f' over a window of {plan["window"]} sources'
+                   if 'window' in plan else '')
+                + f', {plan["smem_bytes"]} shared bytes')
 
     dense_args = (dense_obs_k, dense_bf, dense_trans, init)
     dpost_k, dposterior_k = dense.viterbi_forward_dense(*dense_args)
@@ -885,16 +902,12 @@ def main():
         # Both slice modes wherever a plan holds them (the cheapest plan of
         # each): the kernel's four instances (resident or streamed slice,
         # copies or loads)
-        plans_e = list(dense.dense_plans(batch_e, states_e, sms))
-        for resident_mode in (True, False):
-            plan = min((p for p in plans_e if p['resident'] == resident_mode),
-                       key=lambda p: p['cost'], default=None)
-            if plan is not None:
-                err = max(err, require_equal(
-                    torch, f'K2 dense_forward at {batch_e} x '
-                    f'{DENSE_EDGE_FRAMES} x {states_e} ({plan_text(plan)})',
-                    dense.viterbi_forward_dense(*e_args, plan=plan)[0],
-                    want))
+        for plan in slice_mode_plans(
+                dense.dense_plans(batch_e, states_e, sms)):
+            err = max(err, require_equal(
+                torch, f'K2 dense_forward at {batch_e} x '
+                f'{DENSE_EDGE_FRAMES} x {states_e} ({plan_text(plan)})',
+                dense.viterbi_forward_dense(*e_args, plan=plan)[0], want))
     # The throughput shape, made on the card from seed 0
     big_obs, big_bf, big_trans, big_init = dense_big_inputs(torch, device)
     if band.detect_band(big_trans) is not None:
@@ -986,8 +999,9 @@ def main():
 
     # The edge list (utils/edges.py, held against torbi_tpu on the CPU by
     # tests/test_torch_edges.py): K1's cluster design at every cluster
-    # size, its per-CTA design and K3 on each band edge, K3 on each chase
-    # edge, and K3 past 8 x 1024 states (the chase without staging)
+    # size, its wide-band design (the cheapest plan of each slice mode)
+    # and K3 on each band edge, K3 on each chase edge, and K3 past 8 x
+    # 1024 states (the chase without staging)
     fold_spread_err = 0.0
     for edge in edges.BAND_EDGES:
         e_obs, e_bf, e_trans, e_init = (
@@ -1003,10 +1017,13 @@ def main():
                 kernels['band_forward']['max_abs_err'], require_equal(
                     torch, f'K1 band_forward {edge.name}, {size} per '
                     'cluster', got, e_post))
-        kernels['band_forward_cta']['max_abs_err'] = max(
-            kernels['band_forward_cta']['max_abs_err'], require_equal(
-                torch, f'K1 band_forward_cta {edge.name}',
-                band.viterbi_forward_band_cta(*e_args)[0], e_post))
+        for plan in slice_mode_plans(band.wide_plans(
+                edge.batch, edge.states, edge.width, sms)):
+            kernels['band_forward_wide']['max_abs_err'] = max(
+                kernels['band_forward_wide']['max_abs_err'], require_equal(
+                    torch, f'K1 band_forward_wide {edge.name} '
+                    f'({plan_text(plan)})', band.viterbi_forward_band_wide(
+                        *e_args, plan=plan)[0], e_post))
         kernels['backtrace']['max_abs_err'] = max(
             kernels['backtrace']['max_abs_err'], require_equal(
                 torch, f'K3 backtrace {edge.name}',
@@ -1015,7 +1032,7 @@ def main():
                 backtrace.backtrace_reference(
                     e_post, e_trans, e_posterior, e_bf)))
         # The folded conversion on the edge, with log(tiny) entries: K1 at
-        # every cluster size and per CTA, K4 on its first sequence (lanes
+        # every cluster size and wide, K4 on each sequence (lanes
         # past the states, sequences past the batch and frames past
         # batch_frames load nothing)
         t_obs, t_rest = with_tiny_entries(e_obs), e_args[1:]
@@ -1025,10 +1042,10 @@ def main():
                     torch, dispatch, f'K1 band_forward folded {edge.name}, '
                     f'{size} per cluster', band._forward_band_clusters,
                     t_obs, t_rest + (size,)))
-        kernels['band_forward_cta']['max_abs_err'] = max(
-            kernels['band_forward_cta']['max_abs_err'], hold_folded(
-                torch, dispatch, f'K1 band_forward_cta folded {edge.name}',
-                band.viterbi_forward_band_cta, t_obs, t_rest))
+        kernels['band_forward_wide']['max_abs_err'] = max(
+            kernels['band_forward_wide']['max_abs_err'], hold_folded(
+                torch, dispatch, f'K1 band_forward_wide folded {edge.name}',
+                band.viterbi_forward_band_wide, t_obs, t_rest))
         # K4 on every sequence of the edge, one at a time: against its
         # plain version, and folded in every conversion
         for seq in range(e_obs.shape[0]):
@@ -1079,7 +1096,8 @@ def main():
                      'exact)')
     del chase_cases, c_trans
     info(f'edge list: {len(edges.BAND_EDGES)} band edges (K1 at '
-         f'{len(band.CLUSTER_TILES)} cluster sizes and per CTA, K3; K4 on '
+         f'{len(band.CLUSTER_TILES)} cluster sizes and wide in both slice '
+         'modes, K3; K4 on '
          f'each sequence; K1 and K4 folded in {len(CONVERSIONS)} '
          f'conversions) and {len(edges.CHASE_EDGES) + 1} chase edges bitwise '
          '(K3; K5 on each sequence of the first '
@@ -1087,7 +1105,7 @@ def main():
 
     counters = {
         'band_forward': band.viterbi_forward_band,
-        'band_forward_cta': band.viterbi_forward_band_cta,
+        'band_forward_wide': band.viterbi_forward_band_wide,
         'band_spread': band.viterbi_forward_band_spread,
         'dense_forward': dense.viterbi_forward_dense,
         'backtrace': backtrace.backtrace_posteriors,
@@ -1198,8 +1216,8 @@ def main():
     if band_counts['band_forward'] < 1 or band_counts['backtrace'] < 1:
         fail('the banded path did not launch the banded forward and '
              'backtrace kernels')
-    if band_counts['band_forward_cta']:
-        fail('the banded path launched K1\'s per-CTA design')
+    if band_counts['band_forward_wide']:
+        fail('the banded path launched K1\'s wide-band design')
     if tuple(result.shape) != (BATCH, FRAMES) or result.dtype != torch.int32:
         fail(f'headline result is {result.dtype} {tuple(result.shape)}')
     if int(result.min()) < 0 or int(result.max()) >= STATES:
@@ -1246,7 +1264,7 @@ def main():
     torch.cuda.synchronize()
     prob_counts = read_counts()
     info(f'banded path in probability space launches: {prob_counts}')
-    if prob_counts['band_forward'] < 1 or prob_counts['band_forward_cta']:
+    if prob_counts['band_forward'] < 1 or prob_counts['band_forward_wide']:
         fail('the probability-space headline did not take K1\'s cluster '
              'design')
     if not torch.equal(prob_result, torbi_tpu_torch.from_probabilities(
@@ -1262,8 +1280,7 @@ def main():
          f'plain scan route on the card; log_probs=True '
          f'{median_s * 1e3:.3f} ms/call')
     info(f'headline per-kernel ms (CUDA events): band_forward '
-         f'{kernels["band_forward"]["ms"]:.3f} (band_forward_cta '
-         f'{kernels["band_forward_cta"]["headline_ms"]:.3f}, plain '
+         f'{kernels["band_forward"]["ms"]:.3f} (plain '
          f'{kernels["band_forward"]["plain_ms"]:.1f}), backtrace '
          f'{kernels["backtrace"]["ms"]:.3f} (plain '
          f'{kernels["backtrace"]["plain_ms"]:.1f}); the epsilon step is '
@@ -1363,7 +1380,7 @@ def main():
     # K4's widest band: the widest band that band.spread_fits
     # admits at 1440 states runs bitwise against the plain version; one
     # offset wider the kernel refuses, so dispatch and kernel agree
-    wide_host = triangular_log(STATES, WIDE_HALFWIDTH, TINY)
+    wide_host = fixtures.triangular_log(STATES, WIDE_HALFWIDTH, TINY)
     wide = torch.from_numpy(wide_host).to(device)
     wide_band = band.detect_band(wide)
     if band.spread_fits(STATES, wide_band[1]):
@@ -1485,7 +1502,7 @@ def main():
     # at 1 x 10,240 and 1 x 2048 and on the pure-band edges, one sequence
     # at a time; timed per phase
     pure = torch.from_numpy(
-        triangular_log(STATES, WINDOW_HALFWIDTH, 0.0)).to(device)
+        fixtures.triangular_log(STATES, WINDOW_HALFWIDTH, 0.0)).to(device)
     pure_band = band.detect_band(pure)
     if pure_band is None or pure_band[2] is not None:
         fail(f'unexpected band {pure_band} for the pure -inf band')
@@ -1634,8 +1651,8 @@ def main():
     if (chunk_counts['band_spread'] or chunk_counts['backtrace_pointers']
             or chunk_counts['chase_pointers']):
         fail('the auto-chunk path launched a batch-1 kernel')
-    if chunk_counts['band_forward_cta']:
-        fail('the auto-chunk path launched K1\'s per-CTA design')
+    if chunk_counts['band_forward_wide']:
+        fail('the auto-chunk path launched K1\'s wide-band design')
     entropy = autochunk.framewise_entropy(single, STATES, True).cpu().numpy()
     plan = autochunk.plan_splits(
         entropy, SINGLE_FRAMES, torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
@@ -1683,7 +1700,7 @@ def main():
     (rows_post, rows_posterior), rows_plain_ms = cuda_once(
         torch, lambda: band.band_forward_reference(*rows_args))
     for kernel, fn in (('band_forward', band.viterbi_forward_band),
-                       ('band_forward_cta', band.viterbi_forward_band_cta)):
+                       ('band_forward_wide', band.viterbi_forward_band_wide)):
         kernels[kernel]['max_abs_err'] = max(
             kernels[kernel]['max_abs_err'], require_equal(
                 torch, f'K1 {kernel} on the auto-chunk rows',
@@ -1697,11 +1714,11 @@ def main():
             backtrace.backtrace_posteriors(
                 rows_post, trans, rows_posterior, row_frames), rows_idx))
     rows_turns = [cuda_ms(torch, lambda: fn(*rows_args), iters=3) for fn in (
-        band.viterbi_forward_band, band.viterbi_forward_band_cta,
-        band.viterbi_forward_band_cta, band.viterbi_forward_band)]
+        band.viterbi_forward_band, band.viterbi_forward_band_wide,
+        band.viterbi_forward_band_wide, band.viterbi_forward_band)]
     rows_k1_ms = (rows_turns[0] + rows_turns[3]) / 2
     # The rows as the route hands them to K1: gathered raw, converted in
-    # the kernel. Folded K1 (the plan, every cluster size, per CTA) bitwise
+    # the kernel. Folded K1 (the plan, every cluster size, wide) bitwise
     # against the plain route, then timed against the epsilon step plus K1
     raw_rows = single[0][gather]
     raw_rest = rows_args[1:]
@@ -1715,10 +1732,10 @@ def main():
                 torch, dispatch, 'K1 band_forward folded on the auto-chunk '
                 f'rows, {size} per cluster', band._forward_band_clusters,
                 raw_rows, raw_rest + (size,)))
-    kernels['band_forward_cta']['max_abs_err'] = max(
-        kernels['band_forward_cta']['max_abs_err'], hold_folded(
-            torch, dispatch, 'K1 band_forward_cta folded on the auto-chunk '
-            'rows', band.viterbi_forward_band_cta, raw_rows, raw_rest))
+    kernels['band_forward_wide']['max_abs_err'] = max(
+        kernels['band_forward_wide']['max_abs_err'], hold_folded(
+            torch, dispatch, 'K1 band_forward_wide folded on the auto-chunk '
+            'rows', band.viterbi_forward_band_wide, raw_rows, raw_rest))
     rows_fold_turns = [cuda_ms(torch, fn, iters=3) for fn in (
         lambda: band.viterbi_forward_band(raw_rows, *raw_rest, True, True),
         lambda: band.viterbi_forward_band(
@@ -1750,19 +1767,21 @@ def main():
         rows_bound_ms=rows_k1_bound[0], rows_bound_by=rows_k1_bound[1],
         rows_smem_bound_ms=rows_steps * in_range / smem_words_per_s * 1e3,
         rows_launches=chunk_counts['band_forward'])
-    kernels['band_forward_cta'].update(
-        rows_ms=(rows_turns[1] + rows_turns[2]) / 2)
+    # A finding, not a route: the wide-band design on the pitch band's
+    # rows beside the cluster design that serves them
+    kernels['band_forward_wide'].update(
+        pitch_rows_ms=(rows_turns[1] + rows_turns[2]) / 2,
+        pitch_rows_cluster_ms=rows_k1_ms)
     info('K1 band bytes from L2 on the auto-chunk rows, estimated from the '
          'launch layout as at the headline, not measured: cluster '
-         f'{clusters_of(rows_plan) * width * STATES * 4:.4g}, per-CTA '
-         f'{n_rows * (longest - 1) * in_range * 4:.4g}')
+         f'{clusters_of(rows_plan) * width * STATES * 4:.4g}')
     kernels['backtrace'].update(
         rows_ms=rows_k3_ms, rows_plain_ms=rows_k3_plain_ms,
         rows_bound_ms=rows_k3_bound[0], rows_bound_by=rows_k3_bound[1],
         rows_launches=chunk_counts['backtrace'])
     info(f'auto-chunk rows ({n_rows} x {longest} x {STATES}, cluster plan '
          f'{rows_plan}): K1 in turns (ms) cluster {rows_turns[0]:.3f}, '
-         f'per-CTA {rows_turns[1]:.3f}, per-CTA {rows_turns[2]:.3f}, cluster '
+         f'wide {rows_turns[1]:.3f}, wide {rows_turns[2]:.3f}, cluster '
          f'{rows_turns[3]:.3f} ({rows_k1_ms * 1e3 / (longest - 1):.3f} '
          f'us/frame), plain {rows_plain_ms:.1f}, bound '
          f'{rows_k1_bound[0]:.4f} ({rows_k1_bound[1]}); K3 {rows_k3_ms:.3f} '
@@ -1811,79 +1830,254 @@ def main():
 
     # A band too wide for K4 takes K1's cluster design, then K5
     wide_out, wide_counts = run_path(
-        'batch-1 wide-band path',
+        'batch-1 band past K4 path',
         lambda: single_call(single[:, :EDGE_FRAMES], trans_in=wide),
         EDGE_FRAMES)
     if (wide_counts['band_forward'] < 1 or wide_counts['band_spread']
-            or wide_counts['band_forward_cta']
+            or wide_counts['band_forward_wide']
             or not k5_launched(wide_counts)):
-        fail('the wide-band path did not take K1\'s cluster design and K5')
-    require_same('wide-band path', wide_out,
+        fail('the band past K4 did not take K1\'s cluster design and K5')
+    require_same('band past K4 path', wide_out,
                  single_call(single[:, :EDGE_FRAMES], trans_in=wide,
                              backend='scan'),
                  'the plain scan route on the card')
 
-    # A band too wide for every cluster layout takes K1's per-CTA design,
-    # then K5; the kernel against its plain version first
-    cta_trans = torch.from_numpy(
-        triangular_log(STATES, CTA_HALFWIDTH, TINY)).to(device)
-    cta_band = band.detect_band(cta_trans)
-    if band.forward_kernel(STATES, cta_band[1])[0] != 'band_forward_cta':
-        fail(f'the band {cta_band} fits a cluster layout; expected it too '
+    # The wide-band paths: bands that no cluster layout of K1 holds take
+    # its wide-band design (one persistent CTA per SM)
+    def wide_against_dense(raw, args, transition, iters):
+        """The wide-band design with the epsilon step folded in, and K2 on
+        the same transition as a dense matrix (the same function; the
+        observation converted first), timed in turns (wide, K2, K2, wide);
+        then the wide-band design on the converted observation. Returns
+        (wide ms, K2 ms, unfolded wide ms, the turns)"""
+        converted = dispatch.convert(raw, True, True).contiguous()
+
+        def wide_call():
+            return band.viterbi_forward_band_wide(raw, *args[1:], True, True)
+
+        def dense_call():
+            return dense.viterbi_forward_dense(
+                converted, args[1], transition, args[2])
+
+        turns = [cuda_ms(torch, fn, iters=iters) for fn in (
+            wide_call, dense_call, dense_call, wide_call)]
+        unfolded = cuda_ms(torch, lambda: band.viterbi_forward_band_wide(
+            converted, *args[1:]), iters=iters)
+        return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, \
+            unfolded, turns
+
+    def wide_bound(batch, frames, states, lengths, wide_band):
+        """The wide-band function's bound on these inputs: the observation
+        in and the stream out, the band once; an add and a max per
+        in-range candidate, per state the floor max, the posterior max and
+        the observation add, and the folded conversion per value"""
+        steps_w = valid_steps(lengths, frames)
+        pairs = in_range_pairs(states, wide_band[0], wide_band[1])
+        return bound_ms(
+            (2 * batch * frames * states + wide_band[1] * states + states)
+            * 4, steps_w * (2 * pairs + 3 * states)
+            + (batch + steps_w) * states * conv_per_value)
+
+    wide_entry = kernels['band_forward_wide']
+    wide_sass, wide_sass_fp32 = sass_loop_instructions(
+        build, 'band_wide', 'band_wide_kernelILb1ELb1E')
+    wide_entry.update(sass_fp32_per_candidate=wide_sass_fp32,
+                      sass_instructions_per_candidate=wide_sass)
+
+    # (a) A band of width 401 over log(tiny) on one sequence of 256
+    # frames: the kernel against its plain version and K2's dense matrix,
+    # folded in every conversion, timed; then the path through
+    # from_probabilities (K1, then K5)
+    band401_trans = torch.from_numpy(
+        fixtures.triangular_log(STATES, BAND401_HALFWIDTH, TINY)).to(device)
+    band401 = band.detect_band(band401_trans)
+    if band.forward_kernel(STATES, band401[1])[0] != 'band_forward_wide':
+        fail(f'the band {band401} fits a cluster layout; expected it too '
              'wide')
-    cta_args = (edge_obs, bf_edge, init, cta_band, band.build_band_matrix(
-        cta_trans, cta_band[0], cta_band[1]))
-    (cta_post_r, _), cta_plain_ms = cuda_once(
-        torch, lambda: band.band_forward_reference(*cta_args))
-    kernels['band_forward_cta']['max_abs_err'] = max(
-        kernels['band_forward_cta']['max_abs_err'], require_equal(
-            torch, f'K1 band_forward_cta (width {cta_band[1]})',
-            band.viterbi_forward_band_cta(*cta_args)[0], cta_post_r))
-    del cta_post_r
-    kernels['band_forward_cta']['max_abs_err'] = max(
-        kernels['band_forward_cta']['max_abs_err'], hold_folded(
-            torch, dispatch, f'K1 band_forward_cta folded (width '
-            f'{cta_band[1]})', band.viterbi_forward_band_cta,
-            single[:, :EDGE_FRAMES].contiguous(), cta_args[1:]))
-    # Timed on this path's inputs, its bound from this band's candidates
-    cta_raw = single[:, :EDGE_FRAMES].contiguous()
-    cta_turns = [cuda_ms(torch, fn, iters=5) for fn in (
-        lambda: band.viterbi_forward_band_cta(
-            cta_raw, *cta_args[1:], True, True),
-        lambda: band.viterbi_forward_band_cta(*cta_args),
-        lambda: band.viterbi_forward_band_cta(*cta_args),
-        lambda: band.viterbi_forward_band_cta(
-            cta_raw, *cta_args[1:], True, True))]
-    cta_ms = (cta_turns[0] + cta_turns[3]) / 2
-    cta_steps = valid_steps(bf_edge, EDGE_FRAMES)
-    cta_in_range = in_range_pairs(STATES, cta_band[0], cta_band[1])
-    cta_bound = bound_ms(
-        (2 * EDGE_FRAMES * STATES + cta_band[1] * STATES + STATES) * 4,
-        cta_steps * (2 * cta_in_range + 3 * STATES)
-        + (1 + cta_steps) * STATES * conv_per_value)
-    kernels['band_forward_cta'].update(
-        ms=cta_ms, unfolded_ms=(cta_turns[1] + cta_turns[2]) / 2,
-        plain_ms=cta_plain_ms, bound=cta_bound, library_ms=None,
-        smem_bound_ms=cta_steps * cta_in_range / smem_words_per_s * 1e3,
-        shape=f'1 x {EDGE_FRAMES} x {STATES}, width {cta_band[1]}')
-    info(f'K1 band_forward_cta at width {cta_band[1]} (1 x {EDGE_FRAMES}): '
-         f'folded {cta_ms:.3f} ms ({cta_ms * 1e3 / cta_steps:.3f} us/frame; '
-         f'in turns ' + ', '.join(f'{ms:.3f}' for ms in cta_turns)
-         + f': folded, on a converted sequence twice, folded), plain '
-         f'{cta_plain_ms:.1f} ms, bound {cta_bound[0]:.4f} ({cta_bound[1]})')
-    cta_out, cta_counts = run_path(
-        'batch-1 per-CTA band path',
-        lambda: single_call(single[:, :EDGE_FRAMES], trans_in=cta_trans),
-        EDGE_FRAMES)
-    if (cta_counts['band_forward_cta'] < 1 or cta_counts['band_forward']
-            or cta_counts['band_spread']
-            or not k5_launched(cta_counts)):
-        fail('the per-CTA band path did not take K1\'s per-CTA design and '
+    a_raw = single[:, :EDGE_FRAMES].contiguous()
+    a_args = (edge_obs, bf_edge, init, band401, band.build_band_matrix(
+        band401_trans, band401[0], band401[1]))
+    (a_post_r, _), a_plain_ms = cuda_once(
+        torch, lambda: band.band_forward_reference(*a_args))
+    a_plan = band.wide_plan(1, STATES, band401[1], sms)
+    wide_entry['max_abs_err'] = max(
+        wide_entry['max_abs_err'], require_equal(
+            torch, f'K1 band_forward_wide (a) 1 x {EDGE_FRAMES} x {STATES}, '
+            f'width {band401[1]} ({plan_text(a_plan)})',
+            band.viterbi_forward_band_wide(*a_args)[0], a_post_r),
+        require_equal(
+            torch, f'K2 dense_forward on the width-{band401[1]} transition '
+            'as a dense matrix (a), against the wide-band plain version',
+            dense.viterbi_forward_dense(
+                edge_obs, bf_edge, band401_trans, init)[0], a_post_r))
+    del a_post_r
+    wide_entry['max_abs_err'] = max(
+        wide_entry['max_abs_err'], hold_folded(
+            torch, dispatch, f'K1 band_forward_wide folded (a), width '
+            f'{band401[1]}', band.viterbi_forward_band_wide,
+            with_tiny_entries(a_raw), a_args[1:]))
+    a_ms, a_dense_ms, a_unfolded_ms, a_turns = wide_against_dense(
+        a_raw, a_args, band401_trans, iters=5)
+    a_steps = valid_steps(bf_edge, EDGE_FRAMES)
+    a_bound = wide_bound(1, EDGE_FRAMES, STATES, bf_edge, band401)
+    wide_entry.update(
+        ms=a_ms, unfolded_ms=a_unfolded_ms, plain_ms=a_plain_ms,
+        bound=a_bound, library_ms=None, dense_k2_ms=a_dense_ms,
+        shape=f'1 x {EDGE_FRAMES} x {STATES}, width {band401[1]}',
+        plan=a_plan)
+    info(f'K1 band_forward_wide (a) at width {band401[1]} (1 x '
+         f'{EDGE_FRAMES}): folded {a_ms:.3f} ms ({a_ms * 1e3 / a_steps:.3f} '
+         f'us/frame; in turns against K2 on the dense matrix: '
+         + ', '.join(f'{ms:.3f}' for ms in a_turns)
+         + f': wide, K2, K2, wide; on a converted sequence '
+         f'{a_unfolded_ms:.3f}), plain {a_plain_ms:.1f} ms, bound '
+         f'{a_bound[0]:.4f} ({a_bound[1]}); {wide_sass_fp32:.3f} FP32 SASS '
+         f'instructions per candidate ({wide_sass:.3f} in all)')
+    a_out, a_counts = run_path(
+        'wide-band path (a)',
+        lambda: single_call(a_raw, trans_in=band401_trans), EDGE_FRAMES)
+    if (a_counts['band_forward_wide'] < 1 or a_counts['band_forward']
+            or a_counts['band_spread'] or not k5_launched(a_counts)):
+        fail('wide-band path (a) did not take K1\'s wide-band design and '
              'K5')
-    require_same('per-CTA band path', cta_out,
-                 single_call(single[:, :EDGE_FRAMES], trans_in=cta_trans,
-                             backend='scan'),
+    require_same('wide-band path (a)', a_out,
+                 single_call(a_raw, trans_in=band401_trans, backend='scan'),
                  'the plain scan route on the card')
+    a_call_ms = host_ms(
+        torch, lambda: single_call(a_raw, trans_in=band401_trans))
+    wide_entry['path_call_ms'] = a_call_ms[0]
+    info(f'wide-band path (a), 1 x {EDGE_FRAMES} x {STATES}, width '
+         f'{band401[1]}: {a_call_ms[0]:.3f} ms/call warm median of 10 (min '
+         f'{a_call_ms[1]:.3f}, max {a_call_ms[2]:.3f})')
+
+    # (b) The pitch transition of a 20 ms hop (width 347) at the
+    # headline's 512 x 512 x 1440: the kernel in both slice modes against
+    # its plain version, K2's dense matrix against it too; timed in turns
+    # against K2
+    hop_trans = torch.from_numpy(np.log(
+        pitch.transition_matrix(hopsize=HOP_20MS) + TINY)).to(device)
+    hop_band = band.detect_band(hop_trans)
+    if (hop_band is None or hop_band[1] != 347
+            or band.forward_kernel(STATES, hop_band[1])[0]
+            != 'band_forward_wide'):
+        fail(f'the pitch band of a 20 ms hop is {hop_band}; expected width '
+             '347 on the wide-band design')
+    b_args = (obs_k, bf, init, hop_band, band.build_band_matrix(
+        hop_trans, hop_band[0], hop_band[1]))
+    (b_post_r, _), b_plain_ms = cuda_once(
+        torch, lambda: band.band_forward_reference(*b_args))
+    b_plan = band.wide_plan(BATCH, STATES, hop_band[1], sms)
+    for plan in slice_mode_plans(
+            band.wide_plans(BATCH, STATES, hop_band[1], sms)):
+        wide_entry['max_abs_err'] = max(
+            wide_entry['max_abs_err'], require_equal(
+                torch, f'K1 band_forward_wide (b) {BATCH} x {FRAMES} x '
+                f'{STATES}, width {hop_band[1]} ({plan_text(plan)})',
+                band.viterbi_forward_band_wide(*b_args, plan=plan)[0],
+                b_post_r))
+    wide_entry['max_abs_err'] = max(
+        wide_entry['max_abs_err'], require_equal(
+            torch, f'K2 dense_forward on the width-{hop_band[1]} transition '
+            'as a dense matrix (b), against the wide-band plain version',
+            dense.viterbi_forward_dense(obs_k, bf, hop_trans, init)[0],
+            b_post_r))
+    del b_post_r
+    # The timed call: the raw observation with the conversion folded in,
+    # on the plan that is timed (at 132 SMs fewer than four lanes an
+    # output: the kernel's straight-run conversion branch)
+    wide_entry['max_abs_err'] = max(
+        wide_entry['max_abs_err'], hold_folded(
+            torch, dispatch, f'K1 band_forward_wide folded (b), width '
+            f'{hop_band[1]} ({plan_text(b_plan)})',
+            band.viterbi_forward_band_wide, obs, b_args[1:]))
+    b_ms, b_dense_ms, b_unfolded_ms, b_turns = wide_against_dense(
+        obs, b_args, hop_trans, iters=3)
+    b_bound = wide_bound(BATCH, FRAMES, STATES, bf, hop_band)
+    wide_entry.update(
+        throughput_shape=f'{BATCH} x {FRAMES} x {STATES}, width '
+                         f'{hop_band[1]}',
+        throughput_ms=b_ms, throughput_unfolded_ms=b_unfolded_ms,
+        throughput_dense_k2_ms=b_dense_ms, throughput_plain_ms=b_plain_ms,
+        throughput_bound_ms=b_bound[0], throughput_bound_by=b_bound[1],
+        throughput_plan=b_plan)
+    info(f'K1 band_forward_wide (b) {BATCH} x {FRAMES} x {STATES}, width '
+         f'{hop_band[1]}: folded {b_ms:.3f} ms (in turns against K2 on the '
+         'dense matrix: ' + ', '.join(f'{ms:.3f}' for ms in b_turns)
+         + f'; on a converted observation {b_unfolded_ms:.3f}), plain '
+         f'{b_plain_ms:.1f} ms, bound {b_bound[0]:.3f} ({b_bound[1]}); plan '
+         + plan_text(b_plan))
+
+    # 4096 states at the pitch band's width (no cluster layout holds any
+    # width there) and a band of half of 8200 states (no resident slice
+    # fits: the slice streams), against the plain version
+    gen_w = torch.Generator(device).manual_seed(4)
+    for states_w, halfwidth_w, lengths_w in (
+            (WIDE_STATES, WIDE_STATES_HALFWIDTH, (32, 21)),
+            (STREAMED_STATES, STREAMED_HALFWIDTH, (STREAMED_FRAMES,))):
+        trans_w = torch.from_numpy(
+            fixtures.triangular_log(states_w, halfwidth_w, TINY)).to(device)
+        band_w = band.detect_band(trans_w)
+        lengths_t = torch.tensor(lengths_w, dtype=torch.int32, device=device)
+        w_args = (torch.log(torch.rand(
+            (len(lengths_w), max(lengths_w), states_w), generator=gen_w,
+            device=device) + TINY), lengths_t, torch.full(
+            (states_w,), -float(np.log(states_w)), device=device), band_w,
+            band.build_band_matrix(trans_w, band_w[0], band_w[1]))
+        want_w = band.band_forward_reference(*w_args)[0]
+        for plan in slice_mode_plans(band.wide_plans(
+                len(lengths_w), states_w, band_w[1], sms)):
+            wide_entry['max_abs_err'] = max(
+                wide_entry['max_abs_err'], require_equal(
+                    torch, f'K1 band_forward_wide {len(lengths_w)} x '
+                    f'{max(lengths_w)} x {states_w}, width {band_w[1]} '
+                    f'({plan_text(plan)})', band.viterbi_forward_band_wide(
+                        *w_args, plan=plan)[0], want_w))
+        del want_w, w_args, trans_w
+
+    # (c) One pitch sequence of 10,240 frames under the 20 ms band through
+    # from_probabilities: the default auto-chunk route, its rows through
+    # the wide-band design, then K3; held against the plain scan route
+    # chunk by chunk on the same plan (the plan reads the observation
+    # only); the rows' forward timed alone
+    c_out, c_counts = run_path(
+        'wide-band path (c)', lambda: single_call(trans_in=hop_trans))
+    if (c_counts['band_forward_wide'] < 1 or c_counts['backtrace'] < 1
+            or c_counts['band_forward'] or c_counts['band_spread']
+            or c_counts['backtrace_pointers'] or c_counts['chase_pointers']):
+        fail('wide-band path (c) did not take the auto-chunk route through '
+             'K1\'s wide-band design and K3')
+    require_same('wide-band path (c)', c_out, torch.cat([
+        single_call(single[:, start:start + length], trans_in=hop_trans,
+                    backend='scan')
+        for start, length in zip(starts.tolist(), lengths.tolist())], dim=1),
+        'the plain scan route decoded chunk by chunk on its plan')
+    fresh = iter([single.clone() for _ in range(11)])
+    c_call_ms = host_ms(
+        torch, lambda: single_call(next(fresh), trans_in=hop_trans))
+    del fresh
+    single_paths['wide band (c), auto-chunk, new tensor each call'] = \
+        c_call_ms
+    c_rows_args = (single[0][gather], row_frames, init, hop_band,
+                   b_args[4])
+    c_rows_ms = cuda_ms(torch, lambda: band.viterbi_forward_band_wide(
+        *c_rows_args, True, True), iters=3)
+    c_rows_plan = band.wide_plan(n_rows, STATES, hop_band[1], sms)
+    c_rows_bound = wide_bound(n_rows, longest, STATES, row_frames, hop_band)
+    wide_entry.update(
+        auto_chunk_shape=f'1 x {SINGLE_FRAMES} x {STATES}, width '
+                         f'{hop_band[1]}',
+        auto_chunk_call_ms=c_call_ms[0], auto_chunk_rows_ms=c_rows_ms,
+        auto_chunk_rows_bound_ms=c_rows_bound[0],
+        auto_chunk_rows_bound_by=c_rows_bound[1],
+        auto_chunk_rows_plan=c_rows_plan,
+        auto_chunk_launches=c_counts['band_forward_wide'])
+    info(f'wide-band path (c): {c_call_ms[0]:.3f} ms/call warm median of 10 '
+         f'(min {c_call_ms[1]:.3f}, max {c_call_ms[2]:.3f}; a new tensor '
+         f'each call); the rows ({n_rows} x {longest}) through '
+         f'band_forward_wide {c_rows_ms:.3f} ms ('
+         f'{c_rows_ms * 1e3 / (longest - 1):.3f} us/frame; bound '
+         f'{c_rows_bound[0]:.4f} ({c_rows_bound[1]}) and a chain of '
+         f'{longest - 1} frames; plan {plan_text(c_rows_plan)})')
 
     # A sequence below the auto-chunk threshold takes K4 and K5 by default
     short = single[:, :SHORT_FRAMES].contiguous()
@@ -1922,7 +2116,8 @@ def main():
     held = hold_fixtures(torch, fixtures, device, reset_counts, read_counts)
     info(f'fixtures: {held} cases decoded on the card equal torbi_tpu\'s '
          f'committed paths (tolerance: bitwise); {", ".join(fixtures.SERIAL)} '
-         'through K4 and K5')
+         f'through K4 and K5, {", ".join(fixtures.WIDE)} through K1\'s '
+         'wide-band design')
 
     # 7. The lab kernels against their plain versions, bitwise, at small
     # shapes: every forward body at every accumulator count (or tile) with
@@ -2412,9 +2607,9 @@ def main():
     path_counts = {
         'banded': band_counts, 'dense': dense_counts,
         'batch1-serial': serial_counts, 'batch1-window': window_counts,
-        'batch1-cta': cta_counts, **lab_counts}
+        'wide-band': a_counts, **lab_counts}
     lines = []
-    for name in ('band_forward', 'band_forward_cta', 'band_spread',
+    for name in ('band_forward', 'band_forward_wide', 'band_spread',
                  'dense_forward', 'backtrace', 'backtrace_pointers',
                  'chase_pointers', 'backtrace_window', 'lab_forward',
                  'lab_pipe', 'lab_mxushift', 'lab_mod12', 'lab_mod12k',

@@ -59,7 +59,7 @@ def test_band_edges_match_jax(edge):
     for sequences in band.CLUSTER_TILES:
         got, _ = band._forward_band_clusters(*args, sequences)
         assert torch.equal(got, post_seq)
-    assert torch.equal(band.viterbi_forward_band_cta(*args)[0], post_seq)
+    assert torch.equal(band.viterbi_forward_band_wide(*args)[0], post_seq)
     seq = post_seq.numpy()
     got = backtrace.backtrace_reference(
         post_seq, torch.from_numpy(trans), posterior, torch.from_numpy(bf))
@@ -139,17 +139,17 @@ def test_cluster_layout_pitch(sequences, threads, smem):
     (401, None, None)])
 def test_cluster_plan_wide_bands(width, batch1, batch512):
     """Wider bands take fewer sequences per cluster; at width 401 no
-    cluster layout fits 1440 states and the per-CTA design runs"""
+    cluster layout fits 1440 states and the wide-band design runs"""
     assert band.cluster_plan(1, 1440, width, h100) == batch1
     assert band.cluster_plan(512, 1440, width, h100) == batch512
     if batch1 is None:
         assert band.forward_kernel(1440, width) == (
-            'band_forward_cta', band.viterbi_forward_band_cta)
+            'band_forward_wide', band.viterbi_forward_band_wide)
 
 
 def test_cluster_layout_small_states():
     """Few states: a CTA's slice rounds up to the thread tile, so the last
-    CTAs of the cluster may own nothing; a width-0 band takes the per-CTA
+    CTAs of the cluster may own nothing; a width-0 band takes the wide-band
     design"""
     assert band.cluster_layout(37, 7, 1)['per_cta'] == 5
     assert band.cluster_layout(37, 7, 32)['per_cta'] == 8
@@ -157,7 +157,7 @@ def test_cluster_layout_small_states():
     assert band.cluster_plan(5, 37, 7, h100) == ((0, 5, 1),)
     assert band.cluster_plan(40, 37, 7, h100) == ((0, 40, 4),)
     assert not band.cluster_layout(37, 0, 4)['fits']
-    assert band.forward_kernel(37, 0)[0] == 'band_forward_cta'
+    assert band.forward_kernel(37, 0)[0] == 'band_forward_wide'
     # 4096 states: the band slice alone passes 227 KB
     assert band.cluster_plan(512, 4096, 175, h100) is None
 
@@ -171,7 +171,7 @@ def test_forward_wrapper_rejects_sequences():
 
 
 @pytest.mark.parametrize('batch, halfwidth, expected', [
-    (3, 3, 'band_forward'), (3, 200, 'band_forward_cta'),
+    (3, 3, 'band_forward'), (3, 200, 'band_forward_wide'),
     (8, 87, 'band_forward')])
 def test_kernel_route_names_design(monkeypatch, batch, halfwidth, expected):
     """dispatch.kernel_route and utils/profile.time_stages name the design
@@ -187,7 +187,7 @@ def test_kernel_route_names_design(monkeypatch, batch, halfwidth, expected):
     bf = torch.full((batch,), frames, dtype=torch.int32)
     calls = []
     for attr, name in (('viterbi_forward_band', 'band_forward'),
-                       ('viterbi_forward_band_cta', 'band_forward_cta')):
+                       ('viterbi_forward_band_wide', 'band_forward_wide')):
         def spy(*args, _orig=getattr(band, attr), _name=name, **kwargs):
             calls.append(_name)
             return _orig(*args, **kwargs)

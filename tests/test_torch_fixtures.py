@@ -129,7 +129,8 @@ def test_committed_paths_are_current(committed, name):
 @pytest.mark.parametrize('name', list(CASES))
 def test_port_cpu_route_matches(committed, name):
     """The port's from_probabilities on the CPU returns the committed path,
-    bitwise; the long sequence through its auto-chunk route"""
+    bitwise; the long sequence through its auto-chunk route, the single
+    sequences through the fused batch-1 chase"""
     case = CASES[name]
     restore, engaged = _engaged(autochunk)
     chases = []
@@ -142,7 +143,7 @@ def test_port_cpu_route_matches(committed, name):
         dispatch.backtrace_fused1 = orig
     assert got.dtype == torch.int32 and got.device.type == 'cpu'
     assert engaged == ([True] if name == AUTOCHUNK else [])
-    assert bool(chases) == (name in fixtures.SERIAL)
+    assert bool(chases) == (name in fixtures.SERIAL + fixtures.WIDE_SERIAL)
     np.testing.assert_array_equal(got.numpy(), committed[name][0])
 
 

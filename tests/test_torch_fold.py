@@ -89,7 +89,7 @@ def jax_forward(obs, bf, trans, init, band_tuple, log_input):
 
 FORWARDS = {
     'band_forward': band.viterbi_forward_band,
-    'band_forward_cta': band.viterbi_forward_band_cta,
+    'band_forward_wide': band.viterbi_forward_band_wide,
     'band_spread': band.viterbi_forward_band_spread,
 }
 

@@ -36,14 +36,16 @@
 // 7.6 ms, so a thread must reuse what it loads.
 //
 // Two designs, chosen by shape (ops/band.py::forward_kernel mirrors the
-// layout arithmetic below, so dispatch knows which one runs):
+// layout arithmetic below, so dispatch knows which one runs): the cluster
+// design here, and for the bands whose slice no cluster layout holds the
+// wide-band design (csrc/band_wide.cu: one persistent CTA per SM).
 //
-// band_forward, the cluster design. The per-CTA design below re-reads the
-// whole band from L2 every frame in every CTA (128 CTAs x 511 frames x
-// 244,344 values x 4 B, 64 GB per headline call), and at small batch runs
-// one sequence per SM. Here a cluster of 8 CTAs holds NB sequences, and
-// CTA r owns destinations [r P, (r + 1) P), P = ceil(states / 8) rounded
-// to the thread tile. Its slice of the band lives in shared memory for the
+// band_forward, the cluster design. A design that reads the whole band
+// from L2 every frame in every CTA (one CTA per 4 sequences: 128 CTAs x
+// 511 frames x 244,344 values x 4 B, 64 GB per headline call) runs one
+// sequence per SM at small batch. Here a cluster of 8 CTAs holds NB
+// sequences, and CTA r owns destinations [r P, (r + 1) P), P =
+// ceil(states / 8) rounded to the thread tile. Its slice of the band lives in shared memory for the
 // whole launch (175 x 180 floats at the pitch shape), read from L2 once.
 // For each sequence it keeps a double-buffered window of the posterior:
 // the sources its destinations read, [r P + lo, r P + lo + P + width - 1),
@@ -69,18 +71,6 @@
 // destination, each takes every 4th offset, two xor shuffles combine them.
 // A window row holds the NB sequences' values of one source, so a
 // quarter-warp's vector loads fall in distinct banks.
-//
-// band_forward_cta, the per-CTA design, for bands whose slice does not fit
-// (ops/band.py::cluster_layout): one CTA holds NB sequences with their
-// posteriors double-buffered in shared memory (2 * NB * states * 4 bytes:
-// 46 KB at NB = 4 and 1440 states), so each candidate's source is a
-// shared-memory load. Each band value is loaded once per CTA and frame
-// (the band matrix streams through L2 every frame) and used for all NB
-// sequences. Each thread owns destinations j = tid, tid + blockDim, ...;
-// its offset loop is clipped to the sources in range. The floor term
-// needs the max of the previous posterior: each thread folds what it
-// writes into a running max, warps reduce it into a double-buffered
-// scratch, and one __syncthreads per frame publishes both.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -439,136 +429,6 @@ int count_clusters(int states, int width, int* clusters) {
       static_cast<size_t>(l.floats) * sizeof(float), clusters);
 }
 
-template <int NB, int CONV>
-__global__ void __launch_bounds__(512) band_cta_kernel(
-    const float* __restrict__ obs, const int* __restrict__ batch_frames,
-    const float* __restrict__ initial, const float* __restrict__ band,
-    float* __restrict__ post_seq, int batch, int frames, int states, int lo,
-    int width, float floor_value, int has_floor) {
-  extern __shared__ float smem[];
-  float* post = smem;                   // [2][NB][states]
-  float* red = smem + 2 * NB * states;  // [2][NB][32] per-warp maxima
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int b0 = blockIdx.x * NB;
-
-  // Rows past the batch get 0 frames: never valid, never written
-  int bf[NB];
-  bool live[NB];
-#pragma unroll
-  for (int n = 0; n < NB; ++n) {
-    live[n] = b0 + n < batch;
-    bf[n] = live[n] ? batch_frames[b0 + n] : 0;
-  }
-
-  float lmax[NB];
-#pragma unroll
-  for (int n = 0; n < NB; ++n) lmax[n] = torbi::neg_inf();
-  for (int j = tid; j < states; j += blockDim.x) {
-    const float init_j = initial[j];
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      float v = torbi::neg_inf();
-      if (live[n]) {
-        const size_t off = static_cast<size_t>(b0 + n) * frames * states + j;
-        v = torbi::convert_obs<CONV>(obs[off]) + init_j;
-        post_seq[off] = v;
-      }
-      post[n * states + j] = v;
-      lmax[n] = fmaxf(lmax[n], v);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NB; ++n) {
-    const float m = torbi::warp_max(lmax[n]);
-    if (lane == 0) red[n * 32 + warp] = m;
-  }
-  __syncthreads();
-
-  int cur = 0;
-  for (int t = 1; t < frames; ++t) {
-    const float* pc = post + cur * NB * states;
-    float* pn = post + (cur ^ 1) * NB * states;
-    const float* rc = red + cur * NB * 32;
-    float* rn = red + (cur ^ 1) * NB * 32;
-
-    bool valid[NB];
-    bool any = false;
-    float base[NB];
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      valid[n] = t < bf[n];
-      any = any || valid[n];
-      float g = torbi::neg_inf();
-      if (has_floor) {
-        for (int w = 0; w < nwarps; ++w) g = fmaxf(g, rc[n * 32 + w]);
-        g = g + floor_value;
-      }
-      base[n] = g;
-      lmax[n] = torbi::neg_inf();
-    }
-
-    for (int j = tid; j < states; j += blockDim.x) {
-      float acc[NB];
-#pragma unroll
-      for (int n = 0; n < NB; ++n) acc[n] = base[n];
-      if (any) {
-        const int d_begin = max(0, -lo - j);
-        const int d_end = min(width, states - lo - j);
-        const float* col = band + j;
-        const int src = j + lo;
-#pragma unroll 4
-        for (int d = d_begin; d < d_end; ++d) {
-          const float bv = __ldg(col + static_cast<size_t>(d) * states);
-#pragma unroll
-          for (int n = 0; n < NB; ++n)
-            acc[n] = fmaxf(acc[n], pc[n * states + src + d] + bv);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        float v = pc[n * states + j];
-        if (live[n]) {
-          const size_t off =
-              (static_cast<size_t>(b0 + n) * frames + t) * states + j;
-          if (valid[n]) v = torbi::convert_obs<CONV>(obs[off]) + acc[n];
-          post_seq[off] = v;
-        }
-        pn[n * states + j] = v;
-        lmax[n] = fmaxf(lmax[n], v);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      const float m = torbi::warp_max(lmax[n]);
-      if (lane == 0) rn[n * 32 + warp] = m;
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-}
-
-template <int NB, int CONV>
-int launch_cta_design(const float* obs, const int* batch_frames,
-                      const float* initial, const float* band,
-                      float* post_seq, int batch, int frames, int states,
-                      int lo, int width, float floor_value, int has_floor,
-                      cudaStream_t stream) {
-  const size_t smem = torbi::forward_smem_bytes(NB, states);
-  cudaError_t err = cudaFuncSetAttribute(
-      band_cta_kernel<NB, CONV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((batch + NB - 1) / NB);
-  band_cta_kernel<NB, CONV><<<grid, torbi::forward_threads(states), smem,
-                              stream>>>(obs, batch_frames, initial, band,
-                                        post_seq, batch, frames, states, lo,
-                                        width, floor_value, has_floor);
-  return cudaGetLastError();
-}
-
 // The cluster design at NB sequences per cluster, by conversion
 template <int NB>
 int cluster_by_conversion(int conv, const float* obs, const int* batch_frames,
@@ -579,29 +439,6 @@ int cluster_by_conversion(int conv, const float* obs, const int* batch_frames,
 #define TORBI_CONV_CASE(CONV)                                                \
   case CONV:                                                                 \
     return launch_cluster_design<NB, CONV>(                                  \
-        obs, batch_frames, initial, band, post_seq, batch, frames, states,   \
-        lo, width, floor_value, has_floor, stream);
-  switch (conv) {
-    TORBI_CONV_CASE(0)
-    TORBI_CONV_CASE(1)
-    TORBI_CONV_CASE(2)
-    TORBI_CONV_CASE(3)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef TORBI_CONV_CASE
-}
-
-// The per-CTA design at NB sequences per CTA, by conversion
-template <int NB>
-int cta_by_conversion(int conv, const float* obs, const int* batch_frames,
-                      const float* initial, const float* band,
-                      float* post_seq, int batch, int frames, int states,
-                      int lo, int width, float floor_value, int has_floor,
-                      cudaStream_t stream) {
-#define TORBI_CONV_CASE(CONV)                                                \
-  case CONV:                                                                 \
-    return launch_cta_design<NB, CONV>(                                      \
         obs, batch_frames, initial, band, post_seq, batch, frames, states,   \
         lo, width, floor_value, has_floor, stream);
   switch (conv) {
@@ -664,37 +501,6 @@ extern "C" int band_forward_clusters(int states, int width, int sequences,
       return count_clusters<4>(states, width, clusters);
     case 32:
       return count_clusters<32>(states, width, clusters);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// The per-CTA design; arguments as band_forward's, without `sequences`
-// (1, 2 or 4 per CTA, by batch and shared memory). Takes any width >= 0.
-extern "C" int band_forward_cta(const float* obs, const int* batch_frames,
-                                const float* initial, const float* band,
-                                float* post_seq, int batch, int frames,
-                                int states, int lo, int width,
-                                float floor_value, int has_floor,
-                                int log_input, int apply_epsilon,
-                                void* stream) {
-  if (batch <= 0 || frames <= 0 || states <= 0 || width < 0)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int conv = torbi::conversion(log_input, apply_epsilon);
-  switch (torbi::forward_sequences_per_cta(batch, states)) {
-    case 4:
-      return cta_by_conversion<4>(conv, obs, batch_frames, initial, band,
-                                  post_seq, batch, frames, states, lo, width,
-                                  floor_value, has_floor, s);
-    case 2:
-      return cta_by_conversion<2>(conv, obs, batch_frames, initial, band,
-                                  post_seq, batch, frames, states, lo, width,
-                                  floor_value, has_floor, s);
-    case 1:
-      return cta_by_conversion<1>(conv, obs, batch_frames, initial, band,
-                                  post_seq, batch, frames, states, lo, width,
-                                  floor_value, has_floor, s);
     default:
       return cudaErrorInvalidValue;
   }

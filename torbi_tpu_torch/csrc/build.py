@@ -17,7 +17,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parent.parent / 'build' / 'torbi_tpu_torch'
 SOURCES = (
-    'band_forward', 'band_spread', 'dense_forward', 'backtrace',
+    'band_forward', 'band_wide', 'band_spread', 'dense_forward', 'backtrace',
     'backtrace_batch1', 'lab_forward', 'lab_pipe', 'lab_mxu', 'lab_mod',
     'lab_spread', 'lab_chase')
 FLAGS = (

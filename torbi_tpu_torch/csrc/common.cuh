@@ -53,38 +53,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Shared memory K1's per-CTA design (csrc/band_forward.cu) needs: a
-// double-buffered posterior for nb sequences plus a double-buffered
-// (nb, 32) scratch of per-warp maxima
-inline size_t forward_smem_bytes(int nb, int states) {
-  return (2 * static_cast<size_t>(nb) * states + 2 * 32 * nb) * sizeof(float);
-}
-
-// Sequences per CTA of K1's per-CTA design. Several sequences share every
-// band value a CTA reads (the band streams through L2 once per frame and
-// CTA), so large batches take 4; small batches take
-// fewer to keep more SMs busy. Shrinks until the posteriors fit the opt-in
-// shared memory; returns 0 when one sequence does not fit.
-inline int forward_sequences_per_cta(int batch, int states) {
-  int device = 0, optin = 0;
-  if (cudaGetDevice(&device) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-      cudaSuccess)
-    return 0;
-  int nb = batch >= 256 ? 4 : (batch >= 64 ? 2 : 1);
-  while (nb > 1 && forward_smem_bytes(nb, states) > static_cast<size_t>(optin))
-    nb /= 2;
-  return forward_smem_bytes(nb, states) <= static_cast<size_t>(optin) ? nb
-                                                                       : 0;
-}
-
-// Threads per CTA of K1's per-CTA design: a warp multiple, at most 512
-inline int forward_threads(int states) {
-  int threads = ((states + 31) / 32) * 32;
-  return threads < 32 ? 32 : (threads > 512 ? 512 : threads);
-}
-
 }  // namespace torbi
 
 extern "C" const char* torbi_error_string(int code) {

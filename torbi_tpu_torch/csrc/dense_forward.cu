@@ -61,12 +61,11 @@
 // pass reading its own rows. A sequence past its batch_frames keeps the
 // value its thread wrote last frame; a group whose sequences have all
 // stopped computes no more and meets at no more barriers.
-#include "cluster.cuh"
-#include "common.cuh"
+#include "persistent.cuh"
 
 namespace {
 
-constexpr int kTile = 4;  // sequences and destinations per thread
+using torbi::kTile;
 constexpr int kMaxThreads = 512;
 constexpr int kOut = kTile * kTile;
 
@@ -101,48 +100,13 @@ inline size_t smem_floats(const Plan& p, int states) {
          2 * static_cast<size_t>(p.bp) * chunk_stride(p);
 }
 
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Copy 16 bytes from device memory into shared memory asynchronously,
-// through L2 only
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   torbi::smem_address(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// The barrier of a sequence group: every CTA adds one to the group's
-// counter once its stores are out, then waits until all `ctas` have added
-// `phase` times. A wait past 2^35 clocks (about 17 s) traps, so that a
-// fault ends the launch with an error instead of hanging it
-__device__ __forceinline__ void group_sync(unsigned* counter, int ctas,
-                                           int phase) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    const unsigned target = static_cast<unsigned>(phase) * ctas;
-    const long long start = clock64();
-    while (load_acquire(counter) < target)
-      if (clock64() - start > (1LL << 35)) __trap();
-  }
-  __syncthreads();
-}
-
 // Copy `rows` rows of sources [i0, i0 + count) from `src` (row r at
 // src + r * src_stride) into `dst` (row r at dst + r * dst_stride), by
 // the whole CTA: 16-byte asynchronous copies, committed by the caller
 // (VEC: count, i0 and the stride multiples of 4), or loads through L2 and
 // stores, -inf past `limit` sources. Rows at or past `live` are left as
-// they are
+// they are. (csrc/band_wide.cu's stage_rows steps its indices instead of
+// dividing; moving K2 onto it is a change of K2 of its own, PERF.md §7)
 template <bool VEC>
 __device__ __forceinline__ void stage(float* dst, int dst_stride,
                                       const float* src, size_t src_stride,
@@ -154,8 +118,8 @@ __device__ __forceinline__ void stage(float* dst, int dst_stride,
       const int r = e / quads;
       const int q = e - r * quads;
       if (r < live)
-        cp_async16(dst + r * dst_stride + 4 * q,
-                   src + r * src_stride + i0 + 4 * q);
+        torbi::cp_async16(dst + r * dst_stride + 4 * q,
+                          src + r * src_stride + i0 + 4 * q);
     }
   } else {
     for (int e = threadIdx.x; e < rows * count; e += blockDim.x) {
@@ -264,7 +228,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
         const size_t at = out_index(s, o, 0);
         post_seq[at] = obs[at] + initial[j0 + tx + (o % kTile) * tx_n];
       }
-  if (t_end > 1) group_sync(counters + g, p.dest_groups, 1);
+  if (t_end > 1) torbi::group_sync(counters + g, p.dest_groups, 1);
 
   for (int t = 1; t < t_end; ++t) {
     for (int s = 0; s < passes; ++s) {
@@ -308,37 +272,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
                              static_cast<size_t>(tx) * cs;
           const size_t prow = static_cast<size_t>(ty_n) * cs;
           const size_t trow = static_cast<size_t>(tx_n) * ss;
-#pragma unroll 2
-          for (int u = k; u < quads; u += p.split) {
-            float4 pv[kTile], tv[kTile];
-#pragma unroll
-            for (int q = 0; q < kTile; ++q)
-              pv[q] = *reinterpret_cast<const float4*>(ps + q * prow + 4 * u);
-#pragma unroll
-            for (int r = 0; r < kTile; ++r)
-              tv[r] = *reinterpret_cast<const float4*>(ts + r * trow + 4 * u);
-#pragma unroll
-            for (int q = 0; q < kTile; ++q)
-#pragma unroll
-              for (int r = 0; r < kTile; ++r) {
-                float a = acc[q][r];
-                a = fmaxf(a, pv[q].x + tv[r].x);
-                a = fmaxf(a, pv[q].y + tv[r].y);
-                a = fmaxf(a, pv[q].z + tv[r].z);
-                acc[q][r] = fmaxf(a, pv[q].w + tv[r].w);
-              }
-          }
+          torbi::tile_max_plus(acc, ps, prow, ts, trow, k, quads, p.split);
         }
         __syncthreads();
       }
       // Combine the split lanes (adjacent, so within one warp)
-      for (int off = 1; off < p.split; off <<= 1)
-#pragma unroll
-        for (int q = 0; q < kTile; ++q)
-#pragma unroll
-          for (int r = 0; r < kTile; ++r)
-            acc[q][r] = fmaxf(acc[q][r],
-                              __shfl_xor_sync(0xffffffffu, acc[q][r], off));
+      torbi::combine_split(acc, p.split);
       // A stopped sequence keeps the value this thread wrote last frame
 #pragma unroll
       for (int o = 0; o < kOut; ++o)
@@ -347,7 +286,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
               t < bfq[o / kTile] ? ob[o] + acc[o / kTile][o % kTile]
                                  : __ldcg(post_seq + out_index(s, o, t - 1));
     }
-    if (t + 1 < t_end) group_sync(counters + g, p.dest_groups, t + 1);
+    if (t + 1 < t_end) torbi::group_sync(counters + g, p.dest_groups, t + 1);
   }
   // Frames past the group's longest sequence hold the last posterior
   if (t_end < frames)
@@ -366,23 +305,14 @@ int launch(const float* obs, const int* batch_frames, const float* initial,
            const float* transition, float* post_seq, unsigned* counters,
            int batch, int frames, int states, const Plan& p,
            cudaStream_t stream) {
-  auto kernel = dense_forward_kernel<RESIDENT, VEC>;
   const size_t smem = smem_floats(p, states) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   Plan plan = p;
   void* args[] = {&obs,     &batch_frames, &initial, &transition,
                   &post_seq, &counters,    &batch,   &frames,
                   &states,   &plan};
-  // A cooperative launch refuses a grid whose CTAs the card cannot hold
-  // at once, which the group barriers need
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(kernel), dim3(p.groups * p.dest_groups),
-      dim3(p.threads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return torbi::launch_persistent(dense_forward_kernel<RESIDENT, VEC>,
+                                  p.groups * p.dest_groups, p.threads, smem,
+                                  args, stream);
 }
 
 bool valid(const Plan& p, int batch, int states, size_t optin) {

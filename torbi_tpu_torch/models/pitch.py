@@ -21,19 +21,24 @@ def bins_per_octave():
     return OCTAVE / CENTS_PER_BIN
 
 
-def max_bins_per_frame():
-    max_octaves_per_frame = MAX_OCTAVES_PER_SECOND * HOPSIZE / SAMPLE_RATE
+def max_bins_per_frame(hopsize=HOPSIZE):
+    """The most bins the pitch moves in one hop of ``hopsize`` samples, plus
+    one: 87.2 at penn's 10 ms hop, 173.4 at 20 ms (a band of width 347)"""
+    max_octaves_per_frame = MAX_OCTAVES_PER_SECOND * hopsize / SAMPLE_RATE
     return max_octaves_per_frame * bins_per_octave() + 1
 
 
-def transition_matrix(pitch_bins=PITCH_BINS, dtype=np.float32):
+def transition_matrix(pitch_bins=PITCH_BINS, dtype=np.float32,
+                      hopsize=HOPSIZE):
     """Band-diagonal pitch transition matrix (probability space, numpy)
 
-    transition[i, j] = clip(max_bins_per_frame - |i - j|, 0), row-normalized
+    transition[i, j] = clip(max_bins_per_frame - |i - j|, 0), row-normalized;
+    ``hopsize`` in samples at 8 kHz (penn's 80, 10 ms, by default)
     """
     xx, yy = np.meshgrid(
         np.arange(pitch_bins), np.arange(pitch_bins), indexing='ij')
-    transition = np.clip(max_bins_per_frame() - np.abs(xx - yy), 0, None)
+    transition = np.clip(
+        max_bins_per_frame(hopsize) - np.abs(xx - yy), 0, None)
     transition = transition / transition.sum(axis=1, keepdims=True)
     return transition.astype(dtype)
 

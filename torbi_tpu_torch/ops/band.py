@@ -25,12 +25,13 @@ K1 has two designs with the same values, chosen by shape
 (``forward_kernel``): the cluster design ``viterbi_forward_band`` (the band
 slice resident in shared memory across a cluster of 8 CTAs, each CTA a
 window of the posterior; ``cluster_layout`` mirrors its layout and
-``cluster_plan`` its launches) wherever its layout fits, else the per-CTA
-design ``viterbi_forward_band_cta``. One sequence on its own (batch 1)
-takes the K4 kernel, ``viterbi_forward_band_spread`` (its band in
-registers across a cluster of 16 CTAs that exchange slices of the posterior
-through mbarriers; ``spread_layout`` mirrors its layout), with the same
-values.
+``cluster_plan`` its launches) wherever its layout fits, else the wide-band
+design ``viterbi_forward_band_wide`` (one persistent CTA per SM, each a
+slice of destinations and the band slice over its source window, K2's plan;
+``wide_plan`` picks it). One sequence on its own (batch 1) takes the K4
+kernel, ``viterbi_forward_band_spread`` (its band in registers across a
+cluster of 16 CTAs that exchange slices of the posterior through mbarriers;
+``spread_layout`` mirrors its layout), with the same values.
 
 Exactness preconditions (``gate_band`` enforces them; dispatch falls back to
 the dense kernel otherwise): a pure -inf exterior needs an all-finite
@@ -42,6 +43,7 @@ import ctypes
 import numpy as np
 import torch
 
+from . import dense
 from ..csrc import build
 from ..utils.cache import identity_cached as _identity_cached
 
@@ -277,7 +279,7 @@ def cluster_sizes(states, width):
 def cluster_plan(batch, states, width, resident):
     """K1's cluster launches at this shape: ((start, count, sequences per
     cluster), ...) over the batch, or None when no cluster layout fits (the
-    per-CTA design runs). ``resident(sequences)`` is the clusters of that
+    wide-band design runs). ``resident(sequences)`` is the clusters of that
     size the card holds at once (``resident_clusters``). Whole waves take
     the largest size that fits (the least time per sequence); the rest of
     the batch takes one launch at the size of least cost, its waves times
@@ -334,11 +336,11 @@ def resident_clusters(states, width, sequences, device):
 def forward_kernel(states, width):
     """K1's design at this shape: ('band_forward', viterbi_forward_band)
     where a cluster layout fits (``cluster_sizes``), else
-    ('band_forward_cta', viterbi_forward_band_cta); the names are those of
-    the wrappers' launch counters"""
+    ('band_forward_wide', viterbi_forward_band_wide); the names are those
+    of the wrappers' launch counters"""
     if cluster_sizes(states, width):
         return 'band_forward', viterbi_forward_band
-    return 'band_forward_cta', viterbi_forward_band_cta
+    return 'band_forward_wide', viterbi_forward_band_wide
 
 
 def _check_band_args(observation, batch_frames, initial, band, band_matrix):
@@ -366,7 +368,7 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
     Arguments and results as in ``band_forward_reference``; all tensors
     contiguous on one device. The launches follow ``cluster_plan``; on the
     card a shape no layout fits raises (``forward_kernel`` sends it to the
-    per-CTA design). Each launch counts once."""
+    wide-band design). Each launch counts once."""
     if not _check_band_args(
             observation, batch_frames, initial, band, band_matrix):
         return band_forward_reference(
@@ -417,7 +419,7 @@ def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
         raise ValueError(
             f'no cluster layout of K1 fits {states} states and band width '
             f'{width}; band.forward_kernel sends this shape to '
-            'band_forward_cta')
+            'band_forward_wide')
     device = observation.device
     post_seq = torch.empty_like(observation)
     if batch and frames:
@@ -438,13 +440,54 @@ def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
     return post_seq, post_seq[:, -1]
 
 
-def viterbi_forward_band_cta(observation, batch_frames, initial, band,
-                             band_matrix, log_input=True,
-                             apply_epsilon=False):
-    """Banded forward pass, K1's per-CTA design (csrc/band_forward.cu,
-    band_forward_cta) on CUDA tensors, its plain version on CPU tensors.
-    Arguments and results as in ``band_forward_reference``. Takes any
-    band, a width-0 one with a floor included."""
+# The plan's fields in the order csrc/band_wide.cu takes them: K2's, then
+# the window
+WIDE_PLAN_FIELDS = dense.PLAN_FIELDS + ('window',)
+
+
+def wide_plans(batch, states, width, resident, smem=dense.SMEM_BYTES):
+    """Every launch plan of K1's wide-band design (csrc/band_wide.cu) that
+    fits: K2's plans (``dense.dense_plans``) over each CTA's source window
+    of ``window`` sources (``dense.band_window``: jc + width - 1, widened
+    to 4 floats at both ends) in place of the whole row, its band slice
+    resident in shared memory or streamed beside the posterior. Where the
+    band lies (lo) moves the windows (``wide_windows``), not their size, so
+    the plans do not depend on it"""
+    return dense.dense_plans(batch, states, resident, smem, width=width)
+
+
+def wide_plan(batch, states, width, resident, smem=dense.SMEM_BYTES):
+    """The wide-band design's launch plan: of ``wide_plans``, the one of
+    least ``cost`` (the fewest groups, then the resident slice, on ties),
+    or None when no plan fits"""
+    return min(wide_plans(batch, states, width, resident, smem),
+               key=lambda plan: plan['cost'], default=None)
+
+
+def wide_windows(plan, states, lo, width):
+    """The source window of each destination group of a wide-band plan,
+    as the kernel computes it: [(first source, sources), ...], the window
+    [d jc + lo, d jc + jc + lo + width - 1) widened to 4 floats at both
+    ends and cut to [0, states rounded up to 4); no sources for width 0"""
+    windows = []
+    for d in range(plan['dest_groups']):
+        j0 = d * plan['jc']
+        first = max(0, (j0 + lo) // 4 * 4)
+        end = min(-(-states // 4) * 4,
+                  -(-(j0 + plan['jc'] + lo + width - 1) // 4) * 4)
+        windows.append((first, max(0, end - first) if width else 0))
+    return windows
+
+
+def viterbi_forward_band_wide(observation, batch_frames, initial, band,
+                              band_matrix, log_input=True,
+                              apply_epsilon=False, plan=None):
+    """Banded forward pass, K1's wide-band design (csrc/band_wide.cu,
+    band_forward_wide: one persistent CTA per SM) on CUDA tensors, its
+    plain version on CPU tensors. Arguments and results as in
+    ``band_forward_reference``. Takes any band, a width-0 one with a floor
+    included. ``plan`` replaces the launch plan ``wide_plan`` picks for
+    the card; a shape no plan fits raises."""
     if not _check_band_args(
             observation, batch_frames, initial, band, band_matrix):
         return band_forward_reference(
@@ -455,20 +498,39 @@ def viterbi_forward_band_cta(observation, batch_frames, initial, band,
     device = observation.device
     post_seq = torch.empty_like(observation)
     if batch and frames:
-        lib = _library()
+        plan = plan or wide_plan(batch, states, width, dense._sms(device))
+        if plan is None:
+            raise ValueError(
+                f'no launch plan of the wide-band forward kernel holds '
+                f'{batch} x {states} states at band width {width}')
+        # The group barriers' counters, then the keys of the row maxima
+        # (3 frames x groups x bc), all zeros
+        groups = plan['groups']
+        scratch = torch.zeros(
+            (groups + 3 * groups * plan['bc'],), dtype=torch.int32,
+            device=device)
+        slices = torch.empty(
+            (1,) if plan['resident'] else (
+                groups * plan['dest_groups'], plan['jc'], plan['window']),
+            dtype=torch.float32, device=device)
+        lib = _wide_library()
         with torch.cuda.device(device):
-            code = lib.band_forward_cta(
+            code = lib.band_forward_wide(
                 build.pointer(observation), build.pointer(batch_frames),
                 build.pointer(initial), build.pointer(band_matrix),
-                build.pointer(post_seq), batch, frames, states, lo, width,
-                0.0 if floor is None else floor, int(floor is not None),
-                int(log_input), int(apply_epsilon), build.stream(device))
-        build.raise_on_error(lib, 'band_forward_cta', code)
-        viterbi_forward_band_cta.launches += 1
+                build.pointer(post_seq), build.pointer(scratch),
+                build.pointer(scratch, groups), build.pointer(slices),
+                batch, frames, states, lo, width,
+                0.0 if floor is None else floor,
+                int(floor is not None), int(log_input), int(apply_epsilon),
+                *(int(plan[key]) for key in WIDE_PLAN_FIELDS),
+                build.stream(device))
+        build.raise_on_error(lib, 'band_forward_wide', code)
+        viterbi_forward_band_wide.launches += 1
     return post_seq, post_seq[:, -1]
 
 
-viterbi_forward_band_cta.launches = 0
+viterbi_forward_band_wide.launches = 0
 
 
 def spread_layout(states, width, lo=0):
@@ -597,13 +659,21 @@ def _library():
     shape = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
     lib.band_forward.argtypes = [ctypes.c_void_p] * 5 + shape + [
         ctypes.c_int, ctypes.c_void_p]
-    lib.band_forward_cta.argtypes = [ctypes.c_void_p] * 5 + shape + [
-        ctypes.c_void_p]
     lib.band_forward_clusters.argtypes = [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.band_forward.restype = ctypes.c_int
-    lib.band_forward_cta.restype = ctypes.c_int
     lib.band_forward_clusters.restype = ctypes.c_int
+    return lib
+
+
+def _wide_library():
+    lib = build.library('band_wide')
+    # batch, frames, states, lo, width, floor, has_floor, log_input,
+    # apply_epsilon, the plan
+    lib.band_forward_wide.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * (
+            3 + len(WIDE_PLAN_FIELDS)) + [ctypes.c_void_p]
+    lib.band_forward_wide.restype = ctypes.c_int
     return lib
 
 

@@ -49,25 +49,45 @@ def chunk_stride(chunk):
     return chunk + 4
 
 
-def slice_stride(states, chunk, resident):
-    """Shared row stride of the transition slice: the whole row rounded up
-    to 8, plus 4, when it stays resident; else a chunk's"""
-    return _ceil(states, 8) * 8 + 4 if resident else chunk_stride(chunk)
+def slice_stride(sources, chunk, resident):
+    """Shared row stride of the transition slice: its ``sources`` (the
+    whole row, or a band's window) rounded up to 8, plus 4, when it stays
+    resident; else a chunk's"""
+    return _ceil(sources, 8) * 8 + 4 if resident else chunk_stride(chunk)
+
+
+def band_window(states, jc, width):
+    """The most sources of one CTA's window in K1's wide-band design
+    (csrc/band_wide.cu, max_window) for ``jc`` destinations of a band of
+    this width: jc + width - 1, widened to 4 floats at both ends, within
+    the states rounded up to 4; none for a width-0 band"""
+    if width == 0:
+        return 0
+    return min(_ceil(states, 4) * 4, _ceil(jc + width + 2, 4) * 4)
 
 
 def smem_bytes(plan, states):
     """Shared memory of a plan: the transition slice (whole, or two
-    chunks) and two chunks of a pass's posterior rows"""
+    chunks) and two chunks of a pass's posterior rows; a plan of the
+    wide-band design (one with a ``window``) holds the slice over its
+    window and also a (bp, jc / 4) table of row maxima, bc floor terms and
+    the bc sequences' batch_frames"""
+    wide = 'window' in plan
     slice_floats = plan['jc'] * slice_stride(
-        states, plan['chunk'], plan['resident'])
+        plan['window'] if wide else states, plan['chunk'], plan['resident'])
+    floor_floats = (plan['bp'] * (plan['jc'] // TILE) + 2 * plan['bc']
+                    if wide else 0)
     return 4 * ((1 if plan['resident'] else 2) * slice_floats
-                + 2 * plan['bp'] * chunk_stride(plan['chunk']))
+                + 2 * plan['bp'] * chunk_stride(plan['chunk'])
+                + floor_floats)
 
 
-def dense_plans(batch, states, resident, smem=SMEM_BYTES):
+def dense_plans(batch, states, resident, smem=SMEM_BYTES, width=None):
     """Every launch plan of K2 that fits: how ``resident`` CTAs (one per
     SM, all held at once) share the (batch x states) outputs of every
-    frame.
+    frame. Given a band ``width``, the plans of K1's wide-band design
+    (csrc/band_wide.cu) instead: K2's plans over each CTA's source window
+    (``band_window``, the plan's ``window``) in place of the whole row.
 
     The CTAs form ``groups`` sequence groups of ``dest_groups`` CTAs; CTA
     (g, d) owns sequences [g bc, g bc + bc) and destinations [d jc, d jc +
@@ -81,12 +101,14 @@ def dense_plans(batch, states, resident, smem=SMEM_BYTES):
     plans of both slice modes that fit, each with the largest chunk that
     fits and its modelled time per frame (``cost``, in clocks): the larger
     of the CTA's candidates at two FP32 instructions each and the bytes it
-    reads from L2, plus its chunks' barriers. Each plan is a dict with
-    those fields, ``ctas``, ``threads`` and ``smem_bytes``."""
+    reads from L2, over the row or the window, plus its chunks' barriers.
+    Each plan is a dict with those fields, ``ctas``, ``threads`` and
+    ``smem_bytes``."""
     for groups in range(1, min(batch, resident) + 1):
         per_group = _ceil(_ceil(batch, groups), TILE) * TILE
         jc = _ceil(_ceil(states, resident // groups), TILE) * TILE
         dest_groups = _ceil(states, jc)
+        sources = states if width is None else band_window(states, jc, width)
         if jc // TILE > MAX_THREADS:
             continue
         # Sequences in passes of bp, so that a pass's cells fit the threads
@@ -107,18 +129,20 @@ def dense_plans(batch, states, resident, smem=SMEM_BYTES):
                 'resident': not streamed, 'vec': states % 4 == 0,
                 'threads': _ceil(split * cells, 32) * 32,
                 'ctas': groups * dest_groups}
+            if width is not None:
+                plan['window'] = sources
             if smem_bytes(plan, states) > smem:
                 continue
-            # The largest chunk that fits, up to the whole row
-            while (plan['chunk'] < states and smem_bytes(
+            # The largest chunk that fits, up to the whole row or window
+            while (plan['chunk'] < sources and smem_bytes(
                     dict(plan, chunk=plan['chunk'] + step), states) <= smem):
                 plan['chunk'] += step
             plan['smem_bytes'] = smem_bytes(plan, states)
-            read = (bc + (jc if streamed else 0)) * states * 4
+            read = (bc + (jc if streamed else 0)) * sources * 4
             plan['cost'] = (
-                max(2 * bc * jc * states / FP32_PER_CLOCK,
+                max(2 * bc * jc * sources / FP32_PER_CLOCK,
                     read / L2_BYTES_PER_CLOCK)
-                + passes * _ceil(states, plan['chunk']) * CHUNK_CLOCKS)
+                + passes * _ceil(sources, plan['chunk']) * CHUNK_CLOCKS)
             yield plan
 
 

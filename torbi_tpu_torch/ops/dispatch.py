@@ -12,7 +12,7 @@ decisions. One decode takes one of these routes:
   kernel (K3).
 
 A banded transition at batch > 1 takes K1 (its cluster design, or its
-per-CTA design where no cluster layout fits: ``band.forward_kernel``),
+wide-band design where no cluster layout fits: ``band.forward_kernel``),
 then K3. One banded sequence (batch 1, band width > 0) routes as in the
 JAX package:
 
@@ -128,8 +128,8 @@ def kernel_route(transition, band, batch):
     Returns ((forward name, forward), (chase name, chase)), the names those
     of the wrappers' launch counters: ``forward(obs, batch_frames, initial,
     log_input=True, apply_epsilon=False)`` gives (post_seq, posterior)
-    through K1's cluster design ('band_forward') or its per-CTA design
-    ('band_forward_cta'), as ``band.forward_kernel`` picks by shape, K4
+    through K1's cluster design ('band_forward') or its wide-band design
+    ('band_forward_wide'), as ``band.forward_kernel`` picks by shape, K4
     ('band_spread') or K2 ('dense_forward'); the banded ones convert the
     observation as they load it, K2 takes it converted (other flags
     raise). ``chase(post_seq, posterior, batch_frames)`` gives the indices

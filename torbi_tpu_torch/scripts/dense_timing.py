@@ -1,8 +1,9 @@
-"""Time the dense forward pass (K2) at given shapes.
+"""Time the dense forward pass (K2), or a banded forward pass beside it,
+at given shapes.
 
     python -m torbi_tpu_torch.scripts.dense_timing \\
         [--shapes 8x64x1440,512x512x1280] [--iters 5] [--sms N] [--sweep] \\
-        [--device cuda]
+        [--band HALFWIDTH [--decode]] [--device cuda]
 
 For each batch x frames x states shape it makes random dense inputs on the
 device from seed 0 (a row-normalised random transition and log-uniform
@@ -17,15 +18,29 @@ the card) and prints the plan. ``--sweep`` times every plan of
 modelled cost and whether ``dense_plan`` picks it. On CPU tensors
 (``--device cpu``) it times the plain version: no number from such a run
 is a device time.
+
+``--band HALFWIDTH`` times K1 instead, in the design that
+``ops.band.forward_kernel`` picks for the shape (an older checkout picks
+its own), on peaked pitch posteriorgrams (``models/pitch.py``, seed 0, in
+log space, the epsilon step folded into the kernel) under a triangular
+band of that half-width over log(tiny), beside K2 on the same transition
+as a dense matrix (the same function, on the converted observation): one
+line per shape with both times, the design's name and whether the two
+streams are equal. ``--decode`` also times ``from_probabilities`` on the
+same inputs (host clock, a new device tensor each call, median), the
+route a user's call takes (one long sequence auto-chunks). ``--sms`` and
+``--sweep`` then plan K1's wide-band design (``ops.band.wide_plans``).
 """
 import argparse
 import json
+import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
-from ..ops import dense
+from ..ops import band, dense, dispatch
 
 TINY = 1.1754943508222875e-38
 
@@ -47,6 +62,86 @@ def inputs(batch, frames, states, device, seed=0):
     initial = torch.full((states,), -float(torch.log(torch.tensor(
         float(states)))), device=device)
     return observation, batch_frames, transition, initial
+
+
+def band_inputs(batch, frames, states, halfwidth, device, seed=0):
+    """(raw observation, batch_frames, initial, transition) of a banded
+    shape: peaked pitch posteriorgrams in log space, every sequence whole,
+    a uniform initial distribution, the triangular band of ``halfwidth``
+    taken to log(p + tiny)"""
+    from ..models import pitch
+    from ..utils import fixtures
+
+    observation = torch.from_numpy(pitch.synthetic_posteriorgrams(
+        batch, frames, states, seed=seed)).to(device)
+    transition = torch.from_numpy(
+        fixtures.triangular_log(states, halfwidth)).to(device)
+    batch_frames = torch.full((batch,), frames, dtype=torch.int32,
+                              device=device)
+    initial = torch.full((states,), -float(np.log(states)), device=device)
+    return observation, batch_frames, initial, transition
+
+
+def decode_ms(observation, transition, initial, iters, device):
+    """Median ms of ``iters`` calls of from_probabilities, each on a new
+    copy of the observation and ending in a synchronize (host clock)"""
+    import torbi_tpu_torch
+
+    gpu = 'cpu' if device.type == 'cpu' else device.index or 0
+    fresh = [observation.clone() for _ in range(iters + 1)]
+    times = []
+    for copy in fresh:
+        start = time.perf_counter()
+        torbi_tpu_torch.from_probabilities(
+            copy, transition=transition, initial=initial, log_probs=True,
+            gpu=gpu)
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times[1:])
+
+
+def time_band(shape, halfwidth, args, device, card):
+    """The lines of one banded shape: K1's design beside K2 on the dense
+    matrix"""
+    batch, frames, states = shape
+    observation, batch_frames, initial, transition = band_inputs(
+        batch, frames, states, halfwidth, device)
+    lo, width, floor = band.detect_band(transition)
+    rest = (batch_frames, initial, (lo, width, floor),
+            band.build_band_matrix(transition, lo, width))
+    name, forward = band.forward_kernel(states, width)
+    converted = dispatch.convert(observation, True, True).contiguous()
+
+    def k2():
+        return dense.viterbi_forward_dense(
+            converted, batch_frames, transition, initial)
+
+    plans = [None]
+    if device.type == 'cuda' and (args.sms or args.sweep):
+        sms = args.sms or dense._sms(device)
+        plans = list(band.wide_plans(batch, states, width, sms)) \
+            if args.sweep else [band.wide_plan(batch, states, width, sms)]
+    k2_ms = time_ms(k2, args.iters, device)
+    rows = []
+    for plan in plans:
+        options = {} if plan is None else {'plan': plan}
+
+        def k1():
+            return forward(observation, *rest, True, True, **options)
+
+        row = {'shape': f'{batch}x{frames}x{states}', 'band_lo': lo,
+               'band_width': width, 'forward': name,
+               'ms': time_ms(k1, args.iters, device), 'dense_k2_ms': k2_ms,
+               'equal_to_k2': bool(torch.equal(k1()[0], k2()[0])),
+               'iters': args.iters, 'device': card,
+               'kernel': device.type == 'cuda', **options}
+        if args.decode:
+            row['decode_ms'] = decode_ms(
+                observation, transition, initial, args.iters, device)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 def parse_shapes(text):
@@ -90,6 +185,9 @@ def main(argv=None):
     parser.add_argument('--iters', type=int, default=5)
     parser.add_argument('--sms', type=int, default=None)
     parser.add_argument('--sweep', action='store_true')
+    parser.add_argument('--band', type=int, default=None,
+                        metavar='HALFWIDTH')
+    parser.add_argument('--decode', action='store_true')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
     device = torch.device(args.device)
@@ -99,6 +197,10 @@ def main(argv=None):
     results = []
     card = card_name(device)
     for batch, frames, states in parse_shapes(args.shapes):
+        if args.band is not None:
+            results += time_band(
+                (batch, frames, states), args.band, args, device, card)
+            continue
         data = inputs(batch, frames, states, device)
         plans = [None]
         if device.type == 'cuda' and (args.sms or args.sweep):
@@ -123,6 +225,7 @@ def main(argv=None):
             results.append(row)
         del data
     return results
+
 
 if __name__ == '__main__':
     main()

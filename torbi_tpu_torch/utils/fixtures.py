@@ -34,7 +34,18 @@ The cases:
   forward, then the fused chase: K4 and K5 here): one pitch sequence of
   1000 frames in log space whose valid length stops at 870, and a
   40-state band over the floor whose observation and band hold small
-  integers, so that candidates tie, with a valid length of 19 of 24.
+  integers, so that candidates tie, with a valid length of 19 of 24;
+- ``wide-*``: bands that no layout of K1's cluster design holds, so they
+  take its wide-band design: a batch of three pitch sequences under the
+  pitch transition of a 20 ms hop (width 347; then K3), one sequence of
+  300 frames under a band of width 401 over the floor (a single sequence
+  under 4096 frames: the serial batch-1 route, the band too wide for K4,
+  so K1 and then K5), a batch of two at 4096 states under a band of
+  the pitch band's width (175), and 192 pitch sequences of up to 12 frames
+  as probabilities under the 20 ms hop's transition (a pure band of width
+  347): on 132 SMs its launch plan gives each output fewer than four
+  lanes, so the kernel converts the observation on its straight-run
+  branch, which the smaller batches do not reach.
 
 Every case decodes through ``from_probabilities`` with its ``log_probs``.
 """
@@ -54,6 +65,24 @@ ASSET = Path(__file__).resolve().parent.parent / 'assets' / \
 # make(seed) -> (observation, batch_frames, transition, initial), numpy;
 # transition and initial may be None (the entry point's uniform defaults)
 Case = namedtuple('Case', 'name log_probs seed make')
+
+
+def triangular_band(states, halfwidth, tiny=TINY):
+    """A row-normalized triangular band transition of the given half-width
+    (``tests/test_autochunk.py``'s) in probability space, float32, plus
+    ``tiny`` everywhere: 0 gives a pure band"""
+    bins = np.arange(states)
+    tri = np.clip(halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]),
+                  0, None)
+    return ((tri / tri.sum(axis=1, keepdims=True)).astype(np.float32)
+            + np.float32(tiny))
+
+
+def triangular_log(states, halfwidth, tiny=TINY):
+    """log of ``triangular_band``: a band over log(tiny), or at tiny 0 a
+    pure -inf band"""
+    with np.errstate(divide='ignore'):
+        return np.log(triangular_band(states, halfwidth, tiny))
 
 
 def _edge(edge):
@@ -84,11 +113,7 @@ def _tiny_entries(seed):
     obs[rng.random(obs.shape) < 0.3] = log_tiny
     obs[:, 5] = log_tiny
     obs[1:, 17] = log_tiny
-    bins = np.arange(states)
-    tri = np.clip(halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]),
-                  0, None)
-    trans = np.log((tri / tri.sum(axis=1, keepdims=True)).astype(np.float32)
-                   + TINY).astype(np.float32)
+    trans = triangular_log(states, halfwidth)
     init = np.log(np.full(states, 1.0 / states, dtype=np.float32) + TINY)
     return (obs, np.array([40, 17, 1, 33], np.int32), trans,
             init.astype(np.float32))
@@ -132,8 +157,44 @@ def _serial_ties(seed):
     return obs, np.array([19], np.int32), trans, None
 
 
+def _wide_pitch_20ms(seed):
+    obs = pitch.synthetic_posteriorgrams(3, 128, pitch.PITCH_BINS, seed=seed)
+    trans = np.log(pitch.transition_matrix(hopsize=160) + TINY).astype(
+        np.float32)
+    return obs, np.array([128, 77, 1], np.int32), trans, None
+
+
+def _wide_serial(seed):
+    obs = pitch.synthetic_posteriorgrams(1, 300, pitch.PITCH_BINS, seed=seed)
+    return (obs, np.array([300], np.int32),
+            triangular_log(pitch.PITCH_BINS, 200), None)
+
+
+def _wide_4096(seed):
+    rng = np.random.default_rng(seed)
+    states = 4096
+    obs = np.log(rng.dirichlet(np.ones(states), size=(2, 32))
+                 .astype(np.float32) + TINY).astype(np.float32)
+    return obs, np.array([32, 21], np.int32), triangular_log(
+        states, 87), None
+
+
+def _wide_batch_prob(seed):
+    batch, frames = 192, 12
+    obs = np.exp(pitch.synthetic_posteriorgrams(
+        batch, frames, pitch.PITCH_BINS, seed=seed))
+    lengths = np.random.default_rng(seed).integers(
+        1, frames + 1, size=batch).astype(np.int32)
+    lengths[:2] = (frames, 1)
+    return (obs.astype(np.float32), lengths,
+            pitch.transition_matrix(hopsize=160), None)
+
+
 # The cases decoded on the serial batch-1 route
 SERIAL = ('serial-pitch', 'serial-ties')
+# The cases that take K1's wide-band design; the first also K5
+WIDE_SERIAL = ('wide-serial',)
+WIDE = WIDE_SERIAL + ('wide-pitch-20ms', 'wide-4096', 'wide-batch-prob')
 
 CASES = tuple(
     Case(f'edge-{edge.name}', True, 0, _edge(edge))
@@ -145,6 +206,10 @@ CASES = tuple(
     Case('autochunk-pitch', True, 15, _autochunk_pitch),
     Case('serial-pitch', True, 16, _serial_pitch),
     Case('serial-ties', True, 17, _serial_ties),
+    Case('wide-pitch-20ms', True, 18, _wide_pitch_20ms),
+    Case('wide-serial', True, 19, _wide_serial),
+    Case('wide-4096', True, 20, _wide_4096),
+    Case('wide-batch-prob', False, 21, _wide_batch_prob),
 )
 
 

@@ -221,11 +221,11 @@ def time_stages(observation, batch_frames, transition, initial, iters=8,
     multiple of 128), batch_frames, transition, initial; ``apply_epsilon``
     as ``decode`` takes it (``from_probabilities`` sets it). The forward
     and backtrace stages call the kernels that ``dispatch.kernel_route``
-    picks for this input, as ``decode`` does: K1 (cluster or per-CTA
+    picks for this input, as ``decode`` does: K1 (cluster or wide-band
     design) or K4 converting the observation as they load it, or K2 on the
     observation ``dispatch.convert`` made first, then K3, K5 or K6 (a
     constant transition, which dispatch decodes in closed form, times K1's
-    per-CTA design and the chase on it; a long single sequence, which
+    wide-band design and the chase on it; a long single sequence, which
     dispatch may auto-chunk, times the serial route's kernels). Returns
     milliseconds:
 
