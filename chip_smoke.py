@@ -99,7 +99,20 @@ just after each:
   torbi_tpu on the CPU when the file was written, decoded on the card
   through ``from_probabilities`` and held against it bitwise, the serial
   cases through K4 and K5, the wide-band cases through K1's wide-band
-  design;
+  design; the file cases through ``from_files_to_files``;
+- the file path at full width (``file_path_phase``): 64 synthetic pitch
+  files of 400-1600 frames x 1440 states (the benchmark's corpus generator,
+  seed 3) through ``from_files_to_files`` (the native loader, which must
+  fill every batch with no fallback, then K1 and K3), in one batch and in
+  batches of 16, every output file bitwise the port's
+  ``from_probabilities`` on that file alone; the loader's pinned buffers
+  timed in turns against pageable ones through ``from_dataloader``; four
+  ``.pt`` files through the Python loader; a 65,536-frame file decoded in
+  chunks (``MIN_CHUNK_SIZE`` 512) against its chunks decoded one by one;
+  ``from_file_to_file`` on a 10,240-frame file (the auto-chunk route:
+  K1 and K3, not K4 or K5) against the plain scan route chunk by chunk;
+  the CLI (``python -m torbi_tpu_torch``) in a subprocess on four files,
+  without and with ``--config``;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -117,6 +130,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -152,6 +166,11 @@ WIDE_STATES, WIDE_STATES_HALFWIDTH = 4096, 87
 STREAMED_STATES, STREAMED_HALFWIDTH, STREAMED_FRAMES = 8200, 2000, 6
 # K3 past 8 x 1024 states: the chase without staging, on a dense transition
 BIG_STATES = 8200
+# The file path: bench.py's corpus generator at seed 3 (FILE_COUNT files of
+# 400-1600 frames), also in batches of FILE_BATCH; one long file decoded in
+# chunks at least FILE_CHUNK_MIN frames apart
+FILE_COUNT, FILE_SEED, FILE_BATCH = 64, 3, 16
+FILE_CHUNK_FRAMES, FILE_CHUNK_MIN = 65536, 512
 
 # The lab phases: the bitwise checks' frames (forward lab at 8 sequences,
 # spread lab) and steps (chase lab), the timed iterations, and the forward
@@ -509,7 +528,7 @@ def hold_fixtures(torch, fixtures, device, reset_counts, read_counts):
     design (the counters reset just before and read just after each).
     Returns the number of cases held"""
     committed = fixtures.load()
-    names = [case.name for case in fixtures.CASES]
+    names = [case.name for case in fixtures.CASES + fixtures.FILE_CASES]
     if sorted(committed) != sorted(names):
         fail(f'the fixture file holds {sorted(committed)}, the cases are '
              f'{sorted(names)}')
@@ -562,6 +581,277 @@ def conversion_report(torch, observation, log_probs, device):
     return 'the conversion rounds the same on the card as on the CPU'
 
 
+def file_path_phase(torch, device, card, reset_counts, read_counts):
+    """The file path at full width on the card, through the entry points a
+    user calls: from_files_to_files over FILE_COUNT pitch files (the
+    native loader, K1, K3), in one batch and in batches of FILE_BATCH
+    (several decodes overlapping the writes), .pt files through the Python
+    loader, a FILE_CHUNK_FRAMES-frame file decoded in chunks, from_file_to_file
+    on a SINGLE_FRAMES-frame file (the auto-chunk route), the CLI in a
+    subprocess, and the file fixture cases against torbi_tpu's committed
+    paths; each bitwise against the port's from_probabilities per file (or
+    per chunk) on the card. The counters are reset just before and read
+    just after each run. Returns the corpus run's launch counts.
+    ``device`` is the card (or, to rehearse the phase's logic, the CPU)"""
+    import torbi_tpu_torch
+    from torbi_tpu_torch import bench, core
+    from torbi_tpu_torch.data import native
+    from torbi_tpu_torch.ops import autochunk, dispatch
+    from torbi_tpu_torch.utils import fixtures, io, profile, timing
+
+    gpu = device.index if device.type == 'cuda' else 'cpu'
+
+    def sync():
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+
+    directory = ROOT / 'build' / 'smoke_files'
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    start = time.perf_counter()
+    lengths = np.random.default_rng(FILE_SEED).integers(
+        400, 1600, size=FILE_COUNT)
+    inputs, outputs, trans_path = bench.write_corpus(
+        str(directory), lengths, STATES)
+    trans_prob = np.load(trans_path)
+    trans_log = torch.from_numpy(np.log(trans_prob + TINY)).to(device)
+    info(f'files: {FILE_COUNT} files of {int(lengths.min())}-'
+         f'{int(lengths.max())} frames x {STATES} ({int(lengths.sum())} '
+         f'timesteps) written in {time.perf_counter() - start:.1f} s')
+
+    def run(label, fn):
+        """fn() under reset counters; returns (launches, native counts,
+        wall s, 'torbi' s, fn's result)"""
+        reset_counts()
+        native.counts.update(filled=0, fallback=0)
+        timing.reset()
+        sync()
+        begin = time.perf_counter()
+        result = fn()
+        sync()
+        wall = time.perf_counter() - begin
+        counts = read_counts()
+        decode = timing.results().get('torbi', 0.0)
+        info(f'{label}: wall {wall * 1e3:.3f} ms, decode (torbi) '
+             f'{decode * 1e3:.3f} ms, launches {counts}, native batches '
+             f'{dict(native.counts)}')
+        if counts['band_forward'] < 1 or counts['backtrace'] < 1:
+            fail(f'{label} did not launch K1 and K3')
+        return counts, dict(native.counts), wall, decode, result
+
+    def files_run(label, files, outs, batches):
+        result = run(label, lambda: torbi_tpu_torch.from_files_to_files(
+            files, outs, transition_file=trans_path, log_probs=True, gpu=gpu))
+        if result[1] != {'filled': batches, 'fallback': 0}:
+            fail(f'{label}: the native loader filled {result[1]}, expected '
+                 f'{batches} batches and no fallback')
+        return result
+
+    def require_files(label, outs, expected,
+                      what='from_probabilities on each file alone'):
+        for out, want in zip(outs, expected):
+            got = io.load(out)
+            if got.dtype != np.int32 or not np.array_equal(got, want):
+                fail(f'{label}: {Path(out).name} differs from {what}')
+        info(f'{label}: {len(outs)} output files equal {what} '
+             '(tolerance: bitwise)')
+
+    # The corpus in one batch; every output against from_probabilities on
+    # its file alone (one sequence: the serial batch-1 route, K4 and K5)
+    counts, _, wall, decode, _ = files_run(
+        f'files path ({FILE_COUNT} files, one batch)', inputs, outputs, 1)
+    expected = [torbi_tpu_torch.from_probabilities(
+        np.load(path)[None], transition=trans_log, log_probs=True,
+        gpu=gpu)[0].cpu().numpy() for path in inputs]
+    require_files('files path', outputs, expected)
+    timesteps = int(lengths.sum())
+    # The loader's assembly rate (host only), as the file path loads: into
+    # pinned buffers for a decode on the card
+    pin = device.type == 'cuda'
+    for _ in range(2):
+        begin = time.perf_counter()
+        loaded = sum(obs.numel() * obs.element_size() for obs, _, _, _ in
+                     torbi_tpu_torch.data.loader(inputs, pin_memory=pin))
+        assembly_s = time.perf_counter() - begin
+    corpus_counts = counts
+    info(f'files path: {timesteps / wall:.0f} timesteps/s wall, '
+         f'{timesteps / decode:.0f} decode; loader {loaded / 1e6:.0f} MB '
+         f'in {assembly_s * 1e3:.1f} ms ({loaded / assembly_s / 1e9:.2f} '
+         f'GB/s, host only); K1 launches {counts["band_forward"]}, K3 '
+         f'{counts["backtrace"]}; on {card}')
+
+    # Batches of FILE_BATCH: several decodes, each queued before the
+    # previous batch's files are written
+    saved = torbi_tpu_torch.BATCH_SIZE
+    torbi_tpu_torch.BATCH_SIZE = FILE_BATCH
+    try:
+        batched = [path.replace('_out', '_b') for path in outputs]
+        batches = -(-FILE_COUNT // FILE_BATCH)
+        counts, _, _, _, _ = files_run(
+            f'files path (batches of {FILE_BATCH})', inputs, batched,
+            batches)
+        if counts['band_forward'] < batches:
+            fail(f'{batches} batches launched K1 {counts["band_forward"]} '
+                 'times')
+        require_files(f'files path (batches of {FILE_BATCH})', batched,
+                      expected)
+
+        # Pinned against pageable buffers, one batch and FILE_BATCH, in
+        # turns (pinned, pageable, pageable, pinned), through
+        # from_dataloader as from_files_to_files calls it
+        mapping = {path: out for path, out in zip(inputs, batched)}
+        turns = {}
+        for batch_size in (512, FILE_BATCH):
+            torbi_tpu_torch.BATCH_SIZE = batch_size
+            for pinned in ((True, False, False, True) if pin else (False,)):
+                _, _, wall, decode, _ = run(
+                    f'from_dataloader, batches of {batch_size}, '
+                    f'{"pinned" if pinned else "pageable"} buffers',
+                    lambda: torbi_tpu_torch.from_dataloader(
+                        torbi_tpu_torch.data.loader(
+                            inputs, pin_memory=pinned),
+                        mapping, transition=trans_log, log_probs=True,
+                        gpu=gpu))
+                turns.setdefault((batch_size, pinned), []).append(
+                    (wall * 1e3, decode * 1e3))
+        for (batch_size, pinned), runs in turns.items():
+            info(f'files corpus, batches of {batch_size}, '
+                 f'{"pinned" if pinned else "pageable"} buffers: wall ms '
+                 f'{[round(r[0], 3) for r in runs]}, decode (torbi) ms '
+                 f'{[round(r[1], 3) for r in runs]} (timesteps/s wall: '
+                 f'{[round(timesteps / r[0] * 1e3) for r in runs]})')
+    finally:
+        torbi_tpu_torch.BATCH_SIZE = saved
+    # The corpus in one batch, staged on the card: its decode alone
+    observation, batch_frames, _, _ = next(iter(
+        torbi_tpu_torch.data.loader(inputs)))
+    obs_card = observation.to(device)
+    frames_card = batch_frames.to(device)
+    initial = core._default_initial(STATES, device)
+    staged_s = profile.time_submissions(
+        lambda: dispatch.decode(
+            obs_card, frames_card, trans_log, initial,
+            apply_epsilon=True, device=device),
+        lambda r: r[0, 0], iters=3)
+    del obs_card
+    info(f'files batch staged on the card ({tuple(observation.shape)}, '
+         f'{observation.numel() * 4 / 1e9:.2f} GB): decode alone '
+         f'{staged_s * 1e3:.3f} ms')
+
+    # .pt files take the Python loader
+    pt_inputs = [path.replace('.npy', '.pt') for path in inputs[:4]]
+    pt_outputs = [path.replace('.pt', '_pt.pt') for path in pt_inputs]
+    for npy, pt in zip(inputs, pt_inputs):
+        io.save(np.load(npy), pt)
+    run('files path (.pt inputs, Python loader)',
+        lambda: torbi_tpu_torch.from_files_to_files(
+            pt_inputs, pt_outputs, transition_file=trans_path,
+            log_probs=True, gpu=gpu))
+    if native.counts['filled']:
+        fail('.pt inputs went through the native loader')
+    require_files('files path (.pt inputs)', pt_outputs, expected[:4])
+
+    # One long file decoded in chunks: the chunk rows as one batch, against
+    # each chunk decoded alone
+    long_path = str(directory / 'long.npy')
+    long_obs = pitch_file(long_path, FILE_CHUNK_FRAMES, seed=5)
+    saved = torbi_tpu_torch.MIN_CHUNK_SIZE
+    torbi_tpu_torch.MIN_CHUNK_SIZE = FILE_CHUNK_MIN
+    try:
+        chunks = torbi_tpu_torch.chunk(long_obs)
+        run(f'chunked file (1 x {FILE_CHUNK_FRAMES}, MIN_CHUNK_SIZE '
+            f'{FILE_CHUNK_MIN})',
+            lambda: torbi_tpu_torch.from_files_to_files(
+                [long_path], [long_path + '.out.npy'],
+                transition_file=trans_path, log_probs=True, gpu=gpu))
+    finally:
+        torbi_tpu_torch.MIN_CHUNK_SIZE = saved
+    joined = np.concatenate([torbi_tpu_torch.from_probabilities(
+        chunk[None], transition=trans_log, log_probs=True,
+        gpu=gpu)[0].cpu().numpy() for chunk in chunks])
+    require_files(f'chunked file ({len(chunks)} chunks)',
+                  [long_path + '.out.npy'], [joined],
+                  'its chunks decoded one by one through from_probabilities')
+
+    # from_file_to_file on one long file: the auto-chunk route (K1 and K3
+    # on the chunk rows; K4 and K5 must not launch), against the plain scan
+    # route decoded chunk by chunk on its plan. from_file takes log(p) of
+    # the transition file: a pure -inf band
+    single_path = str(directory / 'single.npy')
+    single = pitch_file(single_path, SINGLE_FRAMES, seed=1)
+    counts, _, _, _, _ = run(
+        f'from_file_to_file (1 x {SINGLE_FRAMES})',
+        lambda: torbi_tpu_torch.from_file_to_file(
+            single_path, single_path + '.out.npy', trans_path,
+            log_probs=True, gpu=gpu))
+    if (counts['band_spread'] or counts['backtrace_pointers']
+            or counts['chase_pointers']):
+        fail('from_file_to_file took the serial route, not auto-chunking')
+    single_card = torch.from_numpy(single[None]).to(device)
+    with np.errstate(divide='ignore'):
+        pure = torch.from_numpy(np.log(trans_prob)).to(device)
+    starts, chunk_lengths = autochunk.plan_splits(
+        autochunk.framewise_entropy(single_card, STATES, True).cpu().numpy(),
+        SINGLE_FRAMES, torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
+    per_chunk = np.concatenate([torbi_tpu_torch.from_probabilities(
+        single_card[:, start:start + length], transition=pure,
+        log_probs=True, gpu=gpu, backend='scan')[0].cpu().numpy()
+        for start, length in zip(starts.tolist(), chunk_lengths.tolist())])
+    require_files(f'from_file_to_file ({len(starts)} auto-chunk rows)',
+                  [single_path + '.out.npy'], [per_chunk],
+                  'the plain scan route decoded chunk by chunk on its plan')
+
+    # The CLI in a subprocess on 4 files, without and with --config
+    config = directory / 'over.py'
+    config.write_text('BATCH_SIZE = 2\n')
+    for extra in ([], ['--config', str(config)]):
+        cli_outputs = [path.replace('_out', '_cli') for path in outputs[:4]]
+        begin = time.perf_counter()
+        result = subprocess.run(
+            [sys.executable, '-m', 'torbi_tpu_torch', '--input_files',
+             *inputs[:4], '--output_files', *cli_outputs,
+             '--transition_file', trans_path, '--log_probs', '--gpu',
+             str(gpu), *extra],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        if result.returncode:
+            fail(f'the CLI {extra} failed: {result.stderr[-3000:]}')
+        require_files(f'CLI {" ".join(extra) or "(no --config)"} in '
+                      f'{time.perf_counter() - begin:.1f} s', cli_outputs,
+                      expected[:4])
+
+    # The file fixture cases against torbi_tpu's committed paths
+    committed = fixtures.load()
+    for case in fixtures.FILE_CASES:
+        inputs_case = fixtures.case_inputs(case)
+        paths, digest = committed[case.name]
+        if fixtures.file_inputs_hash(case, inputs_case) != digest:
+            fail(f'fixture {case.name}: the inputs made here differ from '
+                 'those the committed paths were decoded from')
+        got = run(f'fixture {case.name}', lambda: fixtures.decode_files(
+            torbi_tpu_torch, case, inputs_case, gpu=gpu))[4]
+        if not np.array_equal(got, paths):
+            fail(f'fixture {case.name}: the card\'s paths differ from '
+                 f'torbi_tpu\'s in {int((got != paths).sum())} of '
+                 f'{paths.size} positions')
+    info(f'file fixtures: {len(fixtures.FILE_CASES)} cases equal '
+         'torbi_tpu\'s committed paths (tolerance: bitwise)')
+    shutil.rmtree(directory, ignore_errors=True)
+    return corpus_counts
+
+
+def pitch_file(path, frames, seed):
+    """One log-space pitch posteriorgram file of ``frames`` x STATES, written
+    in slices; returns the array"""
+    from torbi_tpu_torch.models import pitch
+
+    obs = np.concatenate([
+        pitch.synthetic_posteriorgrams(
+            1, min(1 << 14, frames - start), STATES, seed=seed + start)[0]
+        for start in range(0, frames, 1 << 14)])
+    np.save(path, obs)
+    return obs
+
+
 def main():
     try:
         import torch
@@ -601,10 +891,15 @@ def main():
     info(f'{sms} SMs at {clock_hz / 1e9:.3f} GHz: {ISSUE_PER_S:.4g} FP32 '
          f'instructions/s, {smem_words_per_s:.4g} shared-memory words/s')
 
-    # 1. Build every kernel (one nvcc per source, in parallel)
+    # 1. Build every kernel (one nvcc per source, in parallel), and beside
+    # them the file path's native loader (host code, g++)
     start = time.perf_counter()
-    build.build()
-    info(f'built {", ".join(build.SOURCES)} in '
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        loader_build = pool.submit(build.host_library, 'loader')
+        build.build()
+        if loader_build.result() is None:
+            fail('the native loader (csrc/loader.cpp) did not build with g++')
+    info(f'built {", ".join(build.SOURCES)} and the native loader in '
          f'{time.perf_counter() - start:.1f} s')
     for name, output in build.compiler_output.items():
         for line in output.splitlines():
@@ -2119,6 +2414,10 @@ def main():
          f'through K4 and K5, {", ".join(fixtures.WIDE)} through K1\'s '
          'wide-band design')
 
+    # 6c. The file path: from_files_to_files, from_file_to_file and the CLI
+    # at full width, counters reset just before and read just after each
+    files = file_path_phase(torch, device, card, reset_counts, read_counts)
+
     # 7. The lab kernels against their plain versions, bitwise, at small
     # shapes: every forward body at every accumulator count (or tile) with
     # 1, 2, 4 and 8 sequences per CTA at 8 x 64 x 1440 (width 175), the
@@ -2603,7 +2902,10 @@ def main():
         info(f'  trace {row["total_ms"]:9.3f} ms x{row["count"]:<3} '
              f'{row["name"][:90]}')
 
-    # 10. The kernels line, then the device line last
+    # 10. The kernels line, then the device line last; K1 and K3 also carry
+    # their launches on the file path's corpus run
+    for name in ('band_forward', 'backtrace'):
+        kernels[name]['files_launches'] = files[name]
     path_counts = {
         'banded': band_counts, 'dense': dense_counts,
         'batch1-serial': serial_counts, 'batch1-window': window_counts,

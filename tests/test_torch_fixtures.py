@@ -9,9 +9,11 @@ goes through the kernel backend in interpret mode as
 frame buckets (the ones the port's auto-chunk rule copies), so that both
 packages decode it as entropy-chunk rows. The serial cases go through its
 serial batch-1 route (spread forward, fused chase) in interpret mode, as
-the port's go through K4 and K5. The committed file must equal those
-paths and hold the hash of the inputs they came from; the port's
-``from_probabilities`` on the CPU must return the same paths, bitwise.
+the port's go through K4 and K5. The file cases go through
+``torbi_tpu.from_files_to_files`` on the scan route (``backend='xla'``) and
+the port's ``from_files_to_files`` on the CPU. The committed file must
+equal those paths and hold the hash of the inputs they came from; the
+port's entry points on the CPU must return the same paths, bitwise.
 ``chip_smoke.py`` holds the card to the same file.
 
     python tests/test_torch_fixtures.py --write
@@ -31,6 +33,7 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 import torbi_tpu  # noqa: E402
+import torbi_tpu_torch  # noqa: E402
 from torbi_tpu.config import defaults as jax_defaults  # noqa: E402
 from torbi_tpu.ops import autochunk as jax_autochunk  # noqa: E402
 from torbi_tpu_torch.ops import autochunk, dispatch  # noqa: E402
@@ -38,6 +41,7 @@ from torbi_tpu_torch.utils import fixtures  # noqa: E402
 
 AUTOCHUNK = 'autochunk-pitch'
 CASES = {case.name: case for case in fixtures.CASES}
+FILE_CASES = {case.name: case for case in fixtures.FILE_CASES}
 
 
 def _engaged(module):
@@ -106,13 +110,44 @@ def reference_paths(case):
     return paths
 
 
+def file_reference_paths(case):
+    """torbi_tpu's joined output paths for a file case, through its
+    from_files_to_files on the scan route"""
+    return fixtures.decode_files(
+        torbi_tpu, case, fixtures.case_inputs(case), backend='xla')
+
+
 @pytest.fixture(scope='module')
 def committed():
     return fixtures.load()
 
 
 def test_file_lists_every_case(committed):
-    assert sorted(committed) == sorted(CASES)
+    assert sorted(committed) == sorted([*CASES, *FILE_CASES])
+
+
+@pytest.mark.parametrize('name', list(FILE_CASES))
+def test_committed_file_paths_are_current(committed, name):
+    """The file holds torbi_tpu's joined output paths for the file case's
+    current inputs"""
+    case = FILE_CASES[name]
+    paths, digest = committed[name]
+    assert digest == fixtures.file_inputs_hash(
+        case, fixtures.case_inputs(case)), (
+        f'{name}: the inputs changed; rewrite the file with '
+        '`python tests/test_torch_fixtures.py --write`')
+    np.testing.assert_array_equal(paths, file_reference_paths(case))
+
+
+@pytest.mark.parametrize('name', list(FILE_CASES))
+def test_port_cpu_files_match(committed, name):
+    """The port's from_files_to_files on the CPU writes the committed
+    paths, bitwise; the chunked case as chunk rows joined again"""
+    case = FILE_CASES[name]
+    inputs = fixtures.case_inputs(case)
+    got = fixtures.decode_files(torbi_tpu_torch, case, inputs, gpu='cpu')
+    assert got.shape == (sum(len(obs) for obs in inputs[0]),)
+    np.testing.assert_array_equal(got, committed[name][0])
 
 
 @pytest.mark.parametrize('name', list(CASES))
@@ -177,6 +212,11 @@ def write():
         inputs = fixtures.case_inputs(case)
         records[case.name] = (reference_paths(case),
                               fixtures.inputs_hash(case, inputs))
+        print(f'{case.name}: {records[case.name][0].shape}', flush=True)
+    for case in fixtures.FILE_CASES:
+        records[case.name] = (
+            file_reference_paths(case),
+            fixtures.file_inputs_hash(case, fixtures.case_inputs(case)))
         print(f'{case.name}: {records[case.name][0].shape}', flush=True)
     fixtures.save(records)
     print(f'wrote {fixtures.ASSET}')

@@ -5,11 +5,19 @@ NVIDIA H100, with hand-written CUDA kernels for the banded forward pass,
 the dense forward pass and the backtrace, and for one sequence on its own
 a batch-1 banded forward pass and two batch-1 chases (``csrc/``, built
 with nvcc at first use). Long single sequences decode as entropy-chunk
-rows (``ops/autochunk.py``), as in the JAX package. Micro-benchmark labs
-(``scripts/``) and a profiler (``utils/profile.py``, ``python -m
-torbi_tpu_torch.profile``) measure the kernels on the card. The JAX package
-``torbi_tpu`` is the reference it is held against; this package imports
-neither it nor JAX.
+rows (``ops/autochunk.py``), as in the JAX package.
+
+The decoding API is the JAX package's: ``from_probabilities`` and
+``decode`` on arrays or tensors, and the file API, ``from_file``,
+``from_file_to_file``, ``from_files_to_files`` and ``from_dataloader``
+(``.pt`` and ``.npy`` files, decoded in batches by ``data``, whose native
+loader, ``csrc/loader.cpp``, builds with g++), with ``save`` and
+``save_masked``. ``python -m torbi_tpu_torch`` is the command line of the
+file API, and ``python -m torbi_tpu_torch.bench`` the port's benchmark.
+Micro-benchmark labs (``scripts/``) and a profiler (``utils/profile.py``,
+``python -m torbi_tpu_torch.profile``) measure the kernels on the card.
+The JAX package ``torbi_tpu`` is the reference it is held against; this
+package imports neither it nor JAX.
 
 Entry points decode on CUDA unless the caller asks for the CPU
 (``gpu='cpu'``), where the kernels' plain PyTorch versions run.
@@ -21,6 +29,7 @@ Entry points decode on CUDA unless the caller asks for the CPU
 
 
 from .config.defaults import *  # noqa: F401,F403
+from .config.static import *  # noqa: F401,F403
 
 
 ###############################################################################
@@ -29,8 +38,17 @@ from .config.defaults import *  # noqa: F401,F403
 
 
 from .viterbi import decode  # noqa: E402
-from .core import from_probabilities  # noqa: E402
+from .core import (  # noqa: E402
+    from_probabilities,
+    from_file,
+    from_file_to_file,
+    from_files_to_files,
+    from_dataloader,
+    save,
+    save_masked,
+)
 from .chunk import chunk  # noqa: E402
+from . import data  # noqa: E402
 from . import models  # noqa: E402
 from . import ops  # noqa: E402
 from . import utils  # noqa: E402

@@ -1,1 +1,2 @@
 from . import defaults
+from .core import ArgumentParser, configure

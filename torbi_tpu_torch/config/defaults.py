@@ -2,14 +2,25 @@
 
 The knob names and defaults are those of ``torbi_tpu/config/defaults.py``,
 so a user of the JAX package finds the same switches here. Only the
-decoding knobs this package reads are present; the TPU-only ones (kernel
-layouts, frame tiles, frame and batch buckets, sharding) have no meaning for
-kernels that take runtime shapes on one CUDA device. The batch-1 knobs pick
-the same routes as in the JAX package, onto this package's own kernels:
-auto-chunking (ops/autochunk.py), the batch-1 banded forward (K4) and the
-fused (K5) or windowed (K6) batch-1 chase. Every constant is promoted to a
-``torbi_tpu_torch.<NAME>`` attribute at import.
+knobs this package reads are present; the TPU-only ones (kernel layouts,
+frame tiles, frame and batch buckets, the loader's bucket split, sharding)
+have no meaning for kernels that take runtime shapes on one CUDA device.
+The batch-1 knobs pick the same routes as in the JAX package, onto this
+package's own kernels: auto-chunking (ops/autochunk.py), the batch-1
+banded forward (K4) and the fused (K5) or windowed (K6) batch-1 chase.
+Every constant is promoted to a ``torbi_tpu_torch.<NAME>`` attribute at
+import, and a ``--config`` file given to the CLI (config/core.py) may
+override it.
 """
+
+
+###############################################################################
+# Metadata
+###############################################################################
+
+
+# Experiment name; the file APIs' progress line names it
+CONFIG = 'torbi_tpu_torch'
 
 
 ###############################################################################
@@ -94,3 +105,21 @@ BATCH1_CHUNK_FRAMES = 1280
 # 2/5 of it or of the JAX package's 4.5 GB budget, whichever is smaller, so
 # that both packages chunk the same sequences (ops/autochunk.py).
 DECODE_MEMORY_BUDGET = 40_000_000_000
+
+
+###############################################################################
+# Data pipeline
+###############################################################################
+
+
+# Sequences (files, or chunk rows of files) decoded per batch by the file
+# APIs
+BATCH_SIZE = 512
+
+# Threads that load and collate batches ahead of the decode in the Python
+# loader (.pt files, chunked decoding); 0 loads inline
+NUM_WORKERS = 1
+
+# Load .npy files with the native threaded loader (csrc/loader.cpp) when
+# every input is .npy and chunking is off
+USE_NATIVE_LOADER = True

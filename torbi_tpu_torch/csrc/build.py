@@ -5,13 +5,18 @@ with a plain C interface, under ``build/torbi_tpu_torch/`` at the root of the
 checkout. A library's file name carries a digest of its source, the shared
 header and the flags, so an edited source rebuilds and an unchanged one is
 reused. ``build()`` starts one ``nvcc`` per missing library, all at once,
-and raises if any of them fails. Nothing here runs at import.
+and raises if any of them fails. The host code of the native file loader,
+``csrc/loader.cpp``, builds the same way with ``g++`` (``host_library``).
+Each build writes a file whose name holds the process id and renames it
+into place, so processes that build at once do not race. Nothing here runs
+at import.
 """
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent
@@ -23,12 +28,14 @@ SOURCES = (
 FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+HOST_FLAGS = ('-O3', '-shared', '-fPIC', '-pthread', '-std=c++17')
 
 # Compiler output (ptxas register and shared-memory report) per library
 # built by this process
 compiler_output = {}
 
 _libraries = {}
+_host_lock = threading.Lock()
 
 
 def nvcc():
@@ -80,6 +87,29 @@ def build(names=SOURCES):
     if failed:
         raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
     return targets
+
+
+def host_library(name):
+    """Path of the shared library built with g++ from ``csrc/<name>.cpp``
+    (built on first use), or None when it does not build"""
+    source = CSRC_DIR / f'{name}.cpp'
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(' '.join(HOST_FLAGS).encode())
+    path = BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
+    with _host_lock:
+        if path.exists():
+            return path
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        partial = path.with_name(f'{path.name}.{os.getpid()}.partial')
+        try:
+            subprocess.run(
+                ['g++', *HOST_FLAGS, str(source), '-o', str(partial)],
+                check=True, capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            partial.unlink(missing_ok=True)
+            return None
+        os.replace(partial, path)
+        return path
 
 
 def library(name):

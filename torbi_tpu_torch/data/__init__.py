@@ -1,0 +1,3 @@
+from .collate import collate, separate
+from .dataset import Dataset
+from .loader import DataLoader, loader

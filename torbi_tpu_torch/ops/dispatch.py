@@ -341,7 +341,7 @@ def decode(observation, batch_frames, transition, initial, backend=None,
                 device=device)
             for start in range(0, batch, rows)])
 
-    obs = observation.to(device)
+    obs = observation.to(device, non_blocking=True)
     if states_in != states:
         obs = obs[..., :states]
     if not fold:

@@ -1,3 +1,5 @@
 from . import cache
 from . import convert
+from . import io
+from . import progress
 from . import timing

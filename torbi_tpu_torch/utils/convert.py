@@ -13,7 +13,10 @@ def to_tensor(array, dtype=None, device=None):
     ``device=None`` leaves a tensor where it is and puts anything else on
     the host (numpy arrays are wrapped without a copy where the dtype
     already matches). Returns the input object itself when nothing needs
-    to change, so identity caches keep hitting.
+    to change, so identity caches keep hitting. A copy from the host to
+    the card does not wait for the work queued on the card: from pageable
+    memory CUDA stages the data before the call returns, and a buffer of
+    PyTorch's pinned allocator is reused only after the copy.
     """
     if array is None:
         return None
@@ -22,7 +25,8 @@ def to_tensor(array, dtype=None, device=None):
         if not (host.flags.c_contiguous and host.flags.writeable):
             host = np.array(host, order='C')
         array = torch.from_numpy(host)
-    return array.to(dtype=dtype, device=device)
+    return array.to(dtype=dtype, device=device,
+                    non_blocking=array.device.type == 'cpu')
 
 
 def resolve_device(gpu=None):

@@ -48,14 +48,28 @@ The cases:
   branch, which the smaller batches do not reach.
 
 Every case decodes through ``from_probabilities`` with its ``log_probs``.
+
+The file cases (``FILE_CASES``) decode through ``from_files_to_files``
+instead: their observations are written as log-space ``.npy`` files and
+the transition as a probability file (which the file API takes to
+``log(p + tiny)``), and their paths are the output files joined in input
+order:
+
+- ``files-pitch``: five pitch sequences of mixed lengths (1 to 192 frames)
+  at 1440 states, one batch of the native loader (K1, K3);
+- ``files-chunked``: one pitch sequence of 1024 frames decoded with
+  ``MIN_CHUNK_SIZE`` 128, so that its chunks decode as rows of one batch
+  and are joined again.
 """
 import hashlib
+import tempfile
 from collections import namedtuple
 from pathlib import Path
 
 import numpy as np
 
 from . import edges
+from . import io
 from ..models import pitch
 
 TINY = np.finfo(np.float32).tiny
@@ -211,6 +225,70 @@ CASES = tuple(
     Case('wide-4096', True, 20, _wide_4096),
     Case('wide-batch-prob', False, 21, _wide_batch_prob),
 )
+
+
+# make(seed) -> (observations, a list of (frames, states) numpy arrays;
+# the transition in probability space, or None for the uniform default);
+# min_chunk_size is MIN_CHUNK_SIZE during the decode
+FileCase = namedtuple('FileCase', 'name log_probs seed min_chunk_size make')
+
+
+def _files_pitch(seed):
+    lengths = (192, 37, 1, 150, 96)
+    return ([pitch.synthetic_posteriorgrams(
+                1, frames, pitch.PITCH_BINS, seed=seed + i)[0]
+             for i, frames in enumerate(lengths)],
+            pitch.transition_matrix())
+
+
+def _files_chunked(seed):
+    return ([pitch.synthetic_posteriorgrams(
+                1, 1024, pitch.PITCH_BINS, seed=seed)[0]],
+            pitch.transition_matrix())
+
+
+FILE_CASES = (
+    FileCase('files-pitch', True, 22, None, _files_pitch),
+    FileCase('files-chunked', True, 23, 128, _files_chunked),
+)
+
+
+def file_inputs_hash(case, inputs):
+    """SHA-256 (hex) of a file case's inputs, ``log_probs`` and
+    ``min_chunk_size``"""
+    observations, transition = inputs
+    return inputs_hash(case, (
+        *observations, transition,
+        np.array([case.min_chunk_size or 0], np.int64)))
+
+
+def decode_files(package, case, inputs, **kwargs):
+    """A file case through ``package.from_files_to_files`` (this package or
+    the JAX one, with ``MIN_CHUNK_SIZE`` set to the case's for the call),
+    in a temporary directory: the output files' paths joined in input
+    order, int32 numpy"""
+    observations, transition = inputs
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        input_files, output_files = [], []
+        for i, observation in enumerate(observations):
+            np.save(tmp / f'{i}.npy', observation)
+            input_files.append(tmp / f'{i}.npy')
+            output_files.append(tmp / f'{i}_out.npy')
+        transition_file = None
+        if transition is not None:
+            transition_file = tmp / 'transition.npy'
+            np.save(transition_file, transition)
+        saved = package.MIN_CHUNK_SIZE
+        package.MIN_CHUNK_SIZE = case.min_chunk_size
+        try:
+            package.from_files_to_files(
+                input_files, output_files, transition_file=transition_file,
+                log_probs=case.log_probs, **kwargs)
+        finally:
+            package.MIN_CHUNK_SIZE = saved
+        return np.concatenate([
+            io.load(path) for path in output_files]).astype(np.int32)
 
 
 def case_inputs(case):
