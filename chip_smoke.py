@@ -55,7 +55,10 @@ just after each:
   chase (K6) on a pure -inf band, a band too wide for K4's register tile
   (K1's cluster design, K5), a band too wide for any cluster layout (width
   401: K1's wide-band design, K5), and the uniform transition's closed
-  form. K6 is
+  form (its recurrence K7, ``csrc/constant.cu``, once a call; also at
+  512 x 512 with ragged lengths, held against the scan route; K7 itself
+  held bitwise against its plain version at 1 x 10,240 and 512 x 512 and
+  timed). K6 is
   K5's two phases without the floor pass: its phase-1 table and its path
   are held against their plain versions and its path against K5 at
   1 x 10,240, 1 x 2048 and on every sequence of the pure-band edges; the
@@ -113,6 +116,18 @@ just after each:
   K1 and K3, not K4 or K5) against the plain scan route chunk by chunk;
   the CLI (``python -m torbi_tpu_torch``) in a subprocess on four files,
   without and with ``--config``;
+- ``batch_frames`` past ``frames``: a 3 x 7 x 40 banded batch (K1, K3)
+  and one 64-frame sequence (K4, K5) decode to the path of the clamped
+  lengths;
+- the evaluation harness at full width (``evaluation_phase``): two
+  synthetic corpora of 1440-state pitch files (the eval script's
+  generator and seeds), the reference pass on the CPU over a spawn pool,
+  then ``evaluate.datasets`` in three configurations: the default (K1,
+  K3) and ``config/nobatch.py`` (K4, K5) must score RPA@0 = 1.0 against
+  the reference; with ``MIN_CHUNK_SIZE`` 64 (K1, K3) every output file
+  must equal its chunks decoded one by one through the scan route;
+- the cross-route soak (``scripts/soak.py``): 240 seeded configurations
+  through the kernels, each path bitwise the port's numpy oracle;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -171,6 +186,14 @@ BIG_STATES = 8200
 # chunks at least FILE_CHUNK_MIN frames apart
 FILE_COUNT, FILE_SEED, FILE_BATCH = 64, 3, 16
 FILE_CHUNK_FRAMES, FILE_CHUNK_MIN = 65536, 512
+# The evaluation harness: two synthetic corpora with the eval script's
+# seeds, EVAL_FILES pitch files of 128-512 frames each
+EVAL_SEEDS = {'synthdaps': 11, 'synthvctk': 7011}
+EVAL_FILES = 24
+# The cross-route soak through the kernels
+SOAK_CASES, SOAK_SEED = 240, 20261017
+# Rows of the uniform path at the headline's shape held against the scan
+UNIFORM_SCAN_ROWS = 16
 
 # The lab phases: the bitwise checks' frames (forward lab at 8 sequences,
 # spread lab) and steps (chase lab), the timed iterations, and the forward
@@ -839,6 +862,268 @@ def file_path_phase(torch, device, card, reset_counts, read_counts):
     return corpus_counts
 
 
+def constant_phase(torch, device, single, headline, init, clock_hz):
+    """K7, the constant route's recurrence, against its plain version on the
+    card, bitwise: on one pitch sequence of SINGLE_FRAMES frames (whole,
+    and cut short by its length) and on the headline's BATCH x FRAMES with
+    ragged lengths, some past the stream; the frame maxima and first
+    maxima as the closed form computes them from the converted
+    observation. Timed (CUDA events) at each shape beside its bound and
+    the chain of frames at the card's SM clock ``clock_hz``. Returns the
+    kernels-line entry (its launches added by the caller)."""
+    import math
+
+    from torbi_tpu_torch.ops import constant, dispatch
+
+    floor = float(torch.tensor(math.log(1. / STATES), dtype=torch.float32))
+    rng = np.random.default_rng(11)
+    ragged = rng.integers(1, FRAMES + 1, size=BATCH).astype(np.int32)
+    ragged[:4] = [FRAMES, 1, 2, FRAMES + 9]
+    cases = (
+        ('1 x 10,240', single, [SINGLE_FRAMES]),
+        ('1 x 10,240 cut at 7000', single, [7000]),
+        (f'{BATCH} x {FRAMES} ragged', headline, ragged))
+    timings = {}
+    entry = None
+    for label, observation, lengths in cases:
+        obs = dispatch.convert(observation, True, True).contiguous()
+        args = (obs.amax(dim=2).contiguous(),
+                (obs[:, 0, :] + init[None, :]).amax(dim=1).contiguous(),
+                torch.tensor(lengths, dtype=torch.int32, device=device),
+                floor)
+        del obs
+        got = constant.recurrence(*args)
+        expected, plain_ms = cuda_once(
+            torch, lambda: constant.recurrence_reference(*args))
+        err = require_equal(torch, f'K7 constant_recurrence at {label}',
+                            got, expected)
+        ms = cuda_ms(torch, lambda: constant.recurrence(*args), iters=10)
+        batch, frames = args[0].shape
+        # The maxima, the first maxima and the lengths in, the carry out;
+        # two adds a frame and sequence
+        moved = (batch * frames + 3 * batch + batch * (frames - 1)) * 4
+        bound = bound_ms(moved, 2 * batch * (frames - 1))
+        # The chain: two dependent fp32 adds a frame at 4 clocks each
+        chain_ms = (frames - 1) * 8 / clock_hz * 1e3
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound=bound,
+                              chain_ms=chain_ms)
+        info(f'K7 at {label}: {ms:.4f} ms (CUDA events, mean of 10), bound '
+             f'{bound[0]:.5f} ({bound[1]}), the chain of {frames - 1} '
+             f'frames at 8 clocks each {chain_ms:.4f} ms; plain '
+             f'{plain_ms:.1f} ms')
+        if entry is None:
+            entry = dict(
+                name='constant_recurrence', route='cuda',
+                source='torbi_tpu_torch/csrc/constant.cu',
+                replaces='torbi_tpu/ops/dispatch.py:385', path='uniform',
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                library_ms=None, chain_bound_ms=chain_ms)
+        entry['max_abs_err'] = max(entry['max_abs_err'], err)
+    entry['shapes'] = {
+        label: {key: (value[0] if key == 'bound' else value)
+                for key, value in timing.items()}
+        for label, timing in timings.items()}
+    return entry
+
+
+def c4_phase(torch, reset_counts, read_counts):
+    """``batch_frames`` past ``frames`` on the card: a 3 x 7 x 40 banded
+    batch with lengths [9, 7, 3] through K1 and K3, and one 64-frame
+    sequence with length 80 through K4 and K5; each path equals the path
+    of the clamped lengths (the same route) and the plain scan route's
+    there. The counters are reset just before and read just after each."""
+    import torbi_tpu_torch
+
+    rng = np.random.default_rng(4)
+    states = 40
+    trans = np.full((states, states), np.log(TINY), np.float32)
+    rows = np.arange(states)
+    for offset in range(-3, 4):
+        keep = (rows + offset >= 0) & (rows + offset < states)
+        trans[rows[keep], rows[keep] + offset] = np.log(
+            rng.uniform(0.05, 1, keep.sum())).astype(np.float32)
+    for label, shape, lengths, kernels in (
+            ('3 x 7, lengths [9, 7, 3]', (3, 7), [9, 7, 3],
+             ('band_forward', 'backtrace')),
+            ('1 x 64, length 80', (1, 64), [80],
+             ('band_spread', 'backtrace_pointers', 'chase_pointers'))):
+        obs = np.log(rng.dirichlet(np.ones(states), size=shape)
+                     .astype(np.float32) + TINY)
+
+        def decode(lengths, **kwargs):
+            return torbi_tpu_torch.from_probabilities(
+                obs, batch_frames=np.array(lengths, np.int32),
+                transition=trans, log_probs=True, gpu=0, **kwargs)
+
+        reset_counts()
+        got = decode(lengths)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        missing = [name for name in kernels if counts[name] < 1]
+        if missing:
+            fail(f'batch_frames past frames ({label}) did not launch '
+                 f'{missing}: launches {counts}')
+        clamped = np.minimum(lengths, shape[1])
+        if not torch.equal(got, decode(clamped)):
+            fail(f'batch_frames past frames ({label}) differs from the path '
+                 'of the clamped lengths')
+        if not torch.equal(got, decode(clamped, backend='scan')):
+            fail(f'batch_frames past frames ({label}) differs from the plain '
+                 'scan route at the clamped lengths')
+        info(f'batch_frames past frames, {label}: equals the path of the '
+             f'clamped lengths and the scan route there (launches '
+             f'{ {name: counts[name] for name in kernels} })')
+
+
+def evaluation_phase(torch, device, card, reset_counts, read_counts):
+    """The evaluation harness at full width, unmodified: two synthetic
+    corpora of EVAL_FILES 1440-state pitch files each (the eval script's
+    generator and seeds), the reference pass on the CPU over a spawn pool,
+    then three configurations through ``evaluate.datasets``: the default
+    (batches of BATCH_SIZE: K1 and K3), ``config/nobatch.py`` (one file a
+    call: K4 and K5) and MIN_CHUNK_SIZE 64 (chunk rows: K1 and K3). The
+    default and nobatch must score RPA@0 = 1.0 against the reference;
+    each chunked output file must equal its chunks decoded one by one
+    through the plain scan route. The package's constants are restored
+    afterwards. Returns {config: (results, launch counts)}. ``device`` is
+    the card (or, to rehearse the phase's logic, the CPU)."""
+    import os
+
+    import torbi_tpu_torch
+    from torbi_tpu_torch.config import configure
+    from torbi_tpu_torch.scripts import eval_synth
+    from torbi_tpu_torch.utils import io
+
+    gpu = device.index if device.type == 'cuda' else 'cpu'
+    names = ('CONFIG', 'CACHE_DIR', 'EVAL_DIR', 'PARTITION_DIR',
+             'PITCH_TRANSITION_MATRIX', 'DATASETS', 'EVALUATION_SAMPLES',
+             'BATCH_SIZE', 'MIN_CHUNK_SIZE', 'MODULE')
+    missing = object()
+    saved = {name: getattr(torbi_tpu_torch, name, missing) for name in names}
+
+    def restore():
+        for name, value in saved.items():
+            if value is not missing:
+                setattr(torbi_tpu_torch, name, value)
+            elif hasattr(torbi_tpu_torch, name):
+                delattr(torbi_tpu_torch, name)
+
+    workdir = ROOT / 'build' / 'smoke_eval'
+    shutil.rmtree(workdir, ignore_errors=True)
+    datasets = list(EVAL_SEEDS)
+    start = time.perf_counter()
+    frames = 0
+    for dataset, seed in EVAL_SEEDS.items():
+        _, lengths = eval_synth.build_corpus(
+            workdir, dataset, EVAL_FILES, 128, 512, seed)
+        frames += sum(lengths)
+    info(f'evaluation corpora {datasets}: {len(datasets) * EVAL_FILES} '
+         f'files, {frames} frames x {STATES} states, made in '
+         f'{time.perf_counter() - start:.1f} s')
+    results = {}
+    try:
+        eval_synth.configure(workdir, 'synth-smoke', datasets, EVAL_FILES)
+        threads = min(8, os.cpu_count() or 1)
+        start = time.perf_counter()
+        eval_synth.reference_pass(datasets, threads)
+        info(f'evaluation reference pass: {frames} frames on {threads} '
+             f'spawn workers in {time.perf_counter() - start:.1f} s')
+        runs = (
+            ('default', None, {}, ('band_forward', 'backtrace')),
+            ('nobatch', ROOT / 'torbi_tpu_torch' / 'config' / 'nobatch.py',
+             {}, ('band_spread', 'backtrace_pointers', 'chase_pointers')),
+            ('chunk64', None, {'MIN_CHUNK_SIZE': 64},
+             ('band_forward', 'backtrace')))
+        for label, config_file, overrides, kernels in runs:
+            restore()
+            if config_file is not None:
+                configure([config_file])
+            eval_synth.configure(
+                workdir, torbi_tpu_torch.CONFIG if config_file
+                else f'synth-smoke-{label}', datasets, EVAL_FILES)
+            for name, value in overrides.items():
+                setattr(torbi_tpu_torch, name, value)
+            reset_counts()
+            start = time.perf_counter()
+            result = torbi_tpu_torch.evaluate.datasets(
+                datasets, gpu=gpu, num_threads=threads)
+            wall = time.perf_counter() - start
+            counts = read_counts()
+            results[label] = (result, counts)
+            for dataset in datasets:
+                entry = result[dataset]
+                info(f'evaluation {label}, {dataset}: RPA@0/1/2 '
+                     + '/'.join(f'{entry["rpa"][k]:.6f}'
+                                for k in ('0', '1', '2'))
+                     + f', {entry["frames"]} frames, RTF '
+                     f'{entry["rtf"]["torbi"]:.1f}, '
+                     f'{entry["timesteps_per_second"]["torbi"]:.0f} '
+                     f'timesteps/s (torbi), on {card}')
+            info(f'evaluation {label}: {wall:.1f} s wall, launches {counts}')
+            if device.type == 'cuda':
+                absent = [name for name in kernels if counts[name] < 1]
+                if absent:
+                    fail(f'the evaluation ({label}) did not launch '
+                         f'{absent}: launches {counts}')
+            if label != 'chunk64':
+                low = {dataset: result[dataset]['rpa']['0']
+                       for dataset in datasets
+                       if result[dataset]['rpa']['0'] != 1.0}
+                if low:
+                    fail(f'the evaluation ({label}) scored RPA@0 below 1.0 '
+                         f'against the reference decoder: {low}')
+                continue
+            # Each chunked output file: its chunks one by one, scan route
+            transition = np.log(
+                io.load(torbi_tpu_torch.PITCH_TRANSITION_MATRIX) + TINY)
+            checked = 0
+            for dataset in datasets:
+                for stem in json.loads((
+                        workdir / 'partitions' / f'{dataset}.json')
+                        .read_text()):
+                    obs = io.load(workdir / 'cache' / dataset / f'{stem}.pt')
+                    expected = torch.cat([
+                        torbi_tpu_torch.from_probabilities(
+                            piece[None], transition=transition,
+                            log_probs=True, gpu=gpu, backend='scan')[0]
+                        for piece in torbi_tpu_torch.chunk(obs)]).cpu()
+                    got = torch.from_numpy(io.load(
+                        workdir / 'eval' / dataset / torbi_tpu_torch.CONFIG
+                        / f'{stem}.pt'))
+                    if not torch.equal(got, expected):
+                        fail(f'the chunked evaluation output {dataset}/'
+                             f'{stem} differs from its chunks decoded one '
+                             'by one through the scan route')
+                    checked += 1
+            info(f'evaluation chunk64: {checked} output files equal their '
+                 'chunks decoded one by one through the scan route')
+    finally:
+        restore()
+    return results
+
+
+def soak_phase(torch, device, reset_counts, read_counts):
+    """The cross-route soak (``scripts/soak.py``) through the kernels:
+    SOAK_CASES seeded configurations, each path bitwise the port's numpy
+    oracle. Returns the launches per kernel over the run."""
+    from torbi_tpu_torch.scripts import soak
+
+    reset_counts()
+    start = time.perf_counter()
+    result = soak.run(SOAK_CASES, SOAK_SEED, device, verbose=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    info(f'soak: {result["cases"]} cases (kinds {result["kinds"]}) in '
+         f'{time.perf_counter() - start:.1f} s, launches {counts}, '
+         f'{len(result["failures"])} mismatches against the oracle '
+         '(tolerance: bitwise)')
+    for settings in result['failures']:
+        info(f'soak mismatch: {settings}')
+    if result['failures']:
+        fail(f'the soak found {len(result["failures"])} mismatches')
+    return counts
+
+
 def pitch_file(path, frames, seed):
     """One log-space pitch posteriorgram file of ``frames`` x STATES, written
     in slices; returns the array"""
@@ -878,7 +1163,7 @@ def main():
     import torbi_tpu_torch
     from torbi_tpu_torch.csrc import build
     from torbi_tpu_torch.models import pitch
-    from torbi_tpu_torch.ops import backtrace, band, dense, dispatch
+    from torbi_tpu_torch.ops import backtrace, band, constant, dense, dispatch
     from torbi_tpu_torch.scripts import chase_lab, kernel_lab
     from torbi_tpu_torch.utils import edges, fixtures, profile
 
@@ -1407,6 +1692,7 @@ def main():
         'backtrace_pointers': backtrace.backtrace_pointers,
         'chase_pointers': backtrace.chase_pointers,
         'backtrace_window': backtrace.backtrace_window,
+        'constant_recurrence': constant.recurrence,
     }
 
     def reset_counts():
@@ -2385,17 +2671,55 @@ def main():
                  'the plain scan route on the card')
     short_ms = host_ms(torch, lambda: single_call(short))
 
-    # The uniform transition: the constant closed form, no kernel
+    # The uniform transition: the constant closed form, its recurrence K7
+    # (one launch a call) and torch reductions; K7 itself held bitwise at
+    # 1 x 10,240 and at the headline's shape with ragged lengths
     def uniform_call(**kwargs):
         return torbi_tpu_torch.from_probabilities(
             single, log_probs=True, gpu=0, **kwargs)
 
     uniform, uniform_counts = run_path('batch-1 uniform path', uniform_call)
-    if any(uniform_counts.values()):
-        fail('the constant closed form launched a kernel')
+    others = {name: count for name, count in uniform_counts.items()
+              if count and name != 'constant_recurrence'}
+    if uniform_counts['constant_recurrence'] != 1 or others:
+        fail(f'the uniform path launched {uniform_counts}: K7 once, nothing '
+             'else expected')
     require_same('uniform path', uniform, uniform_call(backend='scan'),
                  'the plain scan route on the card')
     single_paths['uniform closed form'] = host_ms(torch, uniform_call)
+    kernels['constant_recurrence'] = constant_phase(
+        torch, device, single, obs, init, clock_hz)
+    kernels['constant_recurrence']['path_ms'] = single_paths[
+        'uniform closed form'][0]
+    # The uniform route at the headline's shape, ragged lengths (some past
+    # the stream); its first UNIFORM_SCAN_ROWS rows against the scan route
+    ragged = torch.from_numpy(np.random.default_rng(12).integers(
+        1, FRAMES + 3, size=BATCH).astype(np.int32)).to(device)
+    reset_counts()
+    uniform_big = torbi_tpu_torch.from_probabilities(
+        obs, batch_frames=ragged, log_probs=True, gpu=0)
+    torch.cuda.synchronize()
+    big_counts = read_counts()
+    if big_counts['constant_recurrence'] != 1:
+        fail(f'the uniform path at {BATCH} x {FRAMES} launched {big_counts}')
+    require_same(
+        f'uniform path at {BATCH} x {FRAMES} (ragged), first '
+        f'{UNIFORM_SCAN_ROWS} rows', uniform_big[:UNIFORM_SCAN_ROWS],
+        torbi_tpu_torch.from_probabilities(
+            obs[:UNIFORM_SCAN_ROWS],
+            batch_frames=ragged[:UNIFORM_SCAN_ROWS].clamp(max=FRAMES),
+            log_probs=True, gpu=0, backend='scan'),
+        'the plain scan route at the clamped lengths on the card')
+    uniform_big_ms = host_ms(torch, lambda: torbi_tpu_torch.from_probabilities(
+        obs, batch_frames=ragged, log_probs=True, gpu=0))
+    kernels['constant_recurrence']['headline_path_ms'] = uniform_big_ms[0]
+    info(f'uniform path at {BATCH} x {FRAMES} x {STATES}: '
+         f'{uniform_big_ms[0]:.3f} ms/call warm median of 10 (min '
+         f'{uniform_big_ms[1]:.3f}, max {uniform_big_ms[2]:.3f}), on {card}')
+    del uniform_big
+
+    # batch_frames past frames through K1 + K3 and K4 + K5
+    c4_phase(torch, reset_counts, read_counts)
 
     for label, (median_ms, low, high) in single_paths.items():
         info(f'batch-1 {label}: {median_ms:.3f} ms/call warm median of 10 '
@@ -2417,6 +2741,15 @@ def main():
     # 6c. The file path: from_files_to_files, from_file_to_file and the CLI
     # at full width, counters reset just before and read just after each
     files = file_path_phase(torch, device, card, reset_counts, read_counts)
+
+    # 6d. The evaluation harness at full width on two synthetic corpora, in
+    # three configurations, counters reset just before and read just after
+    # each
+    evaluation = evaluation_phase(
+        torch, device, card, reset_counts, read_counts)
+
+    # 6e. The cross-route soak through the kernels
+    soak_counts = soak_phase(torch, device, reset_counts, read_counts)
 
     # 7. The lab kernels against their plain versions, bitwise, at small
     # shapes: every forward body at every accumulator count (or tile) with
@@ -2906,14 +3239,21 @@ def main():
     # their launches on the file path's corpus run
     for name in ('band_forward', 'backtrace'):
         kernels[name]['files_launches'] = files[name]
+    for name in ('band_forward', 'backtrace'):
+        kernels[name]['evaluation_launches'] = evaluation['default'][1][name]
+    for name in ('band_spread', 'backtrace_pointers', 'chase_pointers'):
+        kernels[name]['evaluation_launches'] = evaluation['nobatch'][1][name]
+    for name in counters:
+        kernels[name]['soak_launches'] = soak_counts[name]
     path_counts = {
         'banded': band_counts, 'dense': dense_counts,
         'batch1-serial': serial_counts, 'batch1-window': window_counts,
-        'wide-band': a_counts, **lab_counts}
+        'wide-band': a_counts, 'uniform': uniform_counts, **lab_counts}
     lines = []
     for name in ('band_forward', 'band_forward_wide', 'band_spread',
                  'dense_forward', 'backtrace', 'backtrace_pointers',
-                 'chase_pointers', 'backtrace_window', 'lab_forward',
+                 'chase_pointers', 'backtrace_window', 'constant_recurrence',
+                 'lab_forward',
                  'lab_pipe', 'lab_mxushift', 'lab_mod12', 'lab_mod12k',
                  'lab_spread', 'lab_chase'):
         entry = dict(kernels[name])

@@ -3,9 +3,10 @@
 Batched Viterbi decoding of time-varying categorical distributions on an
 NVIDIA H100, with hand-written CUDA kernels for the banded forward pass,
 the dense forward pass and the backtrace, and for one sequence on its own
-a batch-1 banded forward pass and two batch-1 chases (``csrc/``, built
-with nvcc at first use). Long single sequences decode as entropy-chunk
-rows (``ops/autochunk.py``), as in the JAX package.
+a batch-1 banded forward pass, two batch-1 chases and the constant
+transition's recurrence (``csrc/``, built with nvcc at first use). Long
+single sequences decode as entropy-chunk rows (``ops/autochunk.py``), as
+in the JAX package.
 
 The decoding API is the JAX package's: ``from_probabilities`` and
 ``decode`` on arrays or tensors, and the file API, ``from_file``,
@@ -14,6 +15,10 @@ The decoding API is the JAX package's: ``from_probabilities`` and
 loader, ``csrc/loader.cpp``, builds with g++), with ``save`` and
 ``save_masked``. ``python -m torbi_tpu_torch`` is the command line of the
 file API, and ``python -m torbi_tpu_torch.bench`` the port's benchmark.
+The pitch evaluation harness (``evaluate``, ``python -m
+torbi_tpu_torch.evaluate``) scores decoded corpora against the reference
+CPU decoder (``reference``) over the partitions of ``partition``; the
+corpora come from ``data.download`` and ``data.preprocess``.
 Micro-benchmark labs (``scripts/``) and a profiler (``utils/profile.py``,
 ``python -m torbi_tpu_torch.profile``) measure the kernels on the card.
 The JAX package ``torbi_tpu`` is the reference it is held against; this
@@ -29,7 +34,9 @@ Entry points decode on CUDA unless the caller asks for the CPU
 
 
 from .config.defaults import *  # noqa: F401,F403
-from .config.static import *  # noqa: F401,F403
+from .config.static import derive as _derive
+
+_derive()
 
 
 ###############################################################################
@@ -49,8 +56,11 @@ from .core import (  # noqa: E402
 )
 from .chunk import chunk  # noqa: E402
 from . import data  # noqa: E402
+from . import evaluate  # noqa: E402
 from . import models  # noqa: E402
 from . import ops  # noqa: E402
+from . import partition  # noqa: E402
+from . import reference  # noqa: E402
 from . import utils  # noqa: E402
 
 __version__ = '0.1.0'

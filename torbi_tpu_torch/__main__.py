@@ -15,11 +15,7 @@ from pathlib import Path
 
 import torbi_tpu_torch
 from torbi_tpu_torch.config import ArgumentParser
-
-
-def _device(value):
-    """--gpu: a CUDA index, or 'cpu'"""
-    return 'cpu' if value == 'cpu' else int(value)
+from torbi_tpu_torch.utils.convert import device_argument
 
 
 # Declarative flag table: one row per reference-compatible flag
@@ -42,7 +38,7 @@ _FLAGS = (
         action='store_true',
         help='Observation files already hold natural-log probabilities')),
     ('--gpu', dict(
-        type=_device,
+        type=device_argument,
         help='CUDA index to decode on, or cpu; cuda:0 when omitted')),
     ('--num_threads', dict(
         type=int, default=1,

@@ -3,7 +3,8 @@
 Counterpart of ``torbi_tpu/config/core.py``, with the reference's yapecs
 semantics: a ``--config`` file is a Python file, and every uppercase name
 it defines replaces the package constant of that name. Files apply in the
-order given, so later ones override earlier ones. While a file runs,
+order given, so later ones override earlier ones; the derived values
+(``config/static.py``) are derived again after them. While a file runs,
 ``torbi_tpu_torch.CONFIGURING`` is True, so that a file can tell it is
 being applied.
 
@@ -49,6 +50,10 @@ def configure(files):
         for key in dir(override):
             if not key.startswith('_') and key.isupper():
                 setattr(torbi_tpu_torch, key, getattr(override, key))
+    if files:
+        from .static import derive
+
+        derive()
 
 
 class ArgumentParser(argparse.ArgumentParser):

@@ -9,9 +9,12 @@ The batch-1 knobs pick the same routes as in the JAX package, onto this
 package's own kernels: auto-chunking (ops/autochunk.py), the batch-1
 banded forward (K4) and the fused (K5) or windowed (K6) batch-1 chase.
 Every constant is promoted to a ``torbi_tpu_torch.<NAME>`` attribute at
-import, and a ``--config`` file given to the CLI (config/core.py) may
-override it.
+import, and a ``--config`` file given to an entry point (config/core.py)
+may override it. The evaluation harness's directories and constants are
+the JAX package's, rooted at this package: its assets (the partitions,
+the cached transition) live under ``torbi_tpu_torch/assets``.
 """
+from pathlib import Path
 
 
 ###############################################################################
@@ -19,8 +22,30 @@ override it.
 ###############################################################################
 
 
-# Experiment name; the file APIs' progress line names it
+# Experiment name; the file APIs' progress line names it, and it routes
+# the evaluation harness's output directories and results file
 CONFIG = 'torbi_tpu_torch'
+
+
+###############################################################################
+# Directories
+###############################################################################
+
+
+# Repository root (output artifacts live below it)
+ROOT_DIR = Path(__file__).parent.parent.parent
+
+# Package assets (partitions, cached stats)
+ASSETS_DIR = Path(__file__).parent.parent / 'assets'
+
+# Preprocessed posteriorgram cache
+CACHE_DIR = ROOT_DIR / 'data' / 'cache'
+
+# Raw downloaded datasets
+DATA_DIR = ROOT_DIR / 'data' / 'datasets'
+
+# Evaluation artifacts (decoded outputs, results JSON)
+EVAL_DIR = ROOT_DIR / 'eval'
 
 
 ###############################################################################
@@ -123,3 +148,36 @@ NUM_WORKERS = 1
 # Load .npy files with the native threaded loader (csrc/loader.cpp) when
 # every input is .npy and chunking is off
 USE_NATIVE_LOADER = True
+
+
+###############################################################################
+# Evaluation
+###############################################################################
+
+
+# Score against the reference decoder (librosa, or its numpy counterpart
+# ops/oracle.py); when False, score chunked decoding against this
+# package's own unchunked output instead
+COMPARE_WITH_REFERENCE = True
+
+# Decode backend the evaluation harness runs ('kernel', 'scan', or None for
+# the configured default)
+EVAL_BACKEND = None
+
+# Evaluation corpora
+DATASETS = ['daps', 'vctk']
+
+# Cap on randomly-sampled stems per dataset partition
+EVALUATION_SAMPLES = 8192
+
+# Raw-pitch-accuracy tolerance levels, in 5-cent pitch bins
+PITCH_ERROR_THRESHOLDS = [0, 1, 2]
+
+# On-disk cache of the band-diagonal pitch transition matrix
+PITCH_TRANSITION_MATRIX = ASSETS_DIR / 'stats' / 'transition.pt'
+
+# Audio sampling rate of the evaluation corpora
+SAMPLE_RATE = 16000
+
+# Seed shared by all random number generators
+RANDOM_SEED = 1234

@@ -21,10 +21,13 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parent.parent / 'build' / 'torbi_tpu_torch'
-SOURCES = (
+# The decode kernels' sources, then the labs'
+DECODE_SOURCES = (
     'band_forward', 'band_wide', 'band_spread', 'dense_forward', 'backtrace',
-    'backtrace_batch1', 'lab_forward', 'lab_pipe', 'lab_mxu', 'lab_mod',
-    'lab_spread', 'lab_chase')
+    'backtrace_batch1', 'constant')
+SOURCES = DECODE_SOURCES + (
+    'lab_forward', 'lab_pipe', 'lab_mxu', 'lab_mod', 'lab_spread',
+    'lab_chase')
 FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')

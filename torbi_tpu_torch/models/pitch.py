@@ -15,6 +15,12 @@ OCTAVE = 1200                # cents
 MAX_OCTAVES_PER_SECOND = 35.92
 HOPSIZE = 80                 # samples
 SAMPLE_RATE = 8000           # Hz
+HOPSIZE_SECONDS = HOPSIZE / SAMPLE_RATE  # 10 ms
+
+
+def frames_to_seconds(frames):
+    """Convert a frame count to seconds (penn.convert.frames_to_seconds)"""
+    return frames * HOPSIZE_SECONDS
 
 
 def bins_per_octave():

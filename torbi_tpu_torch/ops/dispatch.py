@@ -6,7 +6,8 @@ decisions. One decode takes one of these routes:
 - ``backend='scan'``: the plain PyTorch recursion with an int32 trellis
   (ops/scan.py);
 - a constant transition (a width-0 band over a finite floor, such as the
-  uniform default): a closed form of parallel torch passes, no kernel;
+  uniform default): a closed form of parallel torch passes around one
+  kernel, K7, the scalar recurrence (ops/constant.py);
 - a banded transition: the banded forward kernel, then a chase kernel;
 - any other transition: the dense forward kernel (K2), then the backtrace
   kernel (K3).
@@ -43,6 +44,7 @@ import torch
 
 from . import autochunk
 from . import band as band_ops
+from . import constant as constant_ops
 from .backtrace import (
     FUSED1_MAX_STATES, backtrace_fused1, backtrace_posteriors,
     backtrace_window, window_rows)
@@ -175,54 +177,6 @@ def kernel_route(transition, band, batch):
         backtrace_posteriors(post, transition, posterior, bf)))
 
 
-def _decode_constant(observation, batch_frames, initial, floor):
-    """Closed-form decode for a constant transition (every candidate is
-    ``floor``), bitwise equal to the banded recursion.
-
-    Forward: post[t][s] = fl(obs[t][s] + m_t) with the scalar per-row carry
-    m_t = fl(g_{t-1} + floor), g_t = max_s post[t][s]; fp rounding is
-    monotone, so max_s fl(obs[s] + c) = fl(max_s obs[s] + c) and g follows
-    a scalar recurrence over per-frame observation maxima. Backtrace: every
-    destination's backpointer is the same first argmax of
-    fl(post[t-1] + floor), so no chase is needed. Every fp add happens in
-    the order of the JAX package's closed form.
-    """
-    batch, frames, _ = observation.shape
-    device = observation.device
-    floor_t = torch.tensor(floor, dtype=torch.float32, device=device)
-    bf = batch_frames
-
-    post0 = observation[:, 0, :] + initial[None, :]     # (B, S)
-    g = post0.amax(dim=1)                                # (B,)
-    maxima = observation.amax(dim=2)                     # (B, T)
-    ms = torch.empty(
-        (batch, frames - 1), dtype=torch.float32, device=device)
-    for t in range(1, frames):
-        gm = g + floor_t                                 # m_t
-        ms[:, t - 1] = gm
-        # Freeze past each row's last valid frame
-        g = torch.where(t < bf, maxima[:, t] + gm, g)
-
-    # Backpointers: first argmax of fl(post + floor) per frame
-    pred0 = (post0 + floor_t).argmax(dim=1)
-    pred_rest = (
-        (observation[:, 1:, :] + ms[:, :, None]) + floor_t).argmax(dim=2)
-    pred = torch.cat([pred0[:, None], pred_rest], dim=1).to(torch.int32)
-
-    # Seed: first argmax of the posterior at each row's last valid frame
-    last = (bf.long() - 1).clamp(0, frames - 1)          # (B,)
-    rows = torch.arange(batch, device=device)
-    obs_last = observation[rows, last]                   # (B, S)
-    m_last = torch.nn.functional.pad(ms, (1, 1))[rows, last][:, None]
-    post_last = torch.where(
-        (last == 0)[:, None], post0, obs_last + m_last)
-    seed = post_last.argmax(dim=1).to(torch.int32)
-
-    t = torch.arange(frames, device=device)[None, :]
-    # Positions bf-1 .. T-1 hold the seed
-    return torch.where(t >= bf[:, None] - 1, seed[:, None], pred)
-
-
 def decode(observation, batch_frames, transition, initial, backend=None,
            finite_observation=False, log_input=True, apply_epsilon=False,
            device=None):
@@ -351,7 +305,8 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     if backend == 'scan':
         return decode_scan(obs, batch_frames, transition, initial)
     if constant:
-        return _decode_constant(obs, batch_frames, initial, band[2])
+        return constant_ops.decode_constant(
+            obs, batch_frames, initial, band[2])
     (_, forward), (_, chase) = kernel_route(transition, band, batch)
     flags = (log_input, apply_epsilon) if fold else (True, False)
     post_seq, posterior = forward(obs, batch_frames, initial, *flags)

@@ -59,3 +59,8 @@ def resolve_device(gpu=None):
     elif device.type != 'cpu':
         raise ValueError(f'unsupported decode device {device}')
     return device
+
+
+def device_argument(value):
+    """A command line's ``--gpu``: a CUDA index, or 'cpu'"""
+    return 'cpu' if value == 'cpu' else int(value)
