@@ -122,12 +122,24 @@ just after each:
 - the evaluation harness at full width (``evaluation_phase``): two
   synthetic corpora of 1440-state pitch files (the eval script's
   generator and seeds), the reference pass on the CPU over a spawn pool,
-  then ``evaluate.datasets`` in three configurations: the default (K1,
+  then ``evaluate.datasets`` in four configurations: the default (K1,
   K3) and ``config/nobatch.py`` (K4, K5) must score RPA@0 = 1.0 against
   the reference; with ``MIN_CHUNK_SIZE`` 64 (K1, K3) every output file
   must equal its chunks decoded one by one through the scan route;
+  ``EVAL_BACKEND='lse'`` (K3) reports its RPA;
 - the cross-route soak (``scripts/soak.py``): 240 seeded configurations
   through the kernels, each path bitwise the port's numpy oracle;
+- the extra decode modes (``modes_phase``): the (max, +) product K8
+  (``csrc/maxplus.cu``) bitwise against its plain version on its edge
+  shapes, a 1440-state product and every launch of a time-sharded decode;
+  the time-sharded route (``backend='timesharded'`` over a one-rank NCCL
+  process group, K8) and the associative route (K8, then K3) at one
+  sequence of 32,768 frames x 64 states, each bitwise the same route with
+  the plain versions on the card and, at 4096 frames, the port's CPU
+  result, timed beside the exact kernel route; ``backend='lse'`` at the
+  headline (a matrix product a frame, then K3, bitwise its plain version
+  on the lse posteriors), unchanged under TF32 matmul precision, its
+  first rows the CPU's lse paths, its RPA against the exact path;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -194,6 +206,14 @@ EVAL_FILES = 24
 SOAK_CASES, SOAK_SEED = 240, 20261017
 # Rows of the uniform path at the headline's shape held against the scan
 UNIFORM_SCAN_ROWS = 16
+# The extra decode modes: the time-sharded and associative routes at one
+# sequence of TIME_SHARDED_MIN_FRAMES frames x 64 states (also at
+# MODES_CPU_FRAMES, against the CPU), K8's edge shapes, and the lse
+# route's rows held against the CPU
+MODES_FRAMES, MODES_STATES, MODES_CPU_FRAMES = 32768, 64, 4096
+MAXPLUS_EDGES = (1, 5, 33, 64, 65, 127, 130)
+MAXPLUS_LAYOUTS = ('batched', 'broadcast', 'strided', 'neg_inf', 'nan')
+LSE_CPU_ROWS = 8
 
 # The lab phases: the bitwise checks' frames (forward lab at 8 sequences,
 # spread lab) and steps (chase lab), the timed iterations, and the forward
@@ -979,10 +999,11 @@ def evaluation_phase(torch, device, card, reset_counts, read_counts):
     """The evaluation harness at full width, unmodified: two synthetic
     corpora of EVAL_FILES 1440-state pitch files each (the eval script's
     generator and seeds), the reference pass on the CPU over a spawn pool,
-    then three configurations through ``evaluate.datasets``: the default
+    then four configurations through ``evaluate.datasets``: the default
     (batches of BATCH_SIZE: K1 and K3), ``config/nobatch.py`` (one file a
-    call: K4 and K5) and MIN_CHUNK_SIZE 64 (chunk rows: K1 and K3). The
-    default and nobatch must score RPA@0 = 1.0 against the reference;
+    call: K4 and K5), MIN_CHUNK_SIZE 64 (chunk rows: K1 and K3) and
+    ``EVAL_BACKEND='lse'`` (the smoothed-max route: K3; its RPA reported).
+    The default and nobatch must score RPA@0 = 1.0 against the reference;
     each chunked output file must equal its chunks decoded one by one
     through the plain scan route. The package's constants are restored
     afterwards. Returns {config: (results, launch counts)}. ``device`` is
@@ -997,7 +1018,7 @@ def evaluation_phase(torch, device, card, reset_counts, read_counts):
     gpu = device.index if device.type == 'cuda' else 'cpu'
     names = ('CONFIG', 'CACHE_DIR', 'EVAL_DIR', 'PARTITION_DIR',
              'PITCH_TRANSITION_MATRIX', 'DATASETS', 'EVALUATION_SAMPLES',
-             'BATCH_SIZE', 'MIN_CHUNK_SIZE', 'MODULE')
+             'BATCH_SIZE', 'MIN_CHUNK_SIZE', 'EVAL_BACKEND', 'MODULE')
     missing = object()
     saved = {name: getattr(torbi_tpu_torch, name, missing) for name in names}
 
@@ -1033,7 +1054,8 @@ def evaluation_phase(torch, device, card, reset_counts, read_counts):
             ('nobatch', ROOT / 'torbi_tpu_torch' / 'config' / 'nobatch.py',
              {}, ('band_spread', 'backtrace_pointers', 'chase_pointers')),
             ('chunk64', None, {'MIN_CHUNK_SIZE': 64},
-             ('band_forward', 'backtrace')))
+             ('band_forward', 'backtrace')),
+            ('lse', None, {'EVAL_BACKEND': 'lse'}, ('backtrace',)))
         for label, config_file, overrides, kernels in runs:
             restore()
             if config_file is not None:
@@ -1065,6 +1087,9 @@ def evaluation_phase(torch, device, card, reset_counts, read_counts):
                 if absent:
                     fail(f'the evaluation ({label}) did not launch '
                          f'{absent}: launches {counts}')
+            if label == 'lse':
+                # Approximate by design: its RPA is reported, not limited
+                continue
             if label != 'chunk64':
                 low = {dataset: result[dataset]['rpa']['0']
                        for dataset in datasets
@@ -1124,6 +1149,373 @@ def soak_phase(torch, device, reset_counts, read_counts):
     return counts
 
 
+def same_bits(torch, got, expected):
+    """Whether two float tensors hold equal values, NaN where the other
+    holds NaN (the payloads of NaN aside; -0 equals +0)"""
+    nan = got.isnan()
+    return (got.shape == expected.shape
+            and torch.equal(nan, expected.isnan())
+            and torch.equal(got.masked_fill(nan, 0.),
+                            expected.masked_fill(nan, 0.)))
+
+
+def maxplus_operands(torch, states, layout, device, seed):
+    """(a, b) of a (max, +) product at ``states``: 'batched' (3, S, S) by
+    (3, S, S); 'broadcast' by one (S, S) (batch stride 0); 'strided' every
+    other matrix of a stack, as the scan takes them; 'neg_inf' with -inf
+    rows of a, -inf columns of b and the time-sharded code's identity;
+    'nan' with +inf entries of a meeting -inf of b, and a NaN"""
+    generator = torch.Generator(device='cpu').manual_seed(seed + states)
+    a = torch.randn((3, states, states), generator=generator) * 10
+    b = torch.randn((3, states, states), generator=generator) * 10
+    if layout == 'broadcast':
+        b = b[1:2]
+    elif layout == 'strided':
+        stack = torch.randn((7, states, states), generator=generator) * 10
+        return stack.to(device)[0:-1:2], stack.to(device)[1::2]
+    elif layout == 'neg_inf':
+        a[0, 0, :] = -np.inf
+        a[1, :, states // 2] = -np.inf
+        b[0, :, 0] = -np.inf
+        b[2] = -np.inf
+        b[2].fill_diagonal_(0.)
+    elif layout == 'nan':
+        a[0, :, 0] = np.inf
+        b[0, 0, :] = -np.inf
+        a[1, 0, 0] = np.nan
+    return a.to(device), b.to(device)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def modes_phase(torch, device, card, headline, exact_path, reset_counts,
+                read_counts):
+    """The extra decode modes on the card, the counters reset just before
+    and read just after each path:
+
+    - K8 (``csrc/maxplus.cu``) bitwise against its plain version on the
+      edge shapes (MAXPLUS_EDGES states in every layout of
+      ``maxplus_operands``, rectangular operands broadcast both ways, a
+      batch past the grid's 65,535, a 1440-state product), and on every
+      launch of one time-sharded decode at 1 x MODES_FRAMES x MODES_STATES;
+    - the time-sharded route (``backend='timesharded'`` through
+      ``from_probabilities``, over a one-rank NCCL process group) and the
+      associative route (``viterbi_decode_scan``: K8, then K3) at that
+      shape: each bitwise the same route with the plain versions on the
+      card, timed beside the exact kernel route (K2, K3) at that shape,
+      and at 1 x MODES_CPU_FRAMES bitwise the port's CPU result;
+    - ``backend='lse'`` at the headline (512 x 512 x 1440 pitch): K3
+      bitwise ``backtrace_reference`` on its posteriors, the same paths
+      under ``torch.set_float32_matmul_precision('high')``, its first
+      LSE_CPU_ROWS rows the port's CPU paths, its RPA against the exact
+      path, and its time split into the products, the other torch ops and
+      K3.
+
+    ``headline`` is (observation, transition, initial, batch_frames) of the
+    headline on the card and ``exact_path`` its exact path. Returns (K8's
+    kernels-line entry, the time-sharded path's counts, the lse path's
+    counts)."""
+    import torch.distributed as dist
+
+    import torbi_tpu_torch
+    from torbi_tpu_torch.ops import associative, backtrace, dispatch, lse
+
+    # K8 on the edge shapes
+    checked = 0
+    for states in MAXPLUS_EDGES:
+        for layout in MAXPLUS_LAYOUTS:
+            a, b = maxplus_operands(torch, states, layout, device, 80)
+            if not same_bits(torch, associative.maxplus_matmul(a, b),
+                             associative.maxplus_matmul_reference(a, b)):
+                fail(f'K8 maxplus_matmul differs from its plain version at '
+                     f'{states} states, {layout} (tolerance: bitwise)')
+            checked += 1
+    generator = torch.Generator(device='cpu').manual_seed(81)
+    for a_shape, b_shape in (((2, 1, 7, 11), (3, 11, 5)),
+                             ((70000, 2, 3), (70000, 3, 2)),
+                             ((1440, 1440), (1440, 1440))):
+        a = (torch.randn(a_shape, generator=generator) * 10).to(device)
+        b = (torch.randn(b_shape, generator=generator) * 10).to(device)
+        got = associative.maxplus_matmul(a, b)
+        expected, plain_1440 = cuda_once(
+            torch, lambda: associative.maxplus_matmul_reference(a, b))
+        if not same_bits(torch, got, expected):
+            fail(f'K8 maxplus_matmul differs from its plain version at '
+                 f'{a_shape} by {b_shape} (tolerance: bitwise)')
+        checked += 1
+    ms_1440 = cuda_ms(torch, lambda: associative.maxplus_matmul(a, b),
+                      iters=5)
+    bound_1440 = bound_ms(3 * 1440 * 1440 * 4, 2 * 1440 ** 3)
+    info(f'K8 maxplus_matmul: {checked} edge shapes bitwise equal to its '
+         f'plain version (tolerance: bitwise; NaN where it holds NaN); 1440 '
+         f'x 1440 x 1440: {ms_1440:.4f} ms (CUDA events, mean of 5), bound '
+         f'{bound_1440[0]:.4f} ({bound_1440[1]}), plain {plain_1440:.1f} ms')
+    del a, b, got, expected
+
+    # One sequence at the small-state regime of the associative modes
+    rng = np.random.default_rng(31)
+    frames, states = MODES_FRAMES, MODES_STATES
+    obs_host = np.log(rng.dirichlet(
+        np.full(states, 0.3), size=frames).astype(np.float32) + TINY)
+    trans_host = np.log(rng.dirichlet(
+        np.ones(states), size=states).astype(np.float32) + TINY)
+    init_host = np.log(np.full(states, 1.0 / states, np.float32) + TINY)
+    obs = torch.from_numpy(obs_host).to(device)
+    trans = torch.from_numpy(trans_host).to(device)
+    init = torch.from_numpy(init_host).to(device)
+    shape = f'1 x {frames} x {states}'
+
+    def decode(observation, **kwargs):
+        return torbi_tpu_torch.from_probabilities(
+            observation[None], transition=trans, initial=init,
+            log_probs=True, gpu=0, **kwargs)[0]
+
+    # The routes with the plain versions: every K8 launch also held
+    # against its plain version, whose result goes on
+    real_maxplus = associative.maxplus_matmul
+    real_backtrace = associative.backtrace_posteriors
+    held = {'launches': 0}
+
+    def held_maxplus(a, b):
+        got = real_maxplus(a, b)
+        expected = associative.maxplus_matmul_reference(a, b)
+        if not same_bits(torch, got, expected):
+            fail(f'K8 maxplus_matmul differs from its plain version on a '
+                 f'launch of the time-sharded route at {shape}, operands '
+                 f'{tuple(a.shape)} by {tuple(b.shape)} (tolerance: bitwise)')
+        # An empty product launches nothing
+        held['launches'] += bool(got.numel())
+        return expected
+
+    # While a wrapper stands in for K8, the kernel's own count goes to the
+    # wrapper (it counts through its module's name): comparison and timing
+    # launches do not count
+    held_maxplus.launches = 0
+
+    def plain_route(fn):
+        associative.maxplus_matmul = held_maxplus
+        associative.backtrace_posteriors = backtrace.backtrace_reference
+        try:
+            return fn()
+        finally:
+            associative.maxplus_matmul = real_maxplus
+            associative.backtrace_posteriors = real_backtrace
+
+    # K8's own time at the scan's first level (every other step matrix)
+    steps = trans[None] + dispatch.convert(obs, True, True)[1:, :, None]
+    first_a, first_b = steps[1::2], steps[0:-1:2]
+    level_ms = cuda_ms(
+        torch, lambda: associative.maxplus_matmul(first_a, first_b), iters=5)
+    _, level_plain_ms = cuda_once(
+        torch, lambda: associative.maxplus_matmul_reference(first_a, first_b))
+    pairs = first_a.shape[0]
+    level_bound = bound_ms(3 * pairs * states * states * 4,
+                           2 * pairs * states ** 3)
+    del steps, first_a, first_b
+
+    port = free_port()
+    dist.init_process_group(
+        'nccl', init_method=f'tcp://127.0.0.1:{port}', world_size=1, rank=0)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        ts_path = decode(obs, backend='timesharded')
+        torch.cuda.synchronize()
+        ts_counts = read_counts()
+        ts_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        others = {name: count for name, count in ts_counts.items()
+                  if count and name != 'maxplus_matmul'}
+        if ts_counts['maxplus_matmul'] < 1 or others:
+            fail(f'the time-sharded path at {shape} launched {ts_counts}: '
+                 'K8 and nothing else expected')
+        ts_plain = plain_route(lambda: decode(obs, backend='timesharded'))
+        if held['launches'] != ts_counts['maxplus_matmul']:
+            fail(f'the time-sharded route held {held["launches"]} K8 launches '
+                 f'against the plain version, of {ts_counts["maxplus_matmul"]}')
+        if not torch.equal(ts_path, ts_plain):
+            fail(f'the time-sharded path at {shape} differs from the same '
+                 'route with the plain versions on the card')
+        ts_ms = host_ms(torch, lambda: decode(obs, backend='timesharded'),
+                        calls=3)
+        # K8's share of one call: CUDA events around each launch
+        marks = []
+
+        def timed_maxplus(a, b):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_maxplus(a, b)
+            stop.record()
+            marks.append((start, stop))
+            return out
+
+        timed_maxplus.launches = 0
+        associative.maxplus_matmul = timed_maxplus
+        try:
+            decode(obs, backend='timesharded')
+        finally:
+            associative.maxplus_matmul = real_maxplus
+        torch.cuda.synchronize()
+        ts_k8_ms = sum(start.elapsed_time(stop) for start, stop in marks)
+        ts_short = decode(obs[:MODES_CPU_FRAMES], backend='timesharded')
+    finally:
+        dist.destroy_process_group()
+    info(f'time-sharded path at {shape} (from_probabilities, one-rank NCCL '
+         f'group): launches {ts_counts}; bitwise the same route with the '
+         f'plain versions on the card, its {held["launches"]} K8 launches '
+         f'each bitwise their plain version; {ts_ms[0]:.3f} ms/call warm '
+         f'median of 3 (min {ts_ms[1]:.3f}, max {ts_ms[2]:.3f}), K8 '
+         f'{ts_k8_ms:.3f} ms of it in {len(marks)} launches (CUDA events), '
+         f'peak device memory {ts_peak_gb:.2f} GB, on {card}')
+
+    # The associative route: the scan, then K3
+    def scan_route(observation):
+        converted = dispatch.convert(observation, True, True).contiguous()
+        return associative.viterbi_decode_scan(converted, trans, init)
+
+    reset_counts()
+    scan_path = scan_route(obs)
+    torch.cuda.synchronize()
+    scan_counts = read_counts()
+    if (scan_counts['maxplus_matmul'] < 1 or scan_counts['backtrace'] != 1
+            or sum(scan_counts.values()) != scan_counts['maxplus_matmul'] + 1):
+        fail(f'the associative route at {shape} launched {scan_counts}: K8 '
+             'and K3 expected')
+    if not torch.equal(scan_path, plain_route(lambda: scan_route(obs))):
+        fail(f'the associative route at {shape} differs from the same route '
+             'with the plain versions on the card')
+    scan_ms = host_ms(torch, lambda: scan_route(obs), calls=3)
+    scan_short = scan_route(obs[:MODES_CPU_FRAMES])
+
+    # The exact kernel route at the same shape (K2, K3)
+    reset_counts()
+    exact = decode(obs)
+    torch.cuda.synchronize()
+    exact_counts = read_counts()
+    exact_ms = host_ms(torch, lambda: decode(obs), calls=3)
+    info(f'associative route at {shape} (viterbi_decode_scan): launches '
+         f'{scan_counts}; bitwise the same route with the plain versions on '
+         f'the card; {scan_ms[0]:.3f} ms/call warm median of 3; the exact '
+         f'kernel route (launches {exact_counts}) {exact_ms[0]:.3f} ms/call; '
+         f'frames where the time-sharded path differs from the exact one: '
+         f'{int((ts_path != exact).sum())}, the associative path: '
+         f'{int((scan_path != exact).sum())} (of {frames})')
+
+    # At 1 x MODES_CPU_FRAMES against the port's CPU result
+    short_host = obs_host[:MODES_CPU_FRAMES]
+    start = time.perf_counter()
+    ts_cpu = torbi_tpu_torch.from_probabilities(
+        short_host[None], transition=trans_host, initial=init_host,
+        log_probs=True, gpu='cpu', backend='timesharded')[0]
+    converted = dispatch.convert(
+        torch.from_numpy(short_host), True, True).contiguous()
+    scan_cpu = associative.viterbi_decode_scan(
+        converted, torch.from_numpy(trans_host), torch.from_numpy(init_host))
+    cpu_s = time.perf_counter() - start
+    if not torch.equal(ts_short.cpu(), ts_cpu):
+        fail(f'the time-sharded path at 1 x {MODES_CPU_FRAMES} x {states} '
+             'differs from the port\'s CPU result')
+    if not torch.equal(scan_short.cpu(), scan_cpu):
+        fail(f'the associative path at 1 x {MODES_CPU_FRAMES} x {states} '
+             'differs from the port\'s CPU result')
+    info(f'time-sharded and associative paths at 1 x {MODES_CPU_FRAMES} x '
+         f'{states}: bitwise the port\'s CPU results ({cpu_s:.1f} s on the '
+         'CPU)')
+    del obs, ts_path, scan_path, exact
+
+    # backend='lse' at the headline
+    h_obs, h_trans, h_init, h_bf = headline
+    beta = float(torbi_tpu_torch.LSE_BETA)
+
+    def lse_call(observation=h_obs, **kwargs):
+        return torbi_tpu_torch.from_probabilities(
+            observation, transition=h_trans, initial=h_init, log_probs=True,
+            backend='lse', **{'gpu': 0, **kwargs})
+
+    reset_counts()
+    lse_path = lse_call()
+    torch.cuda.synchronize()
+    lse_counts = read_counts()
+    if lse_counts['backtrace'] != 1 or sum(lse_counts.values()) != 1:
+        fail(f'the lse path launched {lse_counts}: K3 once expected')
+    lse_ms = host_ms(torch, lse_call, calls=3)
+    converted = dispatch.convert(h_obs, True, True).contiguous()
+    (posts, posterior), forward_ms = cuda_once(
+        torch, lambda: lse.forward_lse(converted, h_bf, h_trans, h_init, beta))
+    k3 = backtrace.backtrace_posteriors(posts, h_trans, posterior, h_bf)
+    k3_plain, k3_plain_ms = cuda_once(
+        torch, lambda: backtrace.backtrace_reference(
+            posts, h_trans, posterior, h_bf))
+    if not torch.equal(k3, k3_plain):
+        fail('K3 on the lse posteriors differs from its plain version '
+             '(tolerance: bitwise)')
+    if not torch.equal(k3, lse_path):
+        fail('the lse path differs from K3 on its own forward pass')
+    k3_ms = cuda_ms(torch, lambda: backtrace.backtrace_posteriors(
+        posts, h_trans, posterior, h_bf), iters=5)
+    del posts, posterior, converted
+    u = torch.rand((BATCH, STATES), device=device)
+    exp_t = torch.rand((STATES, STATES), device=device).T
+    with lse._highest_precision():
+        products_ms = cuda_ms(torch, lambda: [
+            torch.matmul(u, exp_t) for _ in range(FRAMES - 1)], iters=1)
+    del u, exp_t
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('high')
+    try:
+        high = lse_call()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    if not torch.equal(high, lse_path):
+        fail("the lse path changes under set_float32_matmul_precision('high')")
+    rows = lse_call(h_obs[:LSE_CPU_ROWS])
+    rows_cpu = lse_call(h_obs[:LSE_CPU_ROWS].cpu(), gpu='cpu')
+    if not torch.equal(rows.cpu(), rows_cpu):
+        fail(f'the lse paths of rows 0-{LSE_CPU_ROWS - 1} differ from the '
+             f'port\'s CPU lse paths in {int((rows.cpu() != rows_cpu).sum())} '
+             'positions')
+    err = (lse_path.long() - exact_path.long()).abs()
+    rpa = [float((err <= bins).double().mean()) for bins in (0, 1, 2)]
+    # 511 products of (512 x 1440) (1440 x 1440) at 2 FLOP a term
+    flops = 2 * BATCH * STATES * STATES * (FRAMES - 1)
+    info(f'lse path at {BATCH} x {FRAMES} x {STATES} (beta {beta}): '
+         f'launches {lse_counts}; {lse_ms[0]:.3f} ms/call warm median of 3 '
+         f'(min {lse_ms[1]:.3f}, max {lse_ms[2]:.3f}), on {card}; forward '
+         f'{forward_ms:.3f} ms (CUDA events), of it the {FRAMES - 1} '
+         f'products {products_ms:.3f} ({flops / products_ms / 1e9:.1f} '
+         f'TFLOP/s), the other torch ops {forward_ms - products_ms:.3f}; K3 '
+         f'{k3_ms:.3f} (plain {k3_plain_ms:.1f}), bitwise its plain version '
+         f'on the lse posteriors; unchanged under precision \'high\'; rows '
+         f'0-{LSE_CPU_ROWS - 1} equal the CPU lse paths; RPA@0/1/2 against '
+         f'the exact path ' + '/'.join(f'{value:.6f}' for value in rpa))
+
+    entry = dict(
+        name='maxplus_matmul', route='cuda',
+        source='torbi_tpu_torch/csrc/maxplus.cu',
+        replaces='torbi_tpu/ops/associative.py:25', path='timesharded',
+        max_abs_err=0.0, ms=level_ms, plain_ms=level_plain_ms,
+        bound=level_bound, library_ms=None,
+        library='none: no PyTorch call computes (max, +); the broadcast '
+                'form materialises S^3',
+        shape=f'{pairs} x {states} x {states} x {states} (the scan\'s first '
+              f'level at {shape})',
+        ms_1440=ms_1440, bound_ms_1440=bound_1440[0], plain_ms_1440=plain_1440,
+        route_k8_ms=ts_k8_ms, route_ms=ts_ms[0], scan_route_ms=scan_ms[0],
+        exact_route_ms=exact_ms[0], held_launches=held['launches'],
+        lse_ms=lse_ms[0], lse_forward_ms=forward_ms,
+        lse_products_ms=products_ms, lse_k3_ms=k3_ms, lse_rpa=rpa)
+    info(f'K8 at the scan\'s first level ({entry["shape"]}): {level_ms:.4f} '
+         f'ms (CUDA events, mean of 5), bound {level_bound[0]:.4f} '
+         f'({level_bound[1]}), plain {level_plain_ms:.1f} ms')
+    return entry, ts_counts, lse_counts
+
+
 def pitch_file(path, frames, seed):
     """One log-space pitch posteriorgram file of ``frames`` x STATES, written
     in slices; returns the array"""
@@ -1163,7 +1555,8 @@ def main():
     import torbi_tpu_torch
     from torbi_tpu_torch.csrc import build
     from torbi_tpu_torch.models import pitch
-    from torbi_tpu_torch.ops import backtrace, band, constant, dense, dispatch
+    from torbi_tpu_torch.ops import (
+        associative, backtrace, band, constant, dense, dispatch)
     from torbi_tpu_torch.scripts import chase_lab, kernel_lab
     from torbi_tpu_torch.utils import edges, fixtures, profile
 
@@ -1693,6 +2086,7 @@ def main():
         'chase_pointers': backtrace.chase_pointers,
         'backtrace_window': backtrace.backtrace_window,
         'constant_recurrence': constant.recurrence,
+        'maxplus_matmul': associative.maxplus_matmul,
     }
 
     def reset_counts():
@@ -2751,6 +3145,12 @@ def main():
     # 6e. The cross-route soak through the kernels
     soak_counts = soak_phase(torch, device, reset_counts, read_counts)
 
+    # 6f. The extra decode modes: K8 on its edges, the time-sharded and
+    # associative routes at 1 x 32,768 x 64, backend='lse' at the headline
+    kernels['maxplus_matmul'], ts_counts, lse_counts = modes_phase(
+        torch, device, card, (obs, trans, init, bf), result, reset_counts,
+        read_counts)
+
     # 7. The lab kernels against their plain versions, bitwise, at small
     # shapes: every forward body at every accumulator count (or tile) with
     # 1, 2, 4 and 8 sequences per CTA at 8 x 64 x 1440 (width 175), the
@@ -3248,12 +3648,13 @@ def main():
     path_counts = {
         'banded': band_counts, 'dense': dense_counts,
         'batch1-serial': serial_counts, 'batch1-window': window_counts,
-        'wide-band': a_counts, 'uniform': uniform_counts, **lab_counts}
+        'wide-band': a_counts, 'uniform': uniform_counts,
+        'timesharded': ts_counts, **lab_counts}
     lines = []
     for name in ('band_forward', 'band_forward_wide', 'band_spread',
                  'dense_forward', 'backtrace', 'backtrace_pointers',
                  'chase_pointers', 'backtrace_window', 'constant_recurrence',
-                 'lab_forward',
+                 'maxplus_matmul', 'lab_forward',
                  'lab_pipe', 'lab_mxushift', 'lab_mod12', 'lab_mod12k',
                  'lab_spread', 'lab_chase'):
         entry = dict(kernels[name])
@@ -3266,6 +3667,10 @@ def main():
             ms=entry['ms'], plain_ms=entry['plain_ms'], bound_ms=bound,
             bound_by=bound_by, library_ms=entry['library_ms'],
             path=entry['path'])
+        if name == 'backtrace':
+            # K3 also chases the lse route's posteriors
+            line['launches'] += lse_counts[name]
+            line['lse_launches'] = lse_counts[name]
         for extra, value in entry.items():
             if extra not in line and extra != 'name':
                 line[extra] = value

@@ -343,16 +343,15 @@ def test_no_cuda_raises_without_cpu_request(monkeypatch):
 
 
 def test_rejected_inputs():
-    """Packed 4-D observations are TPU-only; unported backends name their
-    roadmap item"""
+    """Packed 4-D observations are TPU-only; the time-sharded backend
+    decodes one sequence; the JAX package's backend names raise"""
     rng = np.random.default_rng(1)
     obs, bf, trans, init = random_case(rng, 2, 4, 8)
     with pytest.raises(ValueError):
         dispatch.decode(obs[None], bf, trans, init, device='cpu')
-    for backend in ('lse', 'timesharded'):
-        with pytest.raises(NotImplementedError, match='A10'):
-            dispatch.decode(obs, bf, trans, init, backend=backend,
-                            device='cpu')
+    with pytest.raises(ValueError, match='batch 1'):
+        dispatch.decode(obs, bf, trans, init, backend='timesharded',
+                        device='cpu')
     with pytest.raises(ValueError):
         dispatch.decode(obs, bf, trans, init, backend='xla', device='cpu')
     with pytest.raises(ValueError):

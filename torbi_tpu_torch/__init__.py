@@ -6,7 +6,12 @@ the dense forward pass and the backtrace, and for one sequence on its own
 a batch-1 banded forward pass, two batch-1 chases and the constant
 transition's recurrence (``csrc/``, built with nvcc at first use). Long
 single sequences decode as entropy-chunk rows (``ops/autochunk.py``), as
-in the JAX package.
+in the JAX package. The extra decode modes are the JAX package's too: the
+approximate smoothed-max decode (``backend='lse'``, ``ops/lse.py``), the
+associative max-plus scan (``ops/associative.py``, its products by a
+hand-written kernel) and the exact frame-sharded decode of one sequence
+over the ranks of a torch.distributed process group
+(``backend='timesharded'``, ``parallel``).
 
 The decoding API is the JAX package's: ``from_probabilities`` and
 ``decode`` on arrays or tensors, and the file API, ``from_file``,
@@ -59,6 +64,7 @@ from . import data  # noqa: E402
 from . import evaluate  # noqa: E402
 from . import models  # noqa: E402
 from . import ops  # noqa: E402
+from . import parallel  # noqa: E402
 from . import partition  # noqa: E402
 from . import reference  # noqa: E402
 from . import utils  # noqa: E402

@@ -3,8 +3,9 @@
 The knob names and defaults are those of ``torbi_tpu/config/defaults.py``,
 so a user of the JAX package finds the same switches here. Only the
 knobs this package reads are present; the TPU-only ones (kernel layouts,
-frame tiles, frame and batch buckets, the loader's bucket split, sharding)
-have no meaning for kernels that take runtime shapes on one CUDA device.
+frame tiles, frame and batch buckets, the loader's bucket split, batch
+sharding) have no meaning for kernels that take runtime shapes on one
+CUDA device.
 The batch-1 knobs pick the same routes as in the JAX package, onto this
 package's own kernels: auto-chunking (ops/autochunk.py), the batch-1
 banded forward (K4) and the fused (K5) or windowed (K6) batch-1 chase.
@@ -70,7 +71,9 @@ ENTROPY_THRESHOLD = 0.5
 # Which decode implementation to use: 'auto' and 'kernel' select the
 # hand-written CUDA kernels (banded or dense forward, then the backtrace);
 # 'scan' forces the plain PyTorch recursion with an int32 backpointer
-# trellis (the counterpart of the JAX package's 'xla' backend)
+# trellis (the counterpart of the JAX package's 'xla' backend); 'lse' the
+# approximate smoothed-max decode (ops/lse.py); 'timesharded' the exact
+# frame-sharded decode of one sequence (parallel/timesharded.py)
 BACKEND = 'auto'
 
 # Automatically use the banded forward kernel when the transition matrix is
@@ -131,6 +134,28 @@ BATCH1_CHUNK_FRAMES = 1280
 # that both packages chunk the same sequences (ops/autochunk.py).
 DECODE_MEMORY_BUDGET = 40_000_000_000
 
+# Temperature for the approximate decode (backend='lse'); higher is closer
+# to exact Viterbi (see ops/lse.py)
+LSE_BETA = 8.0
+
+# Route a single unchunked long sequence to the exact time-sharded decoder
+# (parallel/timesharded.py) when it actually wins. Cost model: the
+# max-plus-scan formulation does ~2*T/D*S^3 work per shard versus T*S^2
+# for the serial kernels, so sharding T over D shards (the ranks of the
+# torch.distributed process group) only pays when D > 2*S -- tiny state
+# spaces on many ranks, never the 1440-state pitch workload (which instead
+# relies on entropy chunking, MIN_CHUNK_SIZE), and never on one card.
+# Decoded paths match the serial kernels whenever the optimal path is
+# unique; exact ties may resolve differently (the same caveat as the
+# reference's CPU-vs-CUDA tie divergence), which is why the policy is
+# gated on a genuine win instead of always-on. backend='timesharded'
+# forces the route regardless of the cost model.
+TIME_SHARDED_AUTO = True
+
+# Minimum single-sequence frame count before the auto policy considers the
+# time-sharded route (shorter sequences never amortize the all_gather)
+TIME_SHARDED_MIN_FRAMES = 32768
+
 
 ###############################################################################
 # Data pipeline
@@ -160,8 +185,8 @@ USE_NATIVE_LOADER = True
 # package's own unchunked output instead
 COMPARE_WITH_REFERENCE = True
 
-# Decode backend the evaluation harness runs ('kernel', 'scan', or None for
-# the configured default)
+# Decode backend the evaluation harness runs ('kernel', 'scan', 'lse', or
+# None for the configured default)
 EVAL_BACKEND = None
 
 # Evaluation corpora

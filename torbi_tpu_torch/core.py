@@ -101,7 +101,10 @@ def from_probabilities(
         num_threads
             Accepted for reference API compatibility; unused
         backend
-            Optional decode backend override ('kernel', 'scan')
+            Optional decode backend override: 'kernel' (the CUDA
+            kernels), 'scan' (the plain recursion), 'lse' (the approximate
+            smoothed-max decode) or 'timesharded' (one sequence, its frames
+            sharded over the ranks of the torch.distributed process group)
 
     Returns
         indices

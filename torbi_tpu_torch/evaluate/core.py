@@ -6,7 +6,7 @@ once, its outputs kept on disk), score RPA agreement at
 ``PITCH_ERROR_THRESHOLDS`` and report the decode's speed as a real-time
 factor and timesteps per second. The steps (stems, targets, decode,
 scores, speed) are the functions below; ``EVAL_BACKEND`` picks the decode
-backend.
+backend ('kernel', 'scan', or 'lse', the approximate smoothed-max decode).
 
 Single process only: the JAX package's shard and aggregate steps across
 host processes wait for the batch scale-out (ROADMAP.md, A15), and a

@@ -5,6 +5,13 @@ decisions. One decode takes one of these routes:
 
 - ``backend='scan'``: the plain PyTorch recursion with an int32 trellis
   (ops/scan.py);
+- ``backend='lse'``: the approximate smoothed-max forward pass as a matrix
+  product a frame, then the backtrace kernel (K3) over its posteriors
+  (ops/lse.py);
+- ``backend='timesharded'`` (one sequence), or the auto policy of the
+  kernel backend where it pays: the exact frame-sharded decode over the
+  ranks of the torch.distributed process group (parallel/timesharded.py,
+  its max-plus products by K8);
 - a constant transition (a width-0 band over a finite floor, such as the
   uniform default): a closed form of parallel torch passes around one
   kernel, K7, the scalar recurrence (ops/constant.py);
@@ -32,12 +39,15 @@ The probability->log conversion and the epsilon step fold into the banded
 forward kernels (K1, K4), which convert each value as they load it, as in
 the JAX package (its ``fold_obs``): the banded and auto-chunk routes make
 no converted copy of the observation. The constant closed form, the dense
-route and ``'scan'`` convert first (``convert``), as the JAX package does.
+route, ``'scan'``, ``'lse'`` and the time-sharded route convert first
+(``convert``), as the JAX package does.
 
 CUDA kernels take runtime shapes, so the JAX package's frame and batch
-buckets, state padding, packed mod-M input, ``shard_map`` mesh and
-time-sharded route have no counterpart here. On a CPU device the kernel
-routes run the kernels' plain versions.
+buckets, state padding, packed mod-M input and batch-sharding
+``shard_map`` mesh have no counterpart here; the time-sharded route's
+shards are the ranks of a process group, where the JAX package takes its
+local devices. On a CPU device the kernel routes run the kernels' plain
+versions.
 """
 import numpy as np
 import torch
@@ -49,6 +59,7 @@ from .backtrace import (
     FUSED1_MAX_STATES, backtrace_fused1, backtrace_posteriors,
     backtrace_window, window_rows)
 from .dense import viterbi_forward_dense
+from .lse import decode_lse
 from .scan import decode_scan
 from ..utils.cache import identity_cached as _identity_cached
 from ..utils.convert import resolve_device, to_tensor
@@ -64,22 +75,87 @@ def _round_up(value, multiple):
     return ((value + multiple - 1) // multiple) * multiple
 
 
+BACKENDS = ('kernel', 'scan', 'lse', 'timesharded')
+
+
 def resolve_backend(backend=None):
-    """Resolve None/'auto' to a concrete backend: 'kernel' or 'scan'"""
+    """Resolve None/'auto' to a concrete backend: 'kernel', 'scan', 'lse'
+    or 'timesharded'"""
     import torbi_tpu_torch
 
     backend = backend or torbi_tpu_torch.BACKEND
     if backend == 'auto':
         return 'kernel'
-    if backend in ('kernel', 'scan'):
+    if backend in BACKENDS:
         return backend
-    if backend in ('lse', 'timesharded'):
-        raise NotImplementedError(
-            f"backend='{backend}' is not ported yet (ROADMAP.md, queue A, "
-            'item A10: the smoothed-max, associative and time-sharded '
-            'modes)')
     raise ValueError(
-        f"unknown backend {backend!r}; expected 'auto', 'kernel' or 'scan'")
+        f"unknown backend {backend!r}; expected 'auto' or one of "
+        f'{BACKENDS}')
+
+
+def timesharded_shard_count(frames, shards):
+    """Largest shard count up to ``shards`` that divides the sequence
+    length (the JAX dispatcher's _timesharded_mesh_size)"""
+    for count in range(shards, 1, -1):
+        if frames % count == 0:
+            return count
+    return 1
+
+
+def timesharded_auto(backend, batch, frames, states, shards):
+    """Whether the auto policy sends a decode to the time-sharded route:
+    the kernel backend, ``TIME_SHARDED_AUTO``, one sequence of at least
+    ``TIME_SHARDED_MIN_FRAMES`` frames, and more shards (ranks of the
+    process group) than twice the states. On one card (one shard) it never
+    does."""
+    import torbi_tpu_torch
+
+    return (backend == 'kernel'
+            and bool(torbi_tpu_torch.TIME_SHARDED_AUTO)
+            and batch == 1
+            and frames >= int(torbi_tpu_torch.TIME_SHARDED_MIN_FRAMES)
+            and shards > 2 * states)
+
+
+def _decode_timesharded(observation, batch_frames, transition, initial,
+                        log_input, apply_epsilon, device):
+    """Route one batch row through the exact time-sharded decoder
+    (parallel/timesharded.py) over the largest leading set of the default
+    group's ranks whose count divides the valid frames; ranks outside it
+    receive the path by broadcast. Frames past ``batch_frames[0]`` hold the
+    last decoded state, the seed's broadcast."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh
+    from ..parallel.timesharded import decode_time_sharded
+
+    states = int(transition.shape[0])
+    frames = observation.shape[1]
+    valid = int(batch_frames[0])
+    obs = observation[0, :valid, :states].to(device)
+    obs = convert(obs, log_input, apply_epsilon).contiguous()
+    size, group = mesh.shards()
+    count = timesharded_shard_count(obs.shape[0], size)
+    sub = mesh.leading_group(count, group)
+    if sub == dist.GroupMember.NON_GROUP_MEMBER:
+        decoded = torch.empty(obs.shape[0], dtype=torch.int32, device=device)
+    else:
+        decoded = decode_time_sharded(obs, transition, initial, group=sub)
+    if count != size:
+        dist.broadcast(decoded, src=dist.get_global_rank(group, 0),
+                       group=group)
+    if decoded.shape[0] < frames:
+        decoded = torch.cat([decoded, decoded[-1:].expand(
+            frames - decoded.shape[0])])
+    return decoded[None]
+
+
+def _shard_count():
+    """The shard count the auto policy weighs: the size of the default
+    process group, 1 without one"""
+    from ..parallel import mesh
+
+    return mesh.shards()[0]
 
 
 def convert(observation, log_input, apply_epsilon):
@@ -233,6 +309,19 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     if apply_epsilon:
         finite_observation = True
 
+    # Exact time-sharded route for one long sequence: forced by
+    # backend='timesharded', or taken by the auto policy where sharding
+    # the frames over the process group's ranks beats the serial kernels
+    if backend == 'timesharded' or timesharded_auto(
+            backend, batch, frames, states, _shard_count()):
+        if batch != 1:
+            raise ValueError(
+                "backend='timesharded' decodes one sequence (batch 1), "
+                f'got batch {batch}')
+        return _decode_timesharded(
+            observation, batch_frames, transition, initial, log_input,
+            apply_epsilon, device)
+
     # Banded route: bit-exact when the transition structure and the
     # finiteness preconditions allow it (ops/band.py docstring). The
     # observation's finiteness is that of what the kernel sees, after the
@@ -304,6 +393,9 @@ def decode(observation, batch_frames, transition, initial, backend=None,
 
     if backend == 'scan':
         return decode_scan(obs, batch_frames, transition, initial)
+    if backend == 'lse':
+        return decode_lse(obs, batch_frames, transition, initial,
+                          beta=float(torbi_tpu_torch.LSE_BETA))
     if constant:
         return constant_ops.decode_constant(
             obs, batch_frames, initial, band[2])

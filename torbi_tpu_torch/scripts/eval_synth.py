@@ -15,7 +15,8 @@ the RPA metrics and the speed accounting.
 
 Configurations score through the same machinery: ``--batch-size 1`` as
 ``torbi_tpu_torch/config/nobatch.py``, ``--min-chunk N`` the chunked mode,
-``--eval-backend scan`` the plain route, or ``--config FILE ...``. The
+``--eval-backend scan`` the plain route, ``--eval-backend lse`` the
+approximate smoothed-max decode, or ``--config FILE ...``. The
 results JSON is copied to ``ROOT_DIR/eval/<name>.json``; the name is
 ``--config-name``, else the ``CONFIG`` a ``--config`` file sets, else
 ``synth-h100``. The corpora and reference outputs live under
@@ -163,7 +164,7 @@ def main(argv=None):
         help='override MIN_CHUNK_SIZE (entropy-chunked decoding)')
     parser.add_argument(
         '--eval-backend', default=None,
-        help="override EVAL_BACKEND ('kernel' or 'scan')")
+        help="override EVAL_BACKEND ('kernel', 'scan' or 'lse')")
     parser.add_argument(
         '--reference-only', action='store_true',
         help='only run the (slow, CPU) reference decode pass and exit; '

@@ -30,8 +30,10 @@ def decode(
     auto-promoted -- ``batch_frames`` is (batch,) valid frame counts,
     ``transition`` is (states, states) with row = destination and column =
     source, and ``initial`` is (states,). ``num_threads`` exists only for
-    reference API compatibility. ``backend`` optionally forces 'kernel' or
-    'scan' instead of the configured default; ``finite_observation=True``
+    reference API compatibility. ``backend`` optionally forces 'kernel',
+    'scan', 'lse' (approximate smoothed max) or 'timesharded' (one
+    sequence, frames sharded over the process group's ranks) instead of
+    the configured default; ``finite_observation=True``
     asserts that no observation entry is -inf/NaN, which lets the band
     dispatcher skip a full data scan. ``gpu`` is the decode device: None is
     cuda:0, an integer a CUDA index, 'cpu' the CPU (the kernels' plain
