@@ -58,7 +58,7 @@ just after each:
   form (its recurrence K7, ``csrc/constant.cu``, once a call; also at
   512 x 512 with ragged lengths, held against the scan route; K7 itself
   held bitwise against its plain version at 1 x 10,240 and 512 x 512 and
-  timed). K6 is
+  timed per call and per kernel, in a CUDA graph). K6 is
   K5's two phases without the floor pass: its phase-1 table and its path
   are held against their plain versions and its path against K5 at
   1 x 10,240, 1 x 2048 and on every sequence of the pure-band edges; the
@@ -136,7 +136,8 @@ just after each:
   process group, K8) and the associative route (K8, then K3) at one
   sequence of 32,768 frames x 64 states, each bitwise the same route with
   the plain versions on the card and, at 4096 frames, the port's CPU
-  result, timed beside the exact kernel route; ``backend='lse'`` at the
+  result, timed beside the exact kernel route, with K8's share of each
+  call beside the bound of its launches; ``backend='lse'`` at the
   headline (a matrix product a frame, then K3, bitwise its plain version
   on the lse posteriors), unchanged under TF32 matmul precision, its
   first rows the CPU's lse paths, its RPA against the exact path;
@@ -144,12 +145,17 @@ just after each:
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
 
-Prints the card's name and power limit, per-kernel times beside their
-bounds and their plain versions' times, a ``{"kernels": [...]}`` line and,
+After the build it prints what ptxas reports of K7 and of each of K8's
+tile designs, and fails if a design the plan picks, or K7, spills or
+takes more than 128 registers a thread, or if the card holds fewer or
+more CTAs an SM of a planned design than the plan models. Prints the
+card's name and power limit, per-kernel times beside their bounds and
+their plain versions' times, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. Needs one CUDA card; imports nothing of JAX.
 """
 import json
+import math
 import re
 import shutil
 import statistics
@@ -396,6 +402,54 @@ def hold_folded(torch, dispatch, label, fn, raw, rest):
                  f'{ops}')
         err = max(err, max_abs_err(torch, got, want))
     return err
+
+
+def ptxas_kernels(output):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    -Xptxas -v report of one nvcc build"""
+    kernels, current, spills = {}, None, (0, 0)
+    for line in output.splitlines():
+        match = re.search(r"Compiling entry function '(\S+)'", line)
+        if match:
+            current, spills = match.group(1), (0, 0)
+        match = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                          line)
+        if match:
+            spills = (int(match.group(1)), int(match.group(2)))
+        match = re.search(r'Used (\d+) registers', line)
+        if match and current:
+            kernels[current] = (int(match.group(1)), *spills)
+    return kernels
+
+
+def redesign_registers(build, associative):
+    """K8's tile designs and K7 as ptxas reports them, one info line each;
+    fails if a design the plan picks, or K7, spills or takes more than 128
+    registers a thread"""
+    for library in ('maxplus', 'constant'):
+        if library not in build.compiler_output:
+            info(f'{library}.cu was built before this run: no ptxas report')
+            continue
+        kernels = ptxas_kernels(build.compiler_output[library])
+        if not kernels:
+            fail(f'no ptxas report of {library}.cu')
+        for kernel, (registers, stores, loads) in kernels.items():
+            design = re.search(r'maxplus_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi'
+                               r'(\d+)ELi(\d+)E', kernel)
+            if design:
+                tile = tuple(int(x) for x in design.groups())
+                index = associative.MAXPLUS_TILES.index(tile)
+                label = (f'K8 tile design {index} (TY, TX, KD, STAGES, '
+                         f'SPLIT) = {tile}')
+                planned = index in associative.MAXPLUS_PLANNED
+            else:
+                label, planned = 'K7 constant_kernel', True
+            info(f'{label}: {registers} registers a thread, {stores} bytes '
+                 f'spill stores, {loads} bytes spill loads (ptxas -v)'
+                 + ('' if planned else '; not planned, timed only'))
+            if planned and (registers > 128 or stores or loads):
+                fail(f'{label} takes {registers} registers and spills '
+                     f'{stores} bytes: at most 128 and none expected')
 
 
 def sass_listing(build, library):
@@ -889,11 +943,13 @@ def constant_phase(torch, device, single, headline, init, clock_hz):
     ragged lengths, some past the stream; the frame maxima and first
     maxima as the closed form computes them from the converted
     observation. Timed (CUDA events) at each shape beside its bound and
-    the chain of frames at the card's SM clock ``clock_hz``. Returns the
-    kernels-line entry (its launches added by the caller)."""
-    import math
-
+    the chain of frames at the card's SM clock ``clock_hz``: per call
+    through the wrapper (the host's work included where it is the longer)
+    and per kernel (20 calls captured in a CUDA graph, replayed 5 times:
+    ``scripts/modes_timing.py::graph_ms``). Returns the kernels-line entry
+    (its launches added by the caller)."""
     from torbi_tpu_torch.ops import constant, dispatch
+    from torbi_tpu_torch.scripts.modes_timing import graph_ms
 
     floor = float(torch.tensor(math.log(1. / STATES), dtype=torch.float32))
     rng = np.random.default_rng(11)
@@ -918,26 +974,33 @@ def constant_phase(torch, device, single, headline, init, clock_hz):
         err = require_equal(torch, f'K7 constant_recurrence at {label}',
                             got, expected)
         ms = cuda_ms(torch, lambda: constant.recurrence(*args), iters=10)
+        kernel_ms = graph_ms(lambda: constant.recurrence(*args))
         batch, frames = args[0].shape
+        plan = constant.recurrence_plan(
+            batch, frames,
+            torch.cuda.get_device_properties(device).multi_processor_count)
         # The maxima, the first maxima and the lengths in, the carry out;
         # two adds a frame and sequence
         moved = (batch * frames + 3 * batch + batch * (frames - 1)) * 4
         bound = bound_ms(moved, 2 * batch * (frames - 1))
         # The chain: two dependent fp32 adds a frame at 4 clocks each
         chain_ms = (frames - 1) * 8 / clock_hz * 1e3
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound=bound,
-                              chain_ms=chain_ms)
-        info(f'K7 at {label}: {ms:.4f} ms (CUDA events, mean of 10), bound '
-             f'{bound[0]:.5f} ({bound[1]}), the chain of {frames - 1} '
-             f'frames at 8 clocks each {chain_ms:.4f} ms; plain '
-             f'{plain_ms:.1f} ms')
+        timings[label] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                              bound=bound, chain_ms=chain_ms)
+        info(f'K7 at {label}: {kernel_ms:.4f} ms a kernel (CUDA graph of 20 '
+             f'calls, 5 replays), {ms:.4f} ms a call through the wrapper '
+             f'(CUDA events, mean of 10), bound {bound[0]:.5f} ({bound[1]}), '
+             f'the chain of {frames - 1} frames at 8 clocks each '
+             f'{chain_ms:.4f} ms; plain {plain_ms:.1f} ms; plan '
+             f'{plan["sequences"]} sequences a CTA on {plan["blocks"]} CTAs, '
+             f'tiles of {plan["tile"]} frames')
         if entry is None:
             entry = dict(
                 name='constant_recurrence', route='cuda',
                 source='torbi_tpu_torch/csrc/constant.cu',
                 replaces='torbi_tpu/ops/dispatch.py:385', path='uniform',
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                library_ms=None, chain_bound_ms=chain_ms)
+                max_abs_err=err, ms=kernel_ms, call_ms=ms, plain_ms=plain_ms,
+                bound=bound, library_ms=None, chain_bound_ms=chain_ms)
         entry['max_abs_err'] = max(entry['max_abs_err'], err)
     entry['shapes'] = {
         label: {key: (value[0] if key == 'bound' else value)
@@ -1186,6 +1249,40 @@ def maxplus_operands(torch, states, layout, device, seed):
     return a.to(device), b.to(device)
 
 
+def maxplus_share(torch, associative, fn):
+    """K8's ms in one call of ``fn`` (CUDA events around each launch), its
+    launches, and the bound of those launches (each one's bytes and
+    operations, ``scripts/modes_timing.py::product_work``, summed);
+    ``fn``'s result"""
+    from torbi_tpu_torch.scripts.modes_timing import product_work
+
+    real = associative.maxplus_matmul
+    marks, work = [], [0, 0, 0]
+
+    def timed(a, b):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(a, b)
+        stop.record()
+        marks.append((start, stop))
+        # An empty product launches nothing
+        work[:] = (w + x for w, x in zip(
+            work, (*product_work(a, b), bool(out.numel()))))
+        return out
+
+    # The kernel's own count goes to the wrapper while it stands in
+    timed.launches = 0
+    associative.maxplus_matmul = timed
+    try:
+        result = fn()
+    finally:
+        associative.maxplus_matmul = real
+    torch.cuda.synchronize()
+    k8_ms = sum(start.elapsed_time(stop) for start, stop in marks)
+    return k8_ms, work[2], bound_ms(*work[:2]), result
+
+
 def free_port():
     import socket
 
@@ -1225,6 +1322,7 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
 
     import torbi_tpu_torch
     from torbi_tpu_torch.ops import associative, backtrace, dispatch, lse
+    from torbi_tpu_torch.scripts.modes_timing import product_work
 
     # K8 on the edge shapes
     checked = 0
@@ -1243,20 +1341,28 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
         a = (torch.randn(a_shape, generator=generator) * 10).to(device)
         b = (torch.randn(b_shape, generator=generator) * 10).to(device)
         got = associative.maxplus_matmul(a, b)
-        expected, plain_1440 = cuda_once(
+        expected, plain_ms = cuda_once(
             torch, lambda: associative.maxplus_matmul_reference(a, b))
         if not same_bits(torch, got, expected):
             fail(f'K8 maxplus_matmul differs from its plain version at '
                  f'{a_shape} by {b_shape} (tolerance: bitwise)')
         checked += 1
-    ms_1440 = cuda_ms(torch, lambda: associative.maxplus_matmul(a, b),
-                      iters=5)
-    bound_1440 = bound_ms(3 * 1440 * 1440 * 4, 2 * 1440 ** 3)
+        if a_shape == (1440, 1440):
+            big_a, big_b, plain_1440 = a, b, plain_ms
+    del a, b, got, expected
+    ms_1440 = cuda_ms(
+        torch, lambda: associative.maxplus_matmul(big_a, big_b), iters=5)
+    bound_1440 = bound_ms(*product_work(big_a, big_b))
+    plan_1440 = associative.maxplus_plan(
+        1, 1440, 1440, 1440, 0, 1440, 0, 1440,
+        sms=torch.cuda.get_device_properties(device).multi_processor_count)
     info(f'K8 maxplus_matmul: {checked} edge shapes bitwise equal to its '
          f'plain version (tolerance: bitwise; NaN where it holds NaN); 1440 '
          f'x 1440 x 1440: {ms_1440:.4f} ms (CUDA events, mean of 5), bound '
-         f'{bound_1440[0]:.4f} ({bound_1440[1]}), plain {plain_1440:.1f} ms')
-    del a, b, got, expected
+         f'{bound_1440[0]:.4f} ({bound_1440[1]}), plain {plain_1440:.1f} ms; '
+         f'{plan_1440["items"]} tiles of {plan_1440["rows"]} x '
+         f'{plan_1440["cols"]} on {plan_1440["grid"]} CTAs')
+    del big_a, big_b
 
     # One sequence at the small-state regime of the associative modes
     rng = np.random.default_rng(31)
@@ -1315,8 +1421,7 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
     _, level_plain_ms = cuda_once(
         torch, lambda: associative.maxplus_matmul_reference(first_a, first_b))
     pairs = first_a.shape[0]
-    level_bound = bound_ms(3 * pairs * states * states * 4,
-                           2 * pairs * states ** 3)
+    level_bound = bound_ms(*product_work(first_a, first_b))
     del steps, first_a, first_b
 
     port = free_port()
@@ -1336,33 +1441,18 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
                  'K8 and nothing else expected')
         ts_plain = plain_route(lambda: decode(obs, backend='timesharded'))
         if held['launches'] != ts_counts['maxplus_matmul']:
-            fail(f'the time-sharded route held {held["launches"]} K8 launches '
-                 f'against the plain version, of {ts_counts["maxplus_matmul"]}')
+            fail(f'the time-sharded route held {held["launches"]} K8 '
+                 'launches against the plain version, of '
+                 f'{ts_counts["maxplus_matmul"]}')
         if not torch.equal(ts_path, ts_plain):
             fail(f'the time-sharded path at {shape} differs from the same '
                  'route with the plain versions on the card')
         ts_ms = host_ms(torch, lambda: decode(obs, backend='timesharded'),
                         calls=3)
-        # K8's share of one call: CUDA events around each launch
-        marks = []
-
-        def timed_maxplus(a, b):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = real_maxplus(a, b)
-            stop.record()
-            marks.append((start, stop))
-            return out
-
-        timed_maxplus.launches = 0
-        associative.maxplus_matmul = timed_maxplus
-        try:
-            decode(obs, backend='timesharded')
-        finally:
-            associative.maxplus_matmul = real_maxplus
-        torch.cuda.synchronize()
-        ts_k8_ms = sum(start.elapsed_time(stop) for start, stop in marks)
+        # K8's share of one call: CUDA events around each launch, beside
+        # the bound of those launches
+        ts_k8_ms, ts_k8_launches, ts_k8_bound, _ = maxplus_share(
+            torch, associative, lambda: decode(obs, backend='timesharded'))
         ts_short = decode(obs[:MODES_CPU_FRAMES], backend='timesharded')
     finally:
         dist.destroy_process_group()
@@ -1371,7 +1461,8 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
          f'plain versions on the card, its {held["launches"]} K8 launches '
          f'each bitwise their plain version; {ts_ms[0]:.3f} ms/call warm '
          f'median of 3 (min {ts_ms[1]:.3f}, max {ts_ms[2]:.3f}), K8 '
-         f'{ts_k8_ms:.3f} ms of it in {len(marks)} launches (CUDA events), '
+         f'{ts_k8_ms:.3f} ms of it in {ts_k8_launches} launches (CUDA '
+         f'events), their bound {ts_k8_bound[0]:.3f} ({ts_k8_bound[1]}), '
          f'peak device memory {ts_peak_gb:.2f} GB, on {card}')
 
     # The associative route: the scan, then K3
@@ -1391,6 +1482,8 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
         fail(f'the associative route at {shape} differs from the same route '
              'with the plain versions on the card')
     scan_ms = host_ms(torch, lambda: scan_route(obs), calls=3)
+    scan_k8_ms, scan_k8_launches, scan_k8_bound, _ = maxplus_share(
+        torch, associative, lambda: scan_route(obs))
     scan_short = scan_route(obs[:MODES_CPU_FRAMES])
 
     # The exact kernel route at the same shape (K2, K3)
@@ -1401,8 +1494,11 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
     exact_ms = host_ms(torch, lambda: decode(obs), calls=3)
     info(f'associative route at {shape} (viterbi_decode_scan): launches '
          f'{scan_counts}; bitwise the same route with the plain versions on '
-         f'the card; {scan_ms[0]:.3f} ms/call warm median of 3; the exact '
-         f'kernel route (launches {exact_counts}) {exact_ms[0]:.3f} ms/call; '
+         f'the card; {scan_ms[0]:.3f} ms/call warm median of 3, K8 '
+         f'{scan_k8_ms:.3f} ms of it in {scan_k8_launches} launches (CUDA '
+         f'events), their bound {scan_k8_bound[0]:.3f} ({scan_k8_bound[1]}); '
+         f'the exact kernel route (launches {exact_counts}) '
+         f'{exact_ms[0]:.3f} ms/call; '
          f'frames where the time-sharded path differs from the exact one: '
          f'{int((ts_path != exact).sum())}, the associative path: '
          f'{int((scan_path != exact).sum())} (of {frames})')
@@ -1506,7 +1602,9 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
         shape=f'{pairs} x {states} x {states} x {states} (the scan\'s first '
               f'level at {shape})',
         ms_1440=ms_1440, bound_ms_1440=bound_1440[0], plain_ms_1440=plain_1440,
-        route_k8_ms=ts_k8_ms, route_ms=ts_ms[0], scan_route_ms=scan_ms[0],
+        route_k8_ms=ts_k8_ms, route_k8_bound_ms=ts_k8_bound[0],
+        route_ms=ts_ms[0], scan_route_ms=scan_ms[0],
+        scan_route_k8_ms=scan_k8_ms, scan_route_k8_bound_ms=scan_k8_bound[0],
         exact_route_ms=exact_ms[0], held_launches=held['launches'],
         lse_ms=lse_ms[0], lse_forward_ms=forward_ms,
         lse_products_ms=products_ms, lse_k3_ms=k3_ms, lse_rpa=rpa)
@@ -1583,6 +1681,24 @@ def main():
         for line in output.splitlines():
             if 'registers' in line or 'spill' in line:
                 info(f'{name}: {line.strip()}')
+    redesign_registers(build, associative)
+    # The CTAs an SM holds of each planned K8 design, as the card reports
+    # them, against the plan's model
+    for tile in associative.MAXPLUS_PLANNED:
+        for resident in (None, 'a', 'b'):
+            # A resident operand of a 64-deep product: all its slabs
+            slabs = -(-64 // associative.MAXPLUS_TILES[tile][2])
+            layout = associative.maxplus_layout(tile, resident, slabs)
+            blocks, smem = associative.maxplus_occupancy(
+                tile, resident, slabs)
+            if (blocks, smem) != (layout['ctas_per_sm'],
+                                  layout['smem_bytes']):
+                fail(f'K8 tile design {tile} (resident {resident}): the card '
+                     f'holds {blocks} CTAs of {smem} bytes an SM, the plan '
+                     f'models {layout["ctas_per_sm"]} of '
+                     f'{layout["smem_bytes"]}')
+    info('K8: the card holds as many CTAs an SM of each planned design as '
+         'its plan models (cudaOccupancyMaxActiveBlocksPerMultiprocessor)')
     # The instructions the folded conversion adds per value, from the SASS
     sass = sass_conversion_counts(build)
     for (log_input, apply_epsilon), per_kernel in sass.items():

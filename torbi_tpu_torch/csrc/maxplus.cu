@@ -18,29 +18,67 @@
 // so FMA contraction cannot change a value.
 //
 // Bound: operations. Tensor cores cannot do (max, +), so every candidate
-// is two FP32 instructions (an add and a max) at 128 per SM and clock;
-// the bytes (each input read once, the output written once) bound only
-// the smallest products.
-// Design: a simple tiled kernel. Each CTA takes a 64 x 64 output tile of
-// one batch entry (a grid-stride loop over the batch past 65,535 entries);
-// k runs in tiles of 16: the CTA stages a's 64 x 16 tile (transposed) and
-// b's 16 x 64 tile in shared memory, the next tile's values already
-// loaded into registers while the current one is used, and each of its
-// 256 threads keeps a 4 x 4 register tile of running maxima, reading 4
-// values of a and 4 of b (two 16-byte shared loads) for its 16 candidates
-// per k. Any strides: a batch stride of 0 broadcasts an operand; the rows
-// may be strided, the columns are contiguous. Ragged edges are masked:
-// past k both operands read -inf, so the padded candidates are -inf.
-#include "common.cuh"
+// is two FP32 instructions, an add and a max, and the max issues at 64 a
+// clock on an SM: 64 candidates per SM and clock. At the scan's first level
+// of 1 x 32,768 x 64 (16,383 products of 64^3) the bytes, each operand read
+// once and the output written once, bound it almost as tightly (0.240
+// against 0.257 ms on an H100), so the loads must hide under the adds.
+//
+// Design: a persistent grid walks a list of items, an item being one
+// output tile of one product; each CTA takes items c, c + grid, ... in
+// turn, each item's k in slabs of KD. The slabs pass through a ring of
+// STAGES buffers in shared memory, filled by 16-byte cp.async copies into
+// padded rows, so that while one slab is computed the next STAGES - 1 are
+// in flight: across items too, so that product z + 1's loads overlap
+// product z's compute, and z's stores go out from registers while z + 1
+// is computed. Each thread keeps an 8 x 8 tile of running maxima (rows
+// ty + TY i, columns 4 tx + j and 4 TX + 4 tx + j of its group's TY x TX
+// threads) and for each k reads 8 values of a (four k's of a row at once,
+// a's rows being contiguous in k) and 8 of b in 16-byte shared loads: one
+// byte of shared memory a candidate, against two for a 4 x 4 tile. a's
+// staged rows are padded to KD + 4 floats, so that the rows a warp reads
+// at once fall in distinct banks; b's columns are contiguous. The launch
+// bounds hold a thread to 128 registers (64 maxima, 32 of a, 8 of b);
+// ptxas reports no spill. A design may SPLIT each slab's k over several
+// groups of threads, whose maxima meet in shared memory at the tile's end.
+// A tile design is (TY, TX, KD, STAGES, SPLIT); the launch plan
+// (torbi_tpu_torch/ops/associative.py::maxplus_plan) picks one by the
+// work of the busiest SM at the warps it holds, and gives the grid:
+// - the associative modes' products (64^3 at 1 x 32,768 x 64): 64 x 64
+//   tiles of 64 threads, slabs of 16 through a ring of three, 27 KB,
+//   eight CTAs (16 warps) an SM (a whole 64-deep product a stage holds
+//   three CTAs and ran 1.3x slower on an H100);
+// - fewer such products than SMs (the scan's top levels): the same tile
+//   by four groups of 64 threads, each a quarter of every slab of 32;
+// - 1440^3: 144 x 112 tiles of 252 threads, 130 of them, so that one wave
+//   fills the 132 SMs (128 x 128 tiles make 144, two waves: 1.8x slower).
+// A broadcast operand (batch stride 0) whose one tile row or column holds
+// the whole product (`resident`) is loaded once per CTA, every slab of
+// it, and stays in shared memory: the time-sharded decode's pre[None] and
+// suf[None]. What holds it back at the scan's first level: its loads
+// alone and its compute alone each take most of its time, and they
+// overlap only in part (PERF.md).
+//
+// Any strides: a batch stride of 0 broadcasts an operand; rows may be
+// strided, columns are contiguous. Rows that do not start on 16 bytes
+// (5, 33, 65 or 127 states) take 4-byte copies in the same kernel (vec_a,
+// vec_b false). Ragged edges are masked: past k both operands hold -inf,
+// so the padded candidates are -inf.
+#include "persistent.cuh"
 
 namespace {
 
-constexpr int kTile = 64;           // output rows and columns per CTA
-constexpr int kDepth = 16;          // k per staged tile
-constexpr int kThreads = 256;       // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kLoads = kTile * kDepth / kThreads;  // staged values a thread
-constexpr int kPad = kTile + 4;     // a's staged rows stay 16-byte aligned
-constexpr int kMaxGridZ = 65535;
+struct Problem {
+  const float* a;
+  const float* b;
+  float* out;
+  long long a_batch, a_row, b_batch, b_row;
+  int items;  // batch * tiles_m * tiles_n
+  int m, k, n;
+  int tiles_m, tiles_n, slabs;
+  int vec_a, vec_b;
+  int resident;  // 0: none, 1: a, 2: b stays in shared memory
+};
 
 __device__ __forceinline__ float max_nan(float x, float y) {
   float d;
@@ -48,104 +86,343 @@ __device__ __forceinline__ float max_nan(float x, float y) {
   return d;
 }
 
-__global__ void __launch_bounds__(kThreads) maxplus_kernel(
-    const float* __restrict__ a, long long a_batch, long long a_row,
-    const float* __restrict__ b, long long b_batch, long long b_row,
-    float* __restrict__ out, int batch, int m, int k, int n) {
-  __shared__ __align__(16) float as[kDepth][kPad];   // as[kk][row]
-  __shared__ __align__(16) float bs[kDepth][kTile];  // bs[kk][col]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  const bool vector_store = (n % 4) == 0;
-
-  for (int z = blockIdx.z; z < batch; z += gridDim.z) {
-    const float* az = a + static_cast<long long>(z) * a_batch;
-    const float* bz = b + static_cast<long long>(z) * b_batch;
-    float pa[kLoads], pb[kLoads];
-    // The values of the k-tile at k0 this thread stages: a's element e
-    // (row e / 16, kk e % 16), b's (kk e / 64, col e % 64), e = tid + 256 u
-    auto fetch = [&](int k0) {
+// Stage rows r0 .. r0 + ROWS of src (row stride src_row), columns c0 ..
+// c0 + 4 CHUNKS, into dst (row stride dst_stride): 16-byte copies where a
+// chunk lies inside (r_lim, c_lim) and `vec` holds, else 4-byte copies of
+// its elements inside and -inf outside
+template <int ROWS, int CHUNKS, int THREADS>
+__device__ __forceinline__ void load_slab(float* dst, int dst_stride,
+                                          const float* src, long long src_row,
+                                          int r0, int r_lim, int c0,
+                                          int c_lim, bool vec, int tid) {
+  for (int e = tid; e < ROWS * CHUNKS; e += THREADS) {
+    const int r = e / CHUNKS, c = 4 * (e % CHUNKS);
+    const int gr = r0 + r, gc = c0 + c;
+    float* d = dst + r * dst_stride + c;
+    const float* s = src + static_cast<long long>(gr) * src_row + gc;
+    if (vec && gr < r_lim && gc + 3 < c_lim) {
+      torbi::cp_async16(d, s);
+    } else {
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int e = tid + kThreads * u;
-        const int ar = row0 + e / kDepth, ak = k0 + e % kDepth;
-        pa[u] = (ar < m && ak < k)
-                    ? az[static_cast<long long>(ar) * a_row + ak]
-                    : torbi::neg_inf();
-        const int bk = k0 + e / kTile, bc = col0 + e % kTile;
-        pb[u] = (bk < k && bc < n)
-                    ? bz[static_cast<long long>(bk) * b_row + bc]
-                    : torbi::neg_inf();
-      }
-    };
-
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = torbi::neg_inf();
-
-    fetch(0);
-    for (int k0 = 0; k0 < k; k0 += kDepth) {
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int e = tid + kThreads * u;
-        as[e % kDepth][e / kDepth] = pa[u];
-        bs[e / kTile][e % kTile] = pb[u];
-      }
-      __syncthreads();
-      // The next tile's loads are in flight while this one is used
-      if (k0 + kDepth < k) fetch(k0 + kDepth);
-#pragma unroll
-      for (int kk = 0; kk < kDepth; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[r][c] = max_nan(acc[r][c], ar[r] + br[c]);
-      }
-      __syncthreads();
-    }
-
-    float* oz = out + static_cast<long long>(z) * m * n;
-    const int col = col0 + tx * 4;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + ty * 4 + r;
-      if (row >= m) break;
-      float* o = oz + static_cast<long long>(row) * n + col;
-      if (vector_store && col + 3 < n) {
-        *reinterpret_cast<float4*>(o) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (col + c < n) o[c] = acc[r][c];
+      for (int j = 0; j < 4; ++j) {
+        if (gr < r_lim && gc + j < c_lim)
+          torbi::cp_async4(d + j, s + j);
+        else
+          d[j] = torbi::neg_inf();
       }
     }
   }
+}
+
+template <int TY, int TX, int KD, int STAGES, int SPLIT>
+struct Tile {
+  static constexpr int kTY = TY, kTX = TX, kDepth = KD;
+  // SPLIT groups of TY x TX threads, each over KD / SPLIT of a slab's k
+  static constexpr int kGroup = TY * TX, kPart = KD / SPLIT;
+  static constexpr int kThreads = SPLIT * kGroup;
+  // Where the groups past the first leave their maxima to be combined
+  static constexpr int kScratch = (SPLIT - 1) * kGroup * 64;
+  static_assert(kPart % 4 == 0, "a group's k come four at a time");
+  static constexpr int kRows = 8 * TY, kCols = 8 * TX;
+  static constexpr int kAStride = KD + 4;  // as[row][k], padded
+  static constexpr int kBStride = kCols;   // bs[k][col]
+  static constexpr int kAFloats = kRows * kAStride;
+  static constexpr int kBFloats = KD * kBStride;
+  // At most 128 registers a thread
+  static constexpr int kMinBlocks =
+      65536 / (128 * ((kThreads + 31) / 32 * 32));
+
+  // A resident operand's `slabs` slabs, the ring, the groups' scratch
+  static constexpr long long smem_bytes(int resident, int slabs) {
+    const long long stage = (resident == 1 ? 0 : kAFloats) +
+                            (resident == 2 ? 0 : kBFloats);
+    const long long held = static_cast<long long>(slabs) *
+                           (resident == 1   ? kAFloats
+                            : resident == 2 ? kBFloats
+                                            : 0);
+    return 4 * (STAGES * stage + held + kScratch);
+  }
+};
+
+// A group's part of one slab: acc[i][j] = max(acc[i][j], a[row_i][k] +
+// b[k][col_j]) over its kPart k's, a's values read four k's at a time
+template <class T>
+__device__ __forceinline__ void compute(const float* as, const float* bs,
+                                        float (&acc)[8][8], int ty, int tx) {
+  const float* ap = as + ty * T::kAStride;
+  const float* bp = bs + 4 * tx;
+#pragma unroll 1
+  for (int kq = 0; kq < T::kPart; kq += 4) {
+    float av[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          ap + i * T::kTY * T::kAStride + kq);
+      av[i][0] = v.x;
+      av[i][1] = v.y;
+      av[i][2] = v.z;
+      av[i][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* brow = bp + (kq + kk) * T::kBStride;
+      const float4 b0 = *reinterpret_cast<const float4*>(brow);
+      const float4 b1 = *reinterpret_cast<const float4*>(brow + 4 * T::kTX);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = max_nan(acc[i][j], av[i][kk] + bv[j]);
+    }
+  }
+}
+
+template <int TY, int TX, int KD, int STAGES, int SPLIT>
+__global__ void __launch_bounds__(
+    SPLIT * TY * TX, (Tile<TY, TX, KD, STAGES, SPLIT>::kMinBlocks))
+    maxplus_kernel(const Problem p) {
+  using T = Tile<TY, TX, KD, STAGES, SPLIT>;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int group = tid / T::kGroup, member = tid % T::kGroup;
+  const int ty = member / TX, tx = member % TX;
+  const bool res_a = p.resident == 1, res_b = p.resident == 2;
+  // A resident operand's slabs first, then the ring of stages
+  float* ring = smem + p.slabs * (res_a   ? T::kAFloats
+                                  : res_b ? T::kBFloats
+                                          : 0);
+  const int stage = (res_a ? 0 : T::kAFloats) + (res_b ? 0 : T::kBFloats);
+  const int b_offset = res_a ? 0 : T::kAFloats;
+  const int per_product = p.tiles_m * p.tiles_n;
+  const int cta = blockIdx.x, grid = gridDim.x;
+  const int iters = (cta < p.items ? (p.items - 1 - cta) / grid + 1 : 0) *
+                    p.slabs;
+
+  // The walk: iteration it is slab it % slabs of item cta + it / slabs *
+  // grid, an item being (product z, first row, first column of its tile).
+  // Everything follows from `it`, so that little stays live beside the
+  // 64 maxima
+  auto place = [&](int it, int& z, int& row0, int& col0) {
+    const int item = cta + it / p.slabs * grid;
+    z = item / per_product;
+    const int rest = item - z * per_product;
+    row0 = rest / p.tiles_n * T::kRows;
+    col0 = rest % p.tiles_n * T::kCols;
+  };
+  auto load = [&](int it) {
+    int z, row0, col0;
+    place(it, z, row0, col0);
+    const int k0 = it % p.slabs * KD;
+    float* buf = ring + it % STAGES * stage;
+    if (!res_a)
+      load_slab<T::kRows, KD / 4, T::kThreads>(
+          buf, T::kAStride, p.a + z * p.a_batch, p.a_row, row0, p.m, k0, p.k,
+          p.vec_a, tid);
+    if (!res_b)
+      load_slab<KD, T::kCols / 4, T::kThreads>(
+          buf + b_offset, T::kBStride, p.b + z * p.b_batch, p.b_row, k0, p.k,
+          col0, p.n, p.vec_b, tid);
+  };
+
+  // The resident operand, every slab of it: one tile row (a) or column
+  // (b) holds the whole product and every product reads the same matrix;
+  // it joins the first stage's commit group
+  for (int s = 0; s < p.slabs && (res_a || res_b); ++s) {
+    if (res_a)
+      load_slab<T::kRows, KD / 4, T::kThreads>(
+          smem + s * T::kAFloats, T::kAStride, p.a, p.a_row, 0, p.m, s * KD,
+          p.k, p.vec_a, tid);
+    else
+      load_slab<KD, T::kCols / 4, T::kThreads>(
+          smem + s * T::kBFloats, T::kBStride, p.b, p.b_row, s * KD, p.k, 0,
+          p.n, p.vec_b, tid);
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < iters) load(s);
+    torbi::cp_async_commit();
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = torbi::neg_inf();
+
+  for (int it = 0; it < iters; ++it) {
+    // Slab `it` has landed (this thread's copies; the barrier makes every
+    // thread's visible), and every thread is done with slab it - 1, whose
+    // buffer the next copies refill
+    torbi::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (it + STAGES - 1 < iters) load(it + STAGES - 1);
+    torbi::cp_async_commit();
+
+    const int slab = it % p.slabs;
+    const float* buf = ring + it % STAGES * stage;
+    // Group g takes k's g kPart .. (g + 1) kPart of the slab
+    compute<T>((res_a ? smem + slab * T::kAFloats : buf) + group * T::kPart,
+               (res_b ? smem + slab * T::kBFloats : buf + b_offset) +
+                   group * T::kPart * T::kBStride,
+               acc, ty, tx);
+
+    if (slab + 1 == p.slabs) {
+      if constexpr (SPLIT > 1) {
+        // The first group takes the maximum of every group's maxima (the
+        // order does not matter, and max.NaN keeps a NaN); the barrier at
+        // the next slab keeps the scratch until it has read it
+        float* scratch = ring + STAGES * stage + member;
+        if (group > 0) {
+#pragma unroll
+          for (int e = 0; e < 64; ++e)
+            scratch[((group - 1) * 64 + e) * T::kGroup] = acc[e / 8][e % 8];
+        }
+        __syncthreads();
+        if (group == 0) {
+#pragma unroll 1
+          for (int g = 0; g < SPLIT - 1; ++g)
+#pragma unroll
+            for (int e = 0; e < 64; ++e)
+              acc[e / 8][e % 8] = max_nan(acc[e / 8][e % 8],
+                                          scratch[(g * 64 + e) * T::kGroup]);
+        }
+      }
+      int z, row0, col0;
+      place(it, z, row0, col0);
+      float* oz = p.out + static_cast<long long>(z) * p.m * p.n;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = row0 + ty + TY * i;
+        if (group == 0 && row < p.m) {
+          float* o = oz + static_cast<long long>(row) * p.n;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = col0 + 4 * tx + 4 * TX * h;
+            if (p.n % 4 == 0 && col + 3 < p.n) {
+              *reinterpret_cast<float4*>(o + col) =
+                  make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                              acc[i][4 * h + 2], acc[i][4 * h + 3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (col + j < p.n) o[col + j] = acc[i][4 * h + j];
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = torbi::neg_inf();
+      }
+    }
+  }
+  torbi::cp_async_wait_all();
+}
+
+// The tile designs, in the order of ops/associative.py::MAXPLUS_TILES:
+// (TY, TX, KD, STAGES, SPLIT)
+template <class F>
+cudaError_t with_tile(int tile, F&& f) {
+  switch (tile) {
+    case 0:
+      return f(Tile<8, 8, 16, 3, 1>{}, maxplus_kernel<8, 8, 16, 3, 1>);
+    case 1:
+      return f(Tile<18, 14, 32, 3, 1>{}, maxplus_kernel<18, 14, 32, 3, 1>);
+    case 2:
+      return f(Tile<8, 8, 32, 2, 4>{}, maxplus_kernel<8, 8, 32, 2, 4>);
+    case 3:
+      return f(Tile<8, 8, 64, 2, 1>{}, maxplus_kernel<8, 8, 64, 2, 1>);
+    case 4:
+      return f(Tile<8, 8, 32, 2, 1>{}, maxplus_kernel<8, 8, 32, 2, 1>);
+    case 5:
+      return f(Tile<16, 16, 32, 3, 1>{}, maxplus_kernel<16, 16, 32, 3, 1>);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Allow `bytes` of dynamic shared memory for tile design T's kernel (one
+// static per design), once per size
+template <class T>
+cudaError_t allow_smem(void (*kernel)(Problem), int bytes) {
+  static int allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t code = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (code == cudaSuccess) allowed = bytes;
+  return code;
 }
 
 }  // namespace
 
 // a: (batch, m, k) float32 at a + z * a_batch + j * a_row + kk (a_batch 0
 // broadcasts one matrix); b likewise (batch, k, n); out: contiguous
-// (batch, m, n) float32. batch, m, n >= 1, k >= 1. Returns a cudaError_t
-// code.
+// (batch, m, n) float32. batch, m, n >= 1, k >= 1. The launch plan
+// (ops/associative.py::maxplus_plan): `tile` the index of the tile design,
+// `grid` the CTAs of the persistent grid, `resident` 1 (a) or 2 (b) for an
+// operand held in shared memory (its batch stride 0, one tile row or
+// column holding its whole product), else 0; vec_a, vec_b whether every
+// row of a, b starts on 16 bytes. Returns a cudaError_t code.
 extern "C" int maxplus_matmul(const float* a, long long a_batch,
                               long long a_row, const float* b,
                               long long b_batch, long long b_row, float* out,
-                              int batch, int m, int k, int n, void* stream) {
-  if (batch <= 0 || m <= 0 || k <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile,
-                  batch < kMaxGridZ ? batch : kMaxGridZ);
-  if (grid.y > 65535u) return cudaErrorInvalidValue;
-  maxplus_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, a_batch, a_row, b, b_batch, b_row, out, batch, m, k, n);
-  return cudaGetLastError();
+                              int batch, int m, int k, int n, int tile,
+                              int grid, int resident, int vec_a, int vec_b,
+                              void* stream) {
+  if (batch <= 0 || m <= 0 || k <= 0 || n <= 0 || grid <= 0 || resident < 0 ||
+      resident > 2)
+    return cudaErrorInvalidValue;
+  return with_tile(tile, [&](auto t, auto kernel) -> cudaError_t {
+    using T = decltype(t);
+    Problem p;
+    p.a = a;
+    p.b = b;
+    p.out = out;
+    p.a_batch = a_batch;
+    p.a_row = a_row;
+    p.b_batch = b_batch;
+    p.b_row = b_row;
+    p.m = m;
+    p.k = k;
+    p.n = n;
+    p.tiles_m = (m + T::kRows - 1) / T::kRows;
+    p.tiles_n = (n + T::kCols - 1) / T::kCols;
+    p.slabs = (k + T::kDepth - 1) / T::kDepth;
+    const long long items = static_cast<long long>(batch) * p.tiles_m *
+                            p.tiles_n;
+    if (items > INT_MAX / 2) return cudaErrorInvalidValue;
+    p.items = static_cast<int>(items);
+    p.vec_a = vec_a;
+    p.vec_b = vec_b;
+    p.resident = resident;
+    // A resident operand must be the same whole matrix for every item
+    if ((resident == 1 && (a_batch != 0 || p.tiles_m != 1)) ||
+        (resident == 2 && (b_batch != 0 || p.tiles_n != 1)))
+      return cudaErrorInvalidValue;
+    const long long bytes = T::smem_bytes(resident, p.slabs);
+    if (bytes > 232448) return cudaErrorInvalidValue;
+    const int smem = static_cast<int>(bytes);
+    cudaError_t code = allow_smem<T>(kernel, smem);
+    if (code != cudaSuccess) return code;
+    const int blocks = grid < p.items ? grid : p.items;
+    kernel<<<blocks, T::kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(p);
+    return cudaGetLastError();
+  });
+}
+
+// The CTAs of tile design `tile` (with `resident` as above, over `slabs`
+// slabs) that one SM holds at once, as the card reports it, into *blocks;
+// and its dynamic shared memory into *smem. Returns a cudaError_t code.
+extern "C" int maxplus_occupancy(int tile, int resident, int slabs,
+                                 int* blocks, int* smem) {
+  if (resident < 0 || resident > 2 || slabs < 1) return cudaErrorInvalidValue;
+  return with_tile(tile, [&](auto t, auto kernel) -> cudaError_t {
+    using T = decltype(t);
+    if (T::smem_bytes(resident, slabs) > 232448) return cudaErrorInvalidValue;
+    *smem = static_cast<int>(T::smem_bytes(resident, slabs));
+    cudaError_t code = allow_smem<T>(kernel, *smem);
+    if (code != cudaSuccess) return code;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                         T::kThreads, *smem);
+  });
 }

@@ -8,8 +8,9 @@ arXiv:2102.05743). The work grows from O(T S^2) to O(T S^3), so this pays
 for small state counts or when the frames are sharded over many ranks
 (parallel/timesharded.py); at 1440 states the serial kernels win.
 
-The product is the kernel K8 (``csrc/maxplus.cu``) on the card and its
-plain version ``maxplus_matmul_reference`` on the CPU. ``associative_scan``
+The product is the kernel K8 (``csrc/maxplus.cu``) on the card, launched
+by the plan ``maxplus_plan``, and its plain version
+``maxplus_matmul_reference`` on the CPU. ``associative_scan``
 combines in the tree of ``jax.lax.associative_scan``: each candidate of a
 product is one fp32 add and the fp32 maximum does not depend on order, so
 every product is exact whatever the order over k, and only the tree
@@ -18,12 +19,44 @@ JAX package's. The decode's chase is the backtrace kernel K3
 (``ops/backtrace.py::backtrace_posteriors``) at batch 1.
 """
 import ctypes
+import functools
 import math
 
 import torch
 
 from ..csrc import build
 from .backtrace import backtrace_posteriors
+from .dense import _sms
+
+# K8's tile designs (csrc/maxplus.cu, with_tile, in this order): (ty, tx,
+# kd, stages, split): TY x TX threads of 8 x 8 running maxima each, an
+# (8 TY) x (8 TX) output tile; k in slabs of KD through a ring of STAGES
+# shared-memory buffers; SPLIT such groups of threads, each over a part of
+# every slab's k, their maxima combined at the tile's end
+MAXPLUS_TILES = (
+    (8, 8, 16, 3, 1),     # 64 x 64, eight CTAs an SM
+    (18, 14, 32, 3, 1),   # 144 x 112: 130 tiles at 1440^3, one wave
+    (8, 8, 32, 2, 4),     # 64 x 64 by 8 warps: a few products
+    (8, 8, 64, 2, 1),     # a whole 64-deep product a stage, three CTAs an SM
+    (8, 8, 32, 2, 1),     # 64 x 64, six CTAs an SM
+    (16, 16, 32, 3, 1),   # 128 x 128: 144 tiles at 1440^3, two waves
+)
+# The designs the plan picks from (the others are kept to be timed beside
+# them, scripts/modes_timing.py --designs)
+MAXPLUS_PLANNED = (0, 1, 2)
+# The plan's model of an SM: its rate grows with the warps it holds up to
+# FULL_RATE_WARPS; combining a split design's groups costs it
+# SPLIT_COST of its candidates' time (three 16 KB passes through shared
+# memory a 64 x 64 tile, against its 262,144 candidates)
+FULL_RATE_WARPS = 4
+SPLIT_COST = 1.125
+SM_SMEM_BYTES = 233472       # an SM's shared memory (228 KB)
+BLOCK_SMEM_BYTES = 232448    # a CTA's most
+CTA_SMEM_RESERVED = 1024     # the runtime's own share of each CTA's
+SM_THREADS = 2048
+SM_CTAS = 32
+SM_REGISTERS = 65536
+THREAD_REGISTERS = 128       # K8's launch bounds
 
 
 def maxplus_matmul_reference(a, b):
@@ -42,6 +75,104 @@ def maxplus_matmul_reference(a, b):
     return out
 
 
+def maxplus_layout(tile, resident=None, slabs=1):
+    """Shared memory and occupancy of K8's tile design ``tile`` (an index
+    of MAXPLUS_TILES), as csrc/maxplus.cu lays it out: a ring of
+    ``stages`` slabs, a's (rows x (kd + 4) floats, rows padded) and b's (kd
+    x cols), the ``resident`` operand ('a', 'b' or None), all its
+    ``slabs`` slabs, before the ring, and after it the split groups'
+    scratch (64 floats a thread of each group past the first). Returns a
+    dict: rows, cols, depth, stages, split, threads, smem_bytes,
+    ctas_per_sm (the CTAs an SM holds at once by shared memory, threads
+    and registers; 0 if none) and fits (within a CTA's shared memory)."""
+    ty, tx, depth, stages, split = MAXPLUS_TILES[tile]
+    rows, cols = 8 * ty, 8 * tx
+    a_floats, b_floats = rows * (depth + 4), depth * cols
+    stage = ((0 if resident == 'a' else a_floats)
+             + (0 if resident == 'b' else b_floats))
+    held = slabs * {'a': a_floats, 'b': b_floats}.get(resident, 0)
+    scratch = (split - 1) * ty * tx * 64
+    smem = 4 * (stages * stage + held + scratch)
+    threads = split * ty * tx
+    warp_threads = -(-threads // 32) * 32
+    ctas = min(SM_SMEM_BYTES // (smem + CTA_SMEM_RESERVED),
+               SM_THREADS // warp_threads,
+               SM_REGISTERS // (warp_threads * THREAD_REGISTERS), SM_CTAS)
+    return {'rows': rows, 'cols': cols, 'depth': depth, 'stages': stages,
+            'split': split, 'threads': threads, 'smem_bytes': smem,
+            'ctas_per_sm': ctas, 'fits': smem <= BLOCK_SMEM_BYTES}
+
+
+def _aligned(address, batch, batch_stride, rows, row_stride):
+    """Whether every row of a (batch, rows, ...) float32 operand starts on
+    16 bytes"""
+    return (address % 16 == 0 and (rows == 1 or row_stride % 4 == 0)
+            and (batch == 1 or batch_stride % 4 == 0))
+
+
+def maxplus_tile_plan(tile, batch, m, k, n, a_batch, a_row, b_batch, b_row,
+                      a_address=0, b_address=0, sms=132):
+    """K8's launch with tile design ``tile`` for a (batch, m, k) by (batch,
+    k, n) product whose operands have batch strides ``a_batch``,
+    ``b_batch`` (0 broadcasts), row strides ``a_row``, ``b_row`` and
+    addresses ``a_address``, ``b_address``, on ``sms`` SMs.
+
+    The persistent grid walks ``items`` = batch x tiles_m x tiles_n
+    output tiles, CTA c taking items c, c + grid, ...; each item's k in
+    ``slabs`` of the design's depth. An operand of batch stride 0 whose
+    whole product one tile row or column holds is ``resident`` ('a' or
+    'b'), all its slabs, where they fit beside the ring.
+    ``vec_a``, ``vec_b``: 16-byte copies (every row starts on 16 bytes),
+    else 4-byte ones. ``cost``: the candidates (padding included) of the
+    busiest SM, its CTAs times their items, over its rate at the warps it
+    holds (FULL_RATE_WARPS), a split design's by SPLIT_COST. Returns a
+    dict of these with maxplus_layout's."""
+    layout = maxplus_layout(tile)
+    rows, cols, depth = layout['rows'], layout['cols'], layout['depth']
+    tiles_m, tiles_n = -(-m // rows), -(-n // cols)
+    slabs = -(-k // depth)
+    resident = None
+    if batch > 1:
+        for operand, stride, tiles in (('b', b_batch, tiles_n),
+                                       ('a', a_batch, tiles_m)):
+            held = maxplus_layout(tile, operand, slabs)
+            if stride == 0 and tiles == 1 and held['fits']:
+                resident, layout = operand, held
+                break
+    items = batch * tiles_m * tiles_n
+    grid = min(items, sms * layout['ctas_per_sm'])
+    ctas = -(-grid // sms)
+    warps = ctas * -(-layout['threads'] // 32)
+    cost = (ctas * -(-items // grid) * rows * cols * slabs * depth
+            * (SPLIT_COST if layout['split'] > 1 else 1)
+            / min(1, warps / FULL_RATE_WARPS))
+    return {**layout, 'tile': tile, 'tiles_m': tiles_m, 'tiles_n': tiles_n,
+            'slabs': slabs, 'items': items, 'grid': grid,
+            'resident': resident,
+            'vec_a': _aligned(a_address, batch, a_batch, m, a_row),
+            'vec_b': _aligned(b_address, batch, b_batch, k, b_row),
+            'cost': cost}
+
+
+def maxplus_plan(batch, m, k, n, a_batch, a_row, b_batch, b_row,
+                 a_address=0, b_address=0, sms=132, tiles=MAXPLUS_PLANNED):
+    """K8's launch plan: of ``maxplus_tile_plan`` for each design of
+    ``tiles``, the one of least cost (the first on ties). Plans are
+    cached by shape, strides and alignment (a scan launches the same few
+    shapes many times); the returned dict is shared, not to be changed."""
+    return _cached_plan(batch, m, k, n, a_batch, a_row, b_batch, b_row,
+                        a_address % 16, b_address % 16, sms, tuple(tiles))
+
+
+@functools.lru_cache(maxsize=4096)
+def _cached_plan(batch, m, k, n, a_batch, a_row, b_batch, b_row, a_address,
+                 b_address, sms, tiles):
+    plans = [maxplus_tile_plan(tile, batch, m, k, n, a_batch, a_row,
+                               b_batch, b_row, a_address, b_address, sms)
+             for tile in tiles]
+    return min(plans, key=lambda plan: plan['cost'])
+
+
 def _batched(x, lead, rows, cols):
     """``x`` broadcast to (*lead, rows, cols) as a (batch, rows, cols) view
     where one batch stride (0 for a broadcast operand) describes it, its
@@ -52,8 +183,9 @@ def _batched(x, lead, rows, cols):
     return x
 
 
-def maxplus_matmul(a, b):
+def maxplus_matmul(a, b, tiles=MAXPLUS_PLANNED):
     """The (max, +) matrix product: K8 (csrc/maxplus.cu) on CUDA tensors,
+    launched by ``maxplus_plan`` over the tile designs ``tiles``;
     ``maxplus_matmul_reference`` on CPU tensors. Arguments and result as
     there; the operands may be strided views (a batch stride of 0
     broadcasts). Counts one launch per call on the card (none for an empty
@@ -79,12 +211,17 @@ def maxplus_matmul(a, b):
         return out
     a3 = _batched(a, lead, m, k)
     b3 = _batched(b, lead, k, n)
+    plan = maxplus_plan(
+        batch, m, k, n, a3.stride(0), a3.stride(1), b3.stride(0),
+        b3.stride(1), a3.data_ptr(), b3.data_ptr(), _sms(device), tiles)
     lib = _library()
     with torch.cuda.device(device):
         code = lib.maxplus_matmul(
             build.pointer(a3), a3.stride(0), a3.stride(1),
             build.pointer(b3), b3.stride(0), b3.stride(1),
-            build.pointer(out), batch, m, k, n, build.stream(device))
+            build.pointer(out), batch, m, k, n, plan['tile'], plan['grid'],
+            RESIDENT_CODES[plan['resident']], plan['vec_a'], plan['vec_b'],
+            build.stream(device))
     build.raise_on_error(lib, 'maxplus_matmul', code)
     maxplus_matmul.launches += 1
     return out
@@ -162,12 +299,31 @@ def viterbi_decode_scan(observation, transition, initial):
         batch_frames)[0]
 
 
+# The C entry's code of a resident operand
+RESIDENT_CODES = {None: 0, 'a': 1, 'b': 2}
+
+
+def maxplus_occupancy(tile, resident=None, slabs=1):
+    """The CTAs of K8's tile design ``tile`` one SM holds at once, and its
+    dynamic shared memory in bytes, as the card reports them (the CUDA
+    occupancy query); maxplus_layout's ctas_per_sm and smem_bytes are the
+    plan's model of them"""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    lib = _library()
+    code = lib.maxplus_occupancy(tile, RESIDENT_CODES[resident], slabs,
+                                 ctypes.byref(blocks), ctypes.byref(smem))
+    build.raise_on_error(lib, 'maxplus_occupancy', code)
+    return blocks.value, smem.value
+
+
 def _library():
     lib = build.library('maxplus')
     lib.maxplus_matmul.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.maxplus_matmul.restype = ctypes.c_int
+    lib.maxplus_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.maxplus_occupancy.restype = ctypes.c_int
     return lib

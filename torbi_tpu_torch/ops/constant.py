@@ -14,17 +14,47 @@ needs neither a posterior stream nor a chase:
 
 The reductions (the frame maxima, the argmax passes) are torch ops, as
 torbi_tpu computes them in XLA. The recurrence is the kernel K7
-(``csrc/constant.cu``, one thread per sequence) on the card and its plain
-version, a loop over the frames, on the CPU. Every fp add happens in the
-order of the JAX package's closed form, so the result is bitwise the
-banded recursion's. A parallel scan (``torch.cumsum``) would add in
-another order and is not used.
+(``csrc/constant.cu``: a chain lane per sequence, copy warps moving the
+maxima in and the carry out; launched by the plan ``recurrence_plan``) on
+the card and its plain version, a loop over the frames, on the CPU. Every
+fp add happens in the order of the JAX package's closed form, so the
+result is bitwise the banded recursion's. A parallel scan
+(``torch.cumsum``) would add in another order and is not used.
 """
 import ctypes
 
 import torch
 
 from ..csrc import build
+from .dense import _sms
+
+# K7's ring (csrc/constant.cu, kStages): slots of ``tile`` frames per
+# sequence
+RECURRENCE_STAGES = 4
+RECURRENCE_MAX_SEQUENCES = 32       # the lanes of the chain warp
+RECURRENCE_MAX_TILE = 1024
+RECURRENCE_SMEM_BYTES = 48 * 1024   # the ring's most, per CTA
+RECURRENCE_GROUP = 16               # frames a chain step moves
+
+
+def recurrence_plan(batch, frames, sms=132):
+    """K7's launch plan for ``batch`` sequences of ``frames`` on ``sms``
+    SMs: ``sequences`` a CTA, as few as spread the batch over every SM
+    (at most the chain warp's 32 lanes); ``tile`` frames a ring slot (a
+    multiple of 16), about a quarter of the sequence so that the ring
+    holds a short one whole and the chain starts after the first quarter,
+    at most RECURRENCE_MAX_TILE and what RECURRENCE_SMEM_BYTES holds for
+    ``sequences``. Returns a dict: sequences, blocks, tile, tiles,
+    smem_bytes."""
+    sequences = min(RECURRENCE_MAX_SEQUENCES, max(1, -(-batch // sms)))
+    group = RECURRENCE_GROUP
+    fit = ((RECURRENCE_SMEM_BYTES // (4 * sequences) - 4)
+           // RECURRENCE_STAGES // group * group)
+    quarter = -(-frames // (RECURRENCE_STAGES * group)) * group
+    tile = max(group, min(RECURRENCE_MAX_TILE, fit, quarter))
+    return {'sequences': sequences, 'blocks': -(-batch // sequences),
+            'tile': tile, 'tiles': -(-frames // tile),
+            'smem_bytes': 4 * sequences * (RECURRENCE_STAGES * tile + 4)}
 
 
 def recurrence_reference(maxima, g0, batch_frames, floor):
@@ -53,10 +83,11 @@ def recurrence_reference(maxima, g0, batch_frames, floor):
 
 
 def recurrence(maxima, g0, batch_frames, floor):
-    """The carry of the closed form: K7 (csrc/constant.cu) on CUDA tensors,
-    ``recurrence_reference`` on CPU tensors. Arguments and result as there,
-    each tensor contiguous. Counts one launch per call on the card (none
-    when there is no frame to carry)."""
+    """The carry of the closed form: K7 (csrc/constant.cu, launched by
+    ``recurrence_plan``) on CUDA tensors, ``recurrence_reference`` on CPU
+    tensors. Arguments and result as there, each tensor contiguous. Counts
+    one launch per call on the card (none when there is no frame to
+    carry)."""
     device = maxima.device
     if device.type == 'cpu':
         return recurrence_reference(maxima, g0, batch_frames, floor)
@@ -67,12 +98,14 @@ def recurrence(maxima, g0, batch_frames, floor):
     ms = torch.empty(
         (batch, max(frames - 1, 0)), dtype=torch.float32, device=device)
     if batch and frames > 1:
+        plan = recurrence_plan(batch, frames, _sms(device))
         lib = _library()
         with torch.cuda.device(device):
             code = lib.constant_recurrence(
                 build.pointer(maxima), build.pointer(g0),
                 build.pointer(batch_frames), float(floor), build.pointer(ms),
-                batch, frames, build.stream(device))
+                batch, frames, plan['sequences'], plan['tile'],
+                build.stream(device))
         build.raise_on_error(lib, 'constant_recurrence', code)
         recurrence.launches += 1
     return ms
@@ -120,7 +153,7 @@ def decode_constant(observation, batch_frames, initial, floor):
 def _library():
     lib = build.library('constant')
     lib.constant_recurrence.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     lib.constant_recurrence.restype = ctypes.c_int
     return lib
