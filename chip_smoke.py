@@ -423,33 +423,30 @@ def ptxas_kernels(output):
 
 
 def redesign_registers(build, associative):
-    """K8's tile designs and K7 as ptxas reports them, one info line each;
-    fails if a design the plan picks, or K7, spills or takes more than 128
-    registers a thread"""
+    """K8's tile designs and K7 as ptxas reported them when they were
+    built (the report kept beside each library), one info line each;
+    fails if the report is missing, or if a design or K7 spills or takes
+    more registers a thread than its launch bounds allow (128 for K7)"""
     for library in ('maxplus', 'constant'):
-        if library not in build.compiler_output:
-            info(f'{library}.cu was built before this run: no ptxas report')
-            continue
-        kernels = ptxas_kernels(build.compiler_output[library])
+        kernels = ptxas_kernels(build.report(library) or '')
         if not kernels:
-            fail(f'no ptxas report of {library}.cu')
+            fail(f'no ptxas report of {library}.cu beside its library')
         for kernel, (registers, stores, loads) in kernels.items():
-            design = re.search(r'maxplus_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi'
-                               r'(\d+)ELi(\d+)E', kernel)
+            design = re.search(r'maxplus_kernelI((?:Li\d+E)+)E', kernel)
             if design:
-                tile = tuple(int(x) for x in design.groups())
+                tile = tuple(int(x) for x in
+                             re.findall(r'Li(\d+)E', design.group(1)))
                 index = associative.MAXPLUS_TILES.index(tile)
-                label = (f'K8 tile design {index} (TY, TX, KD, STAGES, '
-                         f'SPLIT) = {tile}')
-                planned = index in associative.MAXPLUS_PLANNED
+                label = (f'K8 tile design {index} (TY, TX, RI, RJ, KD, '
+                         f'STAGES, REGS) = {tile}')
+                most = tile[-1]
             else:
-                label, planned = 'K7 constant_kernel', True
+                label, most = 'K7 constant_kernel', 128
             info(f'{label}: {registers} registers a thread, {stores} bytes '
-                 f'spill stores, {loads} bytes spill loads (ptxas -v)'
-                 + ('' if planned else '; not planned, timed only'))
-            if planned and (registers > 128 or stores or loads):
+                 f'spill stores, {loads} bytes spill loads (ptxas -v)')
+            if registers > most or stores or loads:
                 fail(f'{label} takes {registers} registers and spills '
-                     f'{stores} bytes: at most 128 and none expected')
+                     f'{stores} bytes: at most {most} and none expected')
 
 
 def sass_listing(build, library):
@@ -999,8 +996,9 @@ def constant_phase(torch, device, single, headline, init, clock_hz):
                 name='constant_recurrence', route='cuda',
                 source='torbi_tpu_torch/csrc/constant.cu',
                 replaces='torbi_tpu/ops/dispatch.py:385', path='uniform',
-                max_abs_err=err, ms=kernel_ms, call_ms=ms, plain_ms=plain_ms,
-                bound=bound, library_ms=None, chain_bound_ms=chain_ms)
+                max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound=bound, library_ms=None,
+                chain_bound_ms=chain_ms)
         entry['max_abs_err'] = max(entry['max_abs_err'], err)
     entry['shapes'] = {
         label: {key: (value[0] if key == 'bound' else value)
@@ -1249,48 +1247,6 @@ def maxplus_operands(torch, states, layout, device, seed):
     return a.to(device), b.to(device)
 
 
-def maxplus_share(torch, associative, fn):
-    """K8's ms in one call of ``fn`` (CUDA events around each launch), its
-    launches, and the bound of those launches (each one's bytes and
-    operations, ``scripts/modes_timing.py::product_work``, summed);
-    ``fn``'s result"""
-    from torbi_tpu_torch.scripts.modes_timing import product_work
-
-    real = associative.maxplus_matmul
-    marks, work = [], [0, 0, 0]
-
-    def timed(a, b):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(a, b)
-        stop.record()
-        marks.append((start, stop))
-        # An empty product launches nothing
-        work[:] = (w + x for w, x in zip(
-            work, (*product_work(a, b), bool(out.numel()))))
-        return out
-
-    # The kernel's own count goes to the wrapper while it stands in
-    timed.launches = 0
-    associative.maxplus_matmul = timed
-    try:
-        result = fn()
-    finally:
-        associative.maxplus_matmul = real
-    torch.cuda.synchronize()
-    k8_ms = sum(start.elapsed_time(stop) for start, stop in marks)
-    return k8_ms, work[2], bound_ms(*work[:2]), result
-
-
-def free_port():
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(('127.0.0.1', 0))
-        return sock.getsockname()[1]
-
-
 def modes_phase(torch, device, card, headline, exact_path, reset_counts,
                 read_counts):
     """The extra decode modes on the card, the counters reset just before
@@ -1322,7 +1278,8 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
 
     import torbi_tpu_torch
     from torbi_tpu_torch.ops import associative, backtrace, dispatch, lse
-    from torbi_tpu_torch.scripts.modes_timing import product_work
+    from torbi_tpu_torch.scripts.modes_timing import (
+        free_port, product_work, share)
 
     # K8 on the edge shapes
     checked = 0
@@ -1451,8 +1408,9 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
                         calls=3)
         # K8's share of one call: CUDA events around each launch, beside
         # the bound of those launches
-        ts_k8_ms, ts_k8_launches, ts_k8_bound, _ = maxplus_share(
-            torch, associative, lambda: decode(obs, backend='timesharded'))
+        ts_share = share(lambda: decode(obs, backend='timesharded'))
+        ts_k8_ms, ts_k8_launches = ts_share['k8_ms'], ts_share['k8_launches']
+        ts_k8_bound = bound_ms(ts_share['bytes'], ts_share['operations'])
         ts_short = decode(obs[:MODES_CPU_FRAMES], backend='timesharded')
     finally:
         dist.destroy_process_group()
@@ -1482,8 +1440,10 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
         fail(f'the associative route at {shape} differs from the same route '
              'with the plain versions on the card')
     scan_ms = host_ms(torch, lambda: scan_route(obs), calls=3)
-    scan_k8_ms, scan_k8_launches, scan_k8_bound, _ = maxplus_share(
-        torch, associative, lambda: scan_route(obs))
+    scan_share = share(lambda: scan_route(obs))
+    scan_k8_ms = scan_share['k8_ms']
+    scan_k8_launches = scan_share['k8_launches']
+    scan_k8_bound = bound_ms(scan_share['bytes'], scan_share['operations'])
     scan_short = scan_route(obs[:MODES_CPU_FRAMES])
 
     # The exact kernel route at the same shape (K2, K3)
@@ -1677,17 +1637,20 @@ def main():
             fail('the native loader (csrc/loader.cpp) did not build with g++')
     info(f'built {", ".join(build.SOURCES)} and the native loader in '
          f'{time.perf_counter() - start:.1f} s')
-    for name, output in build.compiler_output.items():
+    for name in build.SOURCES:
+        output = build.report(name)
+        if output is None:
+            fail(f'no ptxas report of {name}.cu beside its library')
         for line in output.splitlines():
             if 'registers' in line or 'spill' in line:
                 info(f'{name}: {line.strip()}')
     redesign_registers(build, associative)
-    # The CTAs an SM holds of each planned K8 design, as the card reports
-    # them, against the plan's model
-    for tile in associative.MAXPLUS_PLANNED:
+    # The CTAs an SM holds of each K8 design, as the card reports them,
+    # against the plan's model
+    for tile in range(len(associative.MAXPLUS_TILES)):
         for resident in (None, 'a', 'b'):
             # A resident operand of a 64-deep product: all its slabs
-            slabs = -(-64 // associative.MAXPLUS_TILES[tile][2])
+            slabs = -(-64 // associative.MAXPLUS_TILES[tile][4])
             layout = associative.maxplus_layout(tile, resident, slabs)
             blocks, smem = associative.maxplus_occupancy(
                 tile, resident, slabs)
@@ -1697,8 +1660,8 @@ def main():
                      f'holds {blocks} CTAs of {smem} bytes an SM, the plan '
                      f'models {layout["ctas_per_sm"]} of '
                      f'{layout["smem_bytes"]}')
-    info('K8: the card holds as many CTAs an SM of each planned design as '
-         'its plan models (cudaOccupancyMaxActiveBlocksPerMultiprocessor)')
+    info('K8: the card holds as many CTAs an SM of each design as its plan '
+         'models (cudaOccupancyMaxActiveBlocksPerMultiprocessor)')
     # The instructions the folded conversion adds per value, from the SASS
     sass = sass_conversion_counts(build)
     for (log_input, apply_epsilon), per_kernel in sass.items():

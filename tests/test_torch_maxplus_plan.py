@@ -11,6 +11,9 @@ copies serve rows not on 16 bytes, and a mirror of the kernel's walk over
 tiles, slabs and -inf padding, with a NaN-keeping maximum, is bitwise the
 plain version.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,11 +25,26 @@ SMS = 132
 INF = float('inf')
 
 
-def contiguous_plan(batch, m, k, n, a_batch=None, b_batch=None, **kwargs):
-    """The plan of contiguous (batch, m, k) by (batch, k, n) operands"""
-    return associative.maxplus_plan(
-        batch, m, k, n, m * k if a_batch is None else a_batch, k,
-        k * n if b_batch is None else b_batch, n, sms=SMS, **kwargs)
+def contiguous_plan(batch, m, k, n, a_batch=None, b_batch=None, tile=None):
+    """The plan of contiguous (batch, m, k) by (batch, k, n) operands, with
+    tile design ``tile`` if given"""
+    args = (batch, m, k, n, m * k if a_batch is None else a_batch, k,
+            k * n if b_batch is None else b_batch, n)
+    if tile is None:
+        return associative.maxplus_plan(*args, sms=SMS)
+    return associative.maxplus_tile_plan(tile, *args, sms=SMS)
+
+
+def test_kernel_instantiates_every_design_in_order():
+    # csrc/maxplus.cu's with_tile: case i is MAXPLUS_TILES[i]
+    source = (Path(associative.__file__).parent.parent / 'csrc'
+              / 'maxplus.cu').read_text()
+    cases = re.findall(r'case (\d+):\s*return TORBI_TILE\(([\d, ]+)\)',
+                       source)
+    assert [int(case) for case, _ in cases] == list(
+        range(len(associative.MAXPLUS_TILES)))
+    assert [tuple(int(x) for x in args.split(',')) for _, args in cases] == (
+        list(associative.MAXPLUS_TILES))
 
 
 @pytest.mark.parametrize('batch,m,k,n', [
@@ -74,7 +92,7 @@ def test_grid_covers_every_tile_once(batch, m, k, n):
 @pytest.mark.parametrize('tile', range(len(associative.MAXPLUS_TILES)))
 def test_stage_ring_fits_the_sm(tile, resident):
     # A resident operand of a 64-deep product: all its slabs held
-    ty, tx, depth, stages, split = associative.MAXPLUS_TILES[tile]
+    ty, tx, ri, rj, depth, stages, registers = associative.MAXPLUS_TILES[tile]
     slabs = -(-64 // depth)
     layout = associative.maxplus_layout(tile, resident, slabs)
     assert layout['fits']
@@ -83,22 +101,22 @@ def test_stage_ring_fits_the_sm(tile, resident):
     assert ctas >= 1
     assert ctas * (layout['smem_bytes'] + associative.CTA_SMEM_RESERVED) <= (
         associative.SM_SMEM_BYTES)
-    assert layout['threads'] == split * ty * tx
+    assert layout['threads'] == ty * tx
     warps = -(-layout['threads'] // 32)
     assert ctas * warps * 32 <= associative.SM_THREADS
-    assert ctas * warps * 32 * associative.THREAD_REGISTERS <= (
-        associative.SM_REGISTERS)
-    # The ring's slabs: 16-byte chunks, a's rows padded by one chunk, and
-    # each group's part of the depth in whole steps of four k's (a's
-    # 16-byte reads); the split groups' scratch, 64 maxima a thread
-    assert stages >= 2 and (depth // split) % 4 == 0
-    rows, cols = 8 * ty, 8 * tx
+    # The launch bounds' registers: the maxima, four k's of a a row, b's
+    # row of the tile, within the SM's file at the CTAs it holds
+    assert ri * rj + 4 * ri + rj < registers <= 128
+    assert ctas * warps * 32 * registers <= associative.SM_REGISTERS
+    # The ring's slabs: 16-byte chunks, a's rows padded by one chunk, the
+    # depth in whole steps of four k's (a's 16-byte reads)
+    assert stages >= 2 and depth % 4 == 0 and rj % 4 == 0
+    rows, cols = ri * ty, rj * tx
     a_floats, b_floats = rows * (depth + 4), depth * cols
     ring = stages * ((resident != 'a') * a_floats
                      + (resident != 'b') * b_floats)
     held = slabs * {'a': a_floats, 'b': b_floats}.get(resident, 0)
-    scratch = (split - 1) * ty * tx * 64
-    assert layout['smem_bytes'] == 4 * (ring + held + scratch)
+    assert layout['smem_bytes'] == 4 * (ring + held)
 
 
 @pytest.mark.parametrize('states,aligned', [
@@ -120,55 +138,64 @@ def test_broadcast_operand_recognised_at_batch_stride_0():
     fwd = contiguous_plan(32768, 64, 64, 64, b_batch=0)
     bwd = contiguous_plan(32768, 64, 64, 64, a_batch=0)
     assert fwd['resident'] == 'b' and bwd['resident'] == 'a'
-    # The ring holds a alone (3 stages of 64 x 20 floats), b's four slabs
-    # of 16 x 64 stand before it: 31 KB, seven CTAs an SM
+    # The ring holds a alone (2 stages of 64 x 68 floats), b's one slab of
+    # 64 x 64 stands before it: 50 KB, three CTAs an SM
     level = contiguous_plan(16383, 64, 64, 64)
     assert level['resident'] is None
-    assert fwd['smem_bytes'] == 4 * (3 * 64 * 20 + 4 * 16 * 64) == 31744
-    assert fwd['ctas_per_sm'] == 7
-    # Every slab of it stays: four of 16 at k = 64
-    assert fwd['slabs'] == 4
+    assert fwd['smem_bytes'] == 4 * (2 * 64 * 68 + 64 * 64) == 51200
+    assert fwd['ctas_per_sm'] == 3 and fwd['slabs'] == 1
     # Both broadcast: b stays; one product, a product wider than a tile,
-    # or one too deep for shared memory: nothing stays
+    # or one too deep for shared memory: nothing stays; a deeper one keeps
+    # every slab
     assert contiguous_plan(8, 64, 64, 64, 0, 0)['resident'] == 'b'
     assert contiguous_plan(1, 64, 64, 64, 0, 0)['resident'] is None
     assert contiguous_plan(8, 64, 64, 200, b_batch=0,
-                           tiles=(0,))['resident'] is None
-    assert contiguous_plan(8, 64, 100, 64, b_batch=0,
-                           tiles=(0,))['resident'] == 'b'
+                           tile=0)['resident'] is None
+    deep = contiguous_plan(8, 64, 100, 64, b_batch=0, tile=0)
+    assert deep['resident'] == 'b' and deep['slabs'] == 2
     assert contiguous_plan(8, 64, 4000, 64, b_batch=0,
-                           tiles=(0,))['resident'] is None
+                           tile=0)['resident'] is None
 
 
-@pytest.mark.parametrize('batch,split', [
-    (1, 4), (2, 4), (64, 4), (128, 4), (256, 1), (8191, 1), (16383, 1)])
-def test_few_products_take_the_split_design(batch, split):
-    # Fewer products than SMs: one 64 x 64 product a CTA, each by four
-    # groups of 64 threads over its k; more: 64-thread CTAs, eight an SM
+@pytest.mark.parametrize('batch,grid', [
+    (1, 1), (2, 2), (64, 64), (128, 128), (132, 132), (256, 256),
+    (396, 396), (397, 264), (511, 264), (1023, 264), (4095, 264),
+    (16383, 396), (32768, 396)])
+def test_scan_products_take_the_whole_product_design(batch, grid):
+    # Every count of the scan's and the time-sharded decode's 64^3
+    # products: 64 x 64 tiles of 256 threads, 4 x 4 maxima each, the whole
+    # 64-deep product one stage, up to three CTAs an SM; one tile a product
     plan = contiguous_plan(batch, 64, 64, 64)
-    assert plan['split'] == split
-    assert (plan['rows'], plan['cols']) == (64, 64)
-    if split > 1:
-        assert plan['grid'] == plan['items'] == batch
-        assert plan['threads'] == 256
+    assert associative.MAXPLUS_TILES[plan['tile']] == (
+        16, 16, 4, 4, 64, 2, 80)
+    assert (plan['rows'], plan['cols'], plan['slabs']) == (64, 64, 1)
+    assert plan['threads'] == 256 and plan['ctas_per_sm'] == 3
+    assert plan['items'] == batch
+    # One round where three CTAs an SM hold every product; past that, two
+    # CTAs an SM where their rounds take less of the SM's time (rounds
+    # times CTAs an SM: at 511 products two of two against two of three);
+    # three again where they take as little
+    assert plan['grid'] == grid
+    assert plan['rounds'] == -(-batch // grid)
+    per_sm = -(-grid // SMS)
+    share = associative.FULL_RATE_MAXIMA / (256 * 16)
+    for other in range(1, 4):
+        option = min(batch, other * SMS)
+        assert plan['cost'] <= -(-batch // option) * 64 ** 3 * max(
+            -(-option // SMS), share)
+    assert plan['cost'] == plan['rounds'] * 64 ** 3 * max(per_sm, share)
 
 
 def test_plan_fills_one_wave_at_1440():
     plan = contiguous_plan(1, 1440, 1440, 1440)
-    ty, tx = associative.MAXPLUS_TILES[plan['tile']][:2]
+    ty, tx, ri, rj = associative.MAXPLUS_TILES[plan['tile']][:4]
     # 144 x 112 tiles: 10 x 13 of them, at most one a SM
-    assert (8 * ty, 8 * tx) == (144, 112)
+    assert (ri * ty, rj * tx) == (144, 112)
     assert plan['items'] == plan['grid'] == 130 <= SMS
-    # 64 x 64 tiles would take 529 tiles, 128 x 128 ones 144
-    small = contiguous_plan(1, 1440, 1440, 1440, tiles=(0,))
+    # 64 x 64 tiles would take 529 tiles, two rounds of three CTAs an SM
+    small = contiguous_plan(1, 1440, 1440, 1440, tile=0)
     assert small['items'] == 529 and small['cost'] > plan['cost']
-    square = contiguous_plan(1, 1440, 1440, 1440, tiles=(5,))
-    assert square['items'] == 144 and square['cost'] > plan['cost']
-    # The scan's small products take 64 x 64 tiles, one a product, in four
-    # slabs, eight CTAs an SM
-    level = contiguous_plan(16383, 64, 64, 64)
-    assert (level['rows'], level['cols'], level['slabs']) == (64, 64, 4)
-    assert level['ctas_per_sm'] == 8 and level['grid'] == 8 * SMS
+    assert -(-small['items'] // small['grid']) == 2
 
 
 def stage(x, r0, r_lim, c0, c_lim, rows, cols):
@@ -250,13 +277,19 @@ def operands(layout, seed):
     elif layout == 'tiles':
         # Several tiles of each design a product, several slabs deep
         a, b = randn(2, 150, 70), randn(2, 70, 120)
+    elif layout == 'deep':
+        # One tile, several slabs of each design, a broadcast b resident
+        a, b = randn(4, 9, 150), randn(150, 6)
+    elif layout == 'unaligned':
+        # Rows off 16 bytes: the kernel's 4-byte copies
+        a, b = randn(2, 5, 5), randn(2, 5, 5)
     return a, b
 
 
-@pytest.mark.parametrize('tile', associative.MAXPLUS_PLANNED)
+@pytest.mark.parametrize('tile', range(len(associative.MAXPLUS_TILES)))
 @pytest.mark.parametrize('layout', [
     'batched', 'broadcast', 'broadcast_a', 'strided', 'neg_inf', 'nan',
-    'rectangular', 'tiles'])
+    'rectangular', 'tiles', 'deep', 'unaligned'])
 def test_walk_mirror_equals_plain_version(layout, tile):
     a, b = operands(layout, 90)
     m, k = a.shape[-2:]
@@ -264,14 +297,18 @@ def test_walk_mirror_equals_plain_version(layout, tile):
     lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     a3 = associative._batched(a, lead, m, k)
     b3 = associative._batched(b, lead, k, n)
-    plan = associative.maxplus_plan(
-        a3.shape[0], m, k, n, a3.stride(0), a3.stride(1), b3.stride(0),
-        b3.stride(1), sms=SMS, tiles=(tile,))
-    if layout.startswith('broadcast'):
+    plan = associative.maxplus_tile_plan(
+        tile, a3.shape[0], m, k, n, a3.stride(0), a3.stride(1),
+        b3.stride(0), b3.stride(1), a3.data_ptr(), b3.data_ptr(), sms=SMS)
+    if layout.startswith('broadcast') or layout == 'deep':
         assert plan['resident'] == ('a' if layout == 'broadcast_a' else 'b')
     if layout == 'tiles' and tile == 0:
         assert plan['tiles_m'] > 1 and plan['tiles_n'] > 1
-        assert plan['slabs'] == 5
+        assert plan['slabs'] == 2
+    if layout == 'deep':
+        assert plan['slabs'] > 1
+    if layout == 'unaligned':
+        assert not plan['vec_a'] and not plan['vec_b']
     expected = associative.maxplus_matmul_reference(a, b)
     got = walk(a3, b3, plan).reshape(expected.shape)
     assert same_bits(got, expected)

@@ -8,8 +8,9 @@ reused. ``build()`` starts one ``nvcc`` per missing library, all at once,
 and raises if any of them fails. The host code of the native file loader,
 ``csrc/loader.cpp``, builds the same way with ``g++`` (``host_library``).
 Each build writes a file whose name holds the process id and renames it
-into place, so processes that build at once do not race. Nothing here runs
-at import.
+into place, so processes that build at once do not race; ptxas's report of
+the build (``-Xptxas -v``: registers, spills) is kept beside the library
+(``report``). Nothing here runs at import.
 """
 import ctypes
 import hashlib
@@ -32,10 +33,6 @@ FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 HOST_FLAGS = ('-O3', '-shared', '-fPIC', '-pthread', '-std=c++17')
-
-# Compiler output (ptxas register and shared-memory report) per library
-# built by this process
-compiler_output = {}
 
 _libraries = {}
 _host_lock = threading.Lock()
@@ -60,6 +57,14 @@ def target(name):
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
+def report(name):
+    """The compiler's output (ptxas's register and spill report) of the
+    build of ``csrc/<name>.cu`` that ``target(name)`` holds, kept beside
+    it; None where there is none"""
+    path = target(name).with_suffix('.ptxas')
+    return path.read_text() if path.exists() else None
+
+
 def build(names=SOURCES):
     """Compile every library of ``names`` that is not built yet, one nvcc
     process per source, all started together. Returns {name: path}."""
@@ -81,11 +86,14 @@ def build(names=SOURCES):
     failed = []
     for name, (partial, proc) in procs.items():
         output, _ = proc.communicate()
-        compiler_output[name] = output
         if proc.returncode:
             failed.append(f'{name}.cu (exit {proc.returncode}):\n{output}')
             partial.unlink(missing_ok=True)
         else:
+            # The report first, so that a library never stands without it
+            log = partial.with_suffix('.ptxas')
+            log.write_text(output)
+            os.replace(log, missing[name].with_suffix('.ptxas'))
             os.replace(partial, missing[name])
     if failed:
         raise RuntimeError('nvcc failed for ' + '\n'.join(failed))

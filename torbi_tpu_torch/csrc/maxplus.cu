@@ -31,27 +31,30 @@
 // padded rows, so that while one slab is computed the next STAGES - 1 are
 // in flight: across items too, so that product z + 1's loads overlap
 // product z's compute, and z's stores go out from registers while z + 1
-// is computed. Each thread keeps an 8 x 8 tile of running maxima (rows
-// ty + TY i, columns 4 tx + j and 4 TX + 4 tx + j of its group's TY x TX
-// threads) and for each k reads 8 values of a (four k's of a row at once,
-// a's rows being contiguous in k) and 8 of b in 16-byte shared loads: one
-// byte of shared memory a candidate, against two for a 4 x 4 tile. a's
-// staged rows are padded to KD + 4 floats, so that the rows a warp reads
-// at once fall in distinct banks; b's columns are contiguous. The launch
-// bounds hold a thread to 128 registers (64 maxima, 32 of a, 8 of b);
-// ptxas reports no spill. A design may SPLIT each slab's k over several
-// groups of threads, whose maxima meet in shared memory at the tile's end.
-// A tile design is (TY, TX, KD, STAGES, SPLIT); the launch plan
-// (torbi_tpu_torch/ops/associative.py::maxplus_plan) picks one by the
-// work of the busiest SM at the warps it holds, and gives the grid:
-// - the associative modes' products (64^3 at 1 x 32,768 x 64): 64 x 64
-//   tiles of 64 threads, slabs of 16 through a ring of three, 27 KB,
-//   eight CTAs (16 warps) an SM (a whole 64-deep product a stage holds
-//   three CTAs and ran 1.3x slower on an H100);
-// - fewer such products than SMs (the scan's top levels): the same tile
-//   by four groups of 64 threads, each a quarter of every slab of 32;
-// - 1440^3: 144 x 112 tiles of 252 threads, 130 of them, so that one wave
-//   fills the 132 SMs (128 x 128 tiles make 144, two waves: 1.8x slower).
+// is computed. Each of the TY x TX threads keeps an RI x RJ tile of
+// running maxima (rows ty + TY i, columns 4 tx + 4 TX h + j) and for each
+// k reads RI values of a (four k's of a row at once, a's rows being
+// contiguous in k) and RJ of b in 16-byte shared loads: one byte of shared
+// memory a candidate for 8 x 8 maxima, two for 4 x 4. a's staged rows are
+// padded to KD + 4 floats, so that the rows a warp reads at once fall in
+// distinct banks; b's columns are contiguous. The launch bounds hold a
+// thread to REGS registers; ptxas reports no spill. A tile design is (TY,
+// TX, RI, RJ, KD, STAGES, REGS); the launch plan
+// (torbi_tpu_torch/ops/associative.py::maxplus_plan) picks one, and the
+// grid's CTAs an SM, by the time of the busiest SM over its rounds of
+// items (a grid of three CTAs an SM that leaves a last round of one CTA
+// loses to two CTAs an SM):
+// - the associative modes' products (64^3 at 1 x 32,768 x 64, from one
+//   product to 32,768): 64 x 64 tiles of 256 threads, 4 x 4 maxima each,
+//   the whole 64-deep product one stage of a ring of two (66 KB, three
+//   CTAs an SM), the k loop unrolled. On an H100 it matched 8 x 8 maxima
+//   at 16,383 products and beat them below (a 64-thread CTA's chain of
+//   4,096 candidates a thread sets the time of a few products) and with a
+//   broadcast operand;
+// - large products (1440^3): 144 x 112 tiles of 252 threads, 8 x 8 maxima
+//   each, slabs of 32 through a ring of three, 130 tiles, so that one wave
+//   fills the 132 SMs (64 x 64 tiles make 529, two rounds of three CTAs an
+//   SM: 1.25x slower).
 // A broadcast operand (batch stride 0) whose one tile row or column holds
 // the whole product (`resident`) is loaded once per CTA, every slab of
 // it, and stays in shared memory: the time-sharded decode's pre[None] and
@@ -114,25 +117,24 @@ __device__ __forceinline__ void load_slab(float* dst, int dst_stride,
   }
 }
 
-template <int TY, int TX, int KD, int STAGES, int SPLIT>
+template <int TY, int TX, int RI, int RJ, int KD, int STAGES, int REGS>
 struct Tile {
-  static constexpr int kTY = TY, kTX = TX, kDepth = KD;
-  // SPLIT groups of TY x TX threads, each over KD / SPLIT of a slab's k
-  static constexpr int kGroup = TY * TX, kPart = KD / SPLIT;
-  static constexpr int kThreads = SPLIT * kGroup;
-  // Where the groups past the first leave their maxima to be combined
-  static constexpr int kScratch = (SPLIT - 1) * kGroup * 64;
-  static_assert(kPart % 4 == 0, "a group's k come four at a time");
-  static constexpr int kRows = 8 * TY, kCols = 8 * TX;
+  // TY x TX threads, each holding RI x RJ running maxima
+  static constexpr int kTY = TY, kTX = TX, kRI = RI, kRJ = RJ, kDepth = KD;
+  static constexpr int kThreads = TY * TX;
+  static_assert(KD % 4 == 0 && RJ % 4 == 0, "k and columns four at a time");
+  static constexpr int kRows = RI * TY, kCols = RJ * TX;
   static constexpr int kAStride = KD + 4;  // as[row][k], padded
   static constexpr int kBStride = kCols;   // bs[k][col]
   static constexpr int kAFloats = kRows * kAStride;
   static constexpr int kBFloats = KD * kBStride;
-  // At most 128 registers a thread
+  // At most REGS registers a thread
   static constexpr int kMinBlocks =
-      65536 / (128 * ((kThreads + 31) / 32 * 32));
+      65536 / (REGS * ((kThreads + 31) / 32 * 32));
+  // 8 x 8 maxima leave no registers to unroll the k loop
+  static constexpr bool kUnrolled = RI * RJ < 64;
 
-  // A resident operand's `slabs` slabs, the ring, the groups' scratch
+  // A resident operand's `slabs` slabs, then the ring
   static constexpr long long smem_bytes(int resident, int slabs) {
     const long long stage = (resident == 1 ? 0 : kAFloats) +
                             (resident == 2 ? 0 : kBFloats);
@@ -140,22 +142,22 @@ struct Tile {
                            (resident == 1   ? kAFloats
                             : resident == 2 ? kBFloats
                                             : 0);
-    return 4 * (STAGES * stage + held + kScratch);
+    return 4 * (STAGES * stage + held);
   }
 };
 
-// A group's part of one slab: acc[i][j] = max(acc[i][j], a[row_i][k] +
-// b[k][col_j]) over its kPart k's, a's values read four k's at a time
+// One slab: acc[i][j] = max(acc[i][j], a[row_i][k] + b[k][col_j]) over
+// its KD k's, a's values read four k's at a time
 template <class T>
 __device__ __forceinline__ void compute(const float* as, const float* bs,
-                                        float (&acc)[8][8], int ty, int tx) {
+                                        float (&acc)[T::kRI][T::kRJ], int ty,
+                                        int tx) {
   const float* ap = as + ty * T::kAStride;
   const float* bp = bs + 4 * tx;
-#pragma unroll 1
-  for (int kq = 0; kq < T::kPart; kq += 4) {
-    float av[8][4];
+  auto step = [&](int kq) {
+    float av[T::kRI][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < T::kRI; ++i) {
       const float4 v = *reinterpret_cast<const float4*>(
           ap + i * T::kTY * T::kAStride + kq);
       av[i][0] = v.x;
@@ -166,27 +168,40 @@ __device__ __forceinline__ void compute(const float* as, const float* bs,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float* brow = bp + (kq + kk) * T::kBStride;
-      const float4 b0 = *reinterpret_cast<const float4*>(brow);
-      const float4 b1 = *reinterpret_cast<const float4*>(brow + 4 * T::kTX);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float bv[T::kRJ];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int h = 0; h < T::kRJ / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(brow + 4 * T::kTX * h);
+        bv[4 * h] = v.x;
+        bv[4 * h + 1] = v.y;
+        bv[4 * h + 2] = v.z;
+        bv[4 * h + 3] = v.w;
+      }
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+      for (int i = 0; i < T::kRI; ++i)
+#pragma unroll
+        for (int j = 0; j < T::kRJ; ++j)
           acc[i][j] = max_nan(acc[i][j], av[i][kk] + bv[j]);
     }
+  };
+  if constexpr (T::kUnrolled) {
+#pragma unroll
+    for (int kq = 0; kq < T::kDepth; kq += 4) step(kq);
+  } else {
+#pragma unroll 1
+    for (int kq = 0; kq < T::kDepth; kq += 4) step(kq);
   }
 }
 
-template <int TY, int TX, int KD, int STAGES, int SPLIT>
+template <int TY, int TX, int RI, int RJ, int KD, int STAGES, int REGS>
 __global__ void __launch_bounds__(
-    SPLIT * TY * TX, (Tile<TY, TX, KD, STAGES, SPLIT>::kMinBlocks))
+    TY * TX, (Tile<TY, TX, RI, RJ, KD, STAGES, REGS>::kMinBlocks))
     maxplus_kernel(const Problem p) {
-  using T = Tile<TY, TX, KD, STAGES, SPLIT>;
+  using T = Tile<TY, TX, RI, RJ, KD, STAGES, REGS>;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const int group = tid / T::kGroup, member = tid % T::kGroup;
-  const int ty = member / TX, tx = member % TX;
+  const int ty = tid / TX, tx = tid % TX;
   const bool res_a = p.resident == 1, res_b = p.resident == 2;
   // A resident operand's slabs first, then the ring of stages
   float* ring = smem + p.slabs * (res_a   ? T::kAFloats
@@ -202,7 +217,7 @@ __global__ void __launch_bounds__(
   // The walk: iteration it is slab it % slabs of item cta + it / slabs *
   // grid, an item being (product z, first row, first column of its tile).
   // Everything follows from `it`, so that little stays live beside the
-  // 64 maxima
+  // maxima
   auto place = [&](int it, int& z, int& row0, int& col0) {
     const int item = cta + it / p.slabs * grid;
     z = item / per_product;
@@ -244,11 +259,11 @@ __global__ void __launch_bounds__(
     torbi::cp_async_commit();
   }
 
-  float acc[8][8];
+  float acc[RI][RJ];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = torbi::neg_inf();
+    for (int j = 0; j < RJ; ++j) acc[i][j] = torbi::neg_inf();
 
   for (int it = 0; it < iters; ++it) {
     // Slab `it` has landed (this thread's copies; the barrier makes every
@@ -261,43 +276,21 @@ __global__ void __launch_bounds__(
 
     const int slab = it % p.slabs;
     const float* buf = ring + it % STAGES * stage;
-    // Group g takes k's g kPart .. (g + 1) kPart of the slab
-    compute<T>((res_a ? smem + slab * T::kAFloats : buf) + group * T::kPart,
-               (res_b ? smem + slab * T::kBFloats : buf + b_offset) +
-                   group * T::kPart * T::kBStride,
-               acc, ty, tx);
+    compute<T>(res_a ? smem + slab * T::kAFloats : buf,
+               res_b ? smem + slab * T::kBFloats : buf + b_offset, acc, ty,
+               tx);
 
     if (slab + 1 == p.slabs) {
-      if constexpr (SPLIT > 1) {
-        // The first group takes the maximum of every group's maxima (the
-        // order does not matter, and max.NaN keeps a NaN); the barrier at
-        // the next slab keeps the scratch until it has read it
-        float* scratch = ring + STAGES * stage + member;
-        if (group > 0) {
-#pragma unroll
-          for (int e = 0; e < 64; ++e)
-            scratch[((group - 1) * 64 + e) * T::kGroup] = acc[e / 8][e % 8];
-        }
-        __syncthreads();
-        if (group == 0) {
-#pragma unroll 1
-          for (int g = 0; g < SPLIT - 1; ++g)
-#pragma unroll
-            for (int e = 0; e < 64; ++e)
-              acc[e / 8][e % 8] = max_nan(acc[e / 8][e % 8],
-                                          scratch[(g * 64 + e) * T::kGroup]);
-        }
-      }
       int z, row0, col0;
       place(it, z, row0, col0);
       float* oz = p.out + static_cast<long long>(z) * p.m * p.n;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int row = row0 + ty + TY * i;
-        if (group == 0 && row < p.m) {
+        if (row < p.m) {
           float* o = oz + static_cast<long long>(row) * p.n;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
+          for (int h = 0; h < RJ / 4; ++h) {
             const int col = col0 + 4 * tx + 4 * TX * h;
             if (p.n % 4 == 0 && col + 3 < p.n) {
               *reinterpret_cast<float4*>(o + col) =
@@ -311,7 +304,7 @@ __global__ void __launch_bounds__(
           }
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = torbi::neg_inf();
+        for (int j = 0; j < RJ; ++j) acc[i][j] = torbi::neg_inf();
       }
     }
   }
@@ -319,26 +312,21 @@ __global__ void __launch_bounds__(
 }
 
 // The tile designs, in the order of ops/associative.py::MAXPLUS_TILES:
-// (TY, TX, KD, STAGES, SPLIT)
+// (TY, TX, RI, RJ, KD, STAGES, REGS)
+#define TORBI_TILE(...) \
+  f(Tile<__VA_ARGS__>{}, maxplus_kernel<__VA_ARGS__>)
 template <class F>
 cudaError_t with_tile(int tile, F&& f) {
   switch (tile) {
     case 0:
-      return f(Tile<8, 8, 16, 3, 1>{}, maxplus_kernel<8, 8, 16, 3, 1>);
+      return TORBI_TILE(16, 16, 4, 4, 64, 2, 80);
     case 1:
-      return f(Tile<18, 14, 32, 3, 1>{}, maxplus_kernel<18, 14, 32, 3, 1>);
-    case 2:
-      return f(Tile<8, 8, 32, 2, 4>{}, maxplus_kernel<8, 8, 32, 2, 4>);
-    case 3:
-      return f(Tile<8, 8, 64, 2, 1>{}, maxplus_kernel<8, 8, 64, 2, 1>);
-    case 4:
-      return f(Tile<8, 8, 32, 2, 1>{}, maxplus_kernel<8, 8, 32, 2, 1>);
-    case 5:
-      return f(Tile<16, 16, 32, 3, 1>{}, maxplus_kernel<16, 16, 32, 3, 1>);
+      return TORBI_TILE(18, 14, 8, 8, 32, 3, 128);
     default:
       return cudaErrorInvalidValue;
   }
 }
+#undef TORBI_TILE
 
 // Allow `bytes` of dynamic shared memory for tile design T's kernel (one
 // static per design), once per size

@@ -29,34 +29,23 @@ from .backtrace import backtrace_posteriors
 from .dense import _sms
 
 # K8's tile designs (csrc/maxplus.cu, with_tile, in this order): (ty, tx,
-# kd, stages, split): TY x TX threads of 8 x 8 running maxima each, an
-# (8 TY) x (8 TX) output tile; k in slabs of KD through a ring of STAGES
-# shared-memory buffers; SPLIT such groups of threads, each over a part of
-# every slab's k, their maxima combined at the tile's end
+# ri, rj, kd, stages, registers): TY x TX threads of RI x RJ running
+# maxima each, an (RI TY) x (RJ TX) output tile; k in slabs of KD through a
+# ring of STAGES shared-memory buffers; at most REGISTERS a thread
 MAXPLUS_TILES = (
-    (8, 8, 16, 3, 1),     # 64 x 64, eight CTAs an SM
-    (18, 14, 32, 3, 1),   # 144 x 112: 130 tiles at 1440^3, one wave
-    (8, 8, 32, 2, 4),     # 64 x 64 by 8 warps: a few products
-    (8, 8, 64, 2, 1),     # a whole 64-deep product a stage, three CTAs an SM
-    (8, 8, 32, 2, 1),     # 64 x 64, six CTAs an SM
-    (16, 16, 32, 3, 1),   # 128 x 128: 144 tiles at 1440^3, two waves
+    (16, 16, 4, 4, 64, 2, 80),    # 64 x 64, a 64-deep product a stage
+    (18, 14, 8, 8, 32, 3, 128),   # 144 x 112: 130 tiles at 1440^3, one wave
 )
-# The designs the plan picks from (the others are kept to be timed beside
-# them, scripts/modes_timing.py --designs)
-MAXPLUS_PLANNED = (0, 1, 2)
-# The plan's model of an SM: its rate grows with the warps it holds up to
-# FULL_RATE_WARPS; combining a split design's groups costs it
-# SPLIT_COST of its candidates' time (three 16 KB passes through shared
-# memory a 64 x 64 tile, against its 262,144 candidates)
-FULL_RATE_WARPS = 4
-SPLIT_COST = 1.125
+# The plan's model of an SM: its rate grows with the running maxima its
+# CTAs hold up to FULL_RATE_MAXIMA (16 warps of 4 x 4 maxima; one CTA of
+# the 144 x 112 design holds 16,128), fitted to K8's times on an H100
+FULL_RATE_MAXIMA = 8192
 SM_SMEM_BYTES = 233472       # an SM's shared memory (228 KB)
 BLOCK_SMEM_BYTES = 232448    # a CTA's most
 CTA_SMEM_RESERVED = 1024     # the runtime's own share of each CTA's
 SM_THREADS = 2048
 SM_CTAS = 32
 SM_REGISTERS = 65536
-THREAD_REGISTERS = 128       # K8's launch bounds
 
 
 def maxplus_matmul_reference(a, b):
@@ -79,27 +68,26 @@ def maxplus_layout(tile, resident=None, slabs=1):
     """Shared memory and occupancy of K8's tile design ``tile`` (an index
     of MAXPLUS_TILES), as csrc/maxplus.cu lays it out: a ring of
     ``stages`` slabs, a's (rows x (kd + 4) floats, rows padded) and b's (kd
-    x cols), the ``resident`` operand ('a', 'b' or None), all its
-    ``slabs`` slabs, before the ring, and after it the split groups'
-    scratch (64 floats a thread of each group past the first). Returns a
-    dict: rows, cols, depth, stages, split, threads, smem_bytes,
+    x cols), with the ``resident`` operand ('a', 'b' or None), all its
+    ``slabs`` slabs, before the ring; a thread holds at most the design's
+    ``registers`` (the kernel's launch bounds). Returns a
+    dict: rows, cols, depth, stages, threads, registers, smem_bytes,
     ctas_per_sm (the CTAs an SM holds at once by shared memory, threads
     and registers; 0 if none) and fits (within a CTA's shared memory)."""
-    ty, tx, depth, stages, split = MAXPLUS_TILES[tile]
-    rows, cols = 8 * ty, 8 * tx
+    ty, tx, ri, rj, depth, stages, registers = MAXPLUS_TILES[tile]
+    rows, cols = ri * ty, rj * tx
     a_floats, b_floats = rows * (depth + 4), depth * cols
     stage = ((0 if resident == 'a' else a_floats)
              + (0 if resident == 'b' else b_floats))
     held = slabs * {'a': a_floats, 'b': b_floats}.get(resident, 0)
-    scratch = (split - 1) * ty * tx * 64
-    smem = 4 * (stages * stage + held + scratch)
-    threads = split * ty * tx
+    smem = 4 * (stages * stage + held)
+    threads = ty * tx
     warp_threads = -(-threads // 32) * 32
     ctas = min(SM_SMEM_BYTES // (smem + CTA_SMEM_RESERVED),
                SM_THREADS // warp_threads,
-               SM_REGISTERS // (warp_threads * THREAD_REGISTERS), SM_CTAS)
+               SM_REGISTERS // (warp_threads * registers), SM_CTAS)
     return {'rows': rows, 'cols': cols, 'depth': depth, 'stages': stages,
-            'split': split, 'threads': threads, 'smem_bytes': smem,
+            'threads': threads, 'registers': registers, 'smem_bytes': smem,
             'ctas_per_sm': ctas, 'fits': smem <= BLOCK_SMEM_BYTES}
 
 
@@ -123,10 +111,12 @@ def maxplus_tile_plan(tile, batch, m, k, n, a_batch, a_row, b_batch, b_row,
     whole product one tile row or column holds is ``resident`` ('a' or
     'b'), all its slabs, where they fit beside the ring.
     ``vec_a``, ``vec_b``: 16-byte copies (every row starts on 16 bytes),
-    else 4-byte ones. ``cost``: the candidates (padding included) of the
-    busiest SM, its CTAs times their items, over its rate at the warps it
-    holds (FULL_RATE_WARPS), a split design's by SPLIT_COST. Returns a
-    dict of these with maxplus_layout's."""
+    else 4-byte ones. ``cost``: the time of the busiest SM in candidates
+    (padding included): its CTAs' items in ``rounds``, each round its CTAs
+    at the SM's rate (FULL_RATE_MAXIMA). ``grid``: of the grids of one
+    CTA an SM up to as many as an SM holds, the one of least cost (the
+    larger on ties): a grid of fewer CTAs an SM can take fewer rounds.
+    Returns a dict of these with maxplus_layout's."""
     layout = maxplus_layout(tile)
     rows, cols, depth = layout['rows'], layout['cols'], layout['depth']
     tiles_m, tiles_n = -(-m // rows), -(-n // cols)
@@ -140,36 +130,41 @@ def maxplus_tile_plan(tile, batch, m, k, n, a_batch, a_row, b_batch, b_row,
                 resident, layout = operand, held
                 break
     items = batch * tiles_m * tiles_n
-    grid = min(items, sms * layout['ctas_per_sm'])
-    ctas = -(-grid // sms)
-    warps = ctas * -(-layout['threads'] // 32)
-    cost = (ctas * -(-items // grid) * rows * cols * slabs * depth
-            * (SPLIT_COST if layout['split'] > 1 else 1)
-            / min(1, warps / FULL_RATE_WARPS))
+    ty, tx, ri, rj = MAXPLUS_TILES[tile][:4]
+    # A CTA's share of the SM's rate, and one item's candidates
+    share = FULL_RATE_MAXIMA / (ty * tx * ri * rj)
+    candidates = rows * cols * slabs * depth
+    cost = None
+    for per_sm in range(layout['ctas_per_sm'], 0, -1):
+        option = min(items, sms * per_sm)
+        ctas = -(-option // sms)
+        option_cost = -(-items // option) * candidates * max(ctas, share)
+        if cost is None or option_cost < cost:
+            grid, cost = option, option_cost
     return {**layout, 'tile': tile, 'tiles_m': tiles_m, 'tiles_n': tiles_n,
             'slabs': slabs, 'items': items, 'grid': grid,
-            'resident': resident,
+            'rounds': -(-items // grid), 'resident': resident,
             'vec_a': _aligned(a_address, batch, a_batch, m, a_row),
             'vec_b': _aligned(b_address, batch, b_batch, k, b_row),
             'cost': cost}
 
 
 def maxplus_plan(batch, m, k, n, a_batch, a_row, b_batch, b_row,
-                 a_address=0, b_address=0, sms=132, tiles=MAXPLUS_PLANNED):
-    """K8's launch plan: of ``maxplus_tile_plan`` for each design of
-    ``tiles``, the one of least cost (the first on ties). Plans are
-    cached by shape, strides and alignment (a scan launches the same few
-    shapes many times); the returned dict is shared, not to be changed."""
+                 a_address=0, b_address=0, sms=132):
+    """K8's launch plan: of ``maxplus_tile_plan`` for each tile design,
+    the one of least cost (the first on ties). Plans are cached by shape,
+    strides and alignment (a scan launches the same few shapes many
+    times); the returned dict is shared, not to be changed."""
     return _cached_plan(batch, m, k, n, a_batch, a_row, b_batch, b_row,
-                        a_address % 16, b_address % 16, sms, tuple(tiles))
+                        a_address % 16, b_address % 16, sms)
 
 
 @functools.lru_cache(maxsize=4096)
 def _cached_plan(batch, m, k, n, a_batch, a_row, b_batch, b_row, a_address,
-                 b_address, sms, tiles):
+                 b_address, sms):
     plans = [maxplus_tile_plan(tile, batch, m, k, n, a_batch, a_row,
                                b_batch, b_row, a_address, b_address, sms)
-             for tile in tiles]
+             for tile in range(len(MAXPLUS_TILES))]
     return min(plans, key=lambda plan: plan['cost'])
 
 
@@ -183,9 +178,9 @@ def _batched(x, lead, rows, cols):
     return x
 
 
-def maxplus_matmul(a, b, tiles=MAXPLUS_PLANNED):
+def maxplus_matmul(a, b):
     """The (max, +) matrix product: K8 (csrc/maxplus.cu) on CUDA tensors,
-    launched by ``maxplus_plan`` over the tile designs ``tiles``;
+    launched by ``maxplus_plan``;
     ``maxplus_matmul_reference`` on CPU tensors. Arguments and result as
     there; the operands may be strided views (a batch stride of 0
     broadcasts). Counts one launch per call on the card (none for an empty
@@ -213,7 +208,7 @@ def maxplus_matmul(a, b, tiles=MAXPLUS_PLANNED):
     b3 = _batched(b, lead, k, n)
     plan = maxplus_plan(
         batch, m, k, n, a3.stride(0), a3.stride(1), b3.stride(0),
-        b3.stride(1), a3.data_ptr(), b3.data_ptr(), _sms(device), tiles)
+        b3.stride(1), a3.data_ptr(), b3.data_ptr(), _sms(device))
     lib = _library()
     with torch.cuda.device(device):
         code = lib.maxplus_matmul(

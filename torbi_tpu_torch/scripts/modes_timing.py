@@ -4,15 +4,13 @@ at the shapes of chip_smoke.py, with the routes that run them.
     python -m torbi_tpu_torch.scripts.modes_timing
         [--parts k8,routes,launches,k7]
         [--frames 32768] [--states 64] [--single 10240] [--batch 512]
-        [--batch-frames 512] [--big 1440] [--designs 0,1,2]
-        [--device cuda]
+        [--batch-frames 512] [--big 1440] [--device cuda]
 
 - ``k8``: K8 at the associative scan's first level of one sequence of
   ``--frames`` x ``--states`` (``log(Dirichlet(0.3) + tiny)`` under a
   random dense transition, seed 31, as chip_smoke.py's modes phase) and
   on one ``--big`` cubed product (CUDA events, mean of 5), each beside its
-  bound; ``--designs`` also times each of those tile designs
-  (``ops.associative.MAXPLUS_TILES``) in the plan's place;
+  bound;
 - ``routes``: the time-sharded route (``backend='timesharded'`` through
   ``from_probabilities`` over a one-rank NCCL group) and the associative
   route (``viterbi_decode_scan``) on that sequence: ms a call (host clock,
@@ -22,8 +20,7 @@ at the shapes of chip_smoke.py, with the routes that run them.
 - ``launches``: each K8 launch of one time-sharded call on that sequence,
   replayed alone on its own operands, 5 calls captured in a CUDA graph
   and replayed 4 times: K8's time on the card without the host's work,
-  launch by launch (its batch, and which operand is broadcast), and with
-  ``--designs`` the same for each tile design;
+  launch by launch (its batch, and which operand is broadcast);
 - ``k7``: K7 on random frame maxima at 1 x ``--single`` (whole and cut at
   7000) and at ``--batch`` x ``--batch-frames`` with chip_smoke.py's ragged
   lengths (seed 11): per call through the wrapper (CUDA events, mean of
@@ -146,6 +143,45 @@ def product_work(a, b):
     return moved, 2 * batch * m * k * n
 
 
+def share(fn):
+    """K8's share of one call of ``fn``: ``k8_ms``, its launches' time on
+    the card (CUDA events around each, the card's waits on the host
+    included), ``k8_launches``, and the ``bytes`` and ``operations`` of
+    those launches (``product_work`` of each, summed)"""
+    from ..ops import associative
+
+    real = associative.maxplus_matmul
+    marks, work = [], [0, 0, 0]
+
+    def timed(a, b):
+        events = None
+        if a.device.type == 'cuda':
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        out = real(a, b)
+        if events:
+            events[1].record()
+            marks.append(events)
+        # An empty product launches nothing
+        if out.numel():
+            work[:] = (w + x for w, x in zip(
+                work, (*product_work(a, b), 1)))
+        return out
+
+    # The kernel's own count goes to the stand-in while it stands in
+    timed.launches = 0
+    associative.maxplus_matmul = timed
+    try:
+        fn()
+    finally:
+        associative.maxplus_matmul = real
+    if marks:
+        torch.cuda.synchronize()
+    return {'k8_ms': sum(start.elapsed_time(stop) for start, stop in marks),
+            'k8_launches': work[2], 'bytes': work[0], 'operations': work[1]}
+
+
 def modes_inputs(frames, states, device):
     rng = np.random.default_rng(31)
     obs = np.log(rng.dirichlet(np.full(states, 0.3), size=frames)
@@ -167,25 +203,20 @@ def time_k8(args, device, sms, clock_hz):
              * 10).to(device)
     big_b = (torch.randn((args.big, args.big), generator=generator)
              * 10).to(device)
-    designs = [int(x) for x in args.designs.split(',') if x]
     result = {}
     for label, a, b in (('level', first_a, first_b), ('big', big_a, big_b)):
-        result[label] = {'shape': [*a.shape, b.shape[-1]],
+        def call():
+            return associative.maxplus_matmul(a, b)
+
+        if device.type == 'cuda':
+            ms = cuda_ms(call, 5)
+        else:
+            start = time.perf_counter()
+            call()
+            ms = (time.perf_counter() - start) * 1e3
+        result[label] = {'shape': [*a.shape, b.shape[-1]], 'ms': ms,
                          'bound_ms': bound_ms(*product_work(a, b), sms,
                                               clock_hz)}
-        for design in [None, *designs]:
-            kwargs = {} if design is None else {'tiles': (design,)}
-
-            def call():
-                return associative.maxplus_matmul(a, b, **kwargs)
-
-            if device.type == 'cuda':
-                ms = cuda_ms(call, 5)
-            else:
-                start = time.perf_counter()
-                call()
-                ms = (time.perf_counter() - start) * 1e3
-            result[label]['ms' if design is None else f'design_{design}'] = ms
     return result
 
 
@@ -215,36 +246,6 @@ def time_routes(args, device, sms, clock_hz):
         converted = dispatch.convert(obs, True, True).contiguous()
         return associative.viterbi_decode_scan(converted, trans, init)
 
-    def share(fn):
-        """K8's ms in one call of ``fn`` (CUDA events around each launch),
-        its launches, and the bound of those launches"""
-        real = associative.maxplus_matmul
-        marks, work = [], [0, 0, 0]
-
-        def timed(a, b):
-            work[:] = (w + x for w, x in zip(
-                work, (*product_work(a, b), 1)))
-            if device.type != 'cuda':
-                return real(a, b)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = real(a, b)
-            stop.record()
-            marks.append((start, stop))
-            return out
-
-        timed.launches = 0
-        associative.maxplus_matmul = timed
-        try:
-            fn()
-        finally:
-            associative.maxplus_matmul = real
-        sync()
-        return {'k8_ms': sum(a.elapsed_time(b) for a, b in marks),
-                'k8_launches': work[2],
-                'k8_bound_ms': bound_ms(*work[:2], sms, clock_hz)}
-
     result = {}
     backend = 'nccl' if device.type == 'cuda' else 'gloo'
     dist.init_process_group(
@@ -256,6 +257,9 @@ def time_routes(args, device, sms, clock_hz):
     finally:
         dist.destroy_process_group()
     result['associative'] = {'ms': host_ms(scan, 3, sync), **share(scan)}
+    for route in result.values():
+        route['k8_bound_ms'] = bound_ms(route['bytes'], route['operations'],
+                                        sms, clock_hz)
     return result
 
 
@@ -289,20 +293,16 @@ def time_launches(args, device, sms, clock_hz):
     finally:
         associative.maxplus_matmul = real
         dist.destroy_process_group()
-    designs = [None] + [int(x) for x in args.designs.split(',') if x]
-    rows, total = [], {}
+    rows, total = [], 0.
     for a, b in launches:
         batch = int(np.prod(torch.broadcast_shapes(a.shape[:-2],
                                                    b.shape[:-2])))
         row = {'batch': batch, 'broadcast': ''.join(
             name for name, x in (('a', a), ('b', b))
             if batch > 1 and distinct(x) == 1)}
-        for design in designs:
-            kwargs = {} if design is None else {'tiles': (design,)}
-            key = 'ms' if design is None else f'design_{design}'
-            if device.type == 'cuda':
-                row[key] = graph_ms(lambda: real(a, b, **kwargs), 5, 4)
-                total[key] = total.get(key, 0.) + row[key]
+        if device.type == 'cuda':
+            row['ms'] = graph_ms(lambda: real(a, b), 5, 4)
+            total += row['ms']
         rows.append(row)
     return {'launches': len(rows), 'total_ms': total, 'each': rows}
 
@@ -376,7 +376,6 @@ def main(argv=None):
     parser.add_argument('--batch', type=int, default=512)
     parser.add_argument('--batch-frames', type=int, default=512)
     parser.add_argument('--big', type=int, default=1440)
-    parser.add_argument('--designs', default='')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
     device = torch.device(args.device)
