@@ -141,6 +141,17 @@ just after each:
   headline (a matrix product a frame, then K3, bitwise its plain version
   on the lse posteriors), unchanged under TF32 matmul precision, its
   first rows the CPU's lse paths, its RPA against the exact path;
+- the batch scale-out (``scaleout_phase``): two rank processes sharing
+  the card in a gloo world (``python chip_smoke.py --scaleout-rank``, each
+  making its inputs from the seeds and reading its own launch counters):
+  the headline through ``parallel.decode_sharded`` (256 rows a rank, K1's
+  cluster design then K3; also 509 rows), the dense 8 x 64 batch (K2, K3),
+  ``parallel.files.from_files_to_files`` on the 64-file corpus and the
+  evaluation harness on the 24-file ``synthdaps`` corpus, each bitwise (the
+  evaluation: its RPA and frames) the single-process run, the files' shares
+  the partition of ``shard_files_balanced``, the results written once; a
+  world of one over NCCL; ``scripts/scaling.py --mode overhead`` with one
+  and two ranks at 512 x 512 x 1440;
 - the profiler (``utils/profile.py``): the stage times of the headline and
   of the batch-1 serial route, and one headline call under
   ``torch.profiler`` with its top device ops and the device's idle share.
@@ -210,6 +221,13 @@ EVAL_SEEDS = {'synthdaps': 11, 'synthvctk': 7011}
 EVAL_FILES = 24
 # The cross-route soak through the kernels
 SOAK_CASES, SOAK_SEED = 240, 20261017
+# The batch scale-out: a gloo world of SCALEOUT_RANKS rank processes on
+# the card, the headline split whole and at SCALEOUT_UNEVEN rows, the
+# evaluation split on one of the smoke's corpora; seconds the ranks and the
+# scaling script may take
+SCALEOUT_RANKS, SCALEOUT_UNEVEN = 2, 509
+SCALEOUT_DATASET = 'synthdaps'
+SCALEOUT_TIMEOUT = 600
 # Rows of the uniform path at the headline's shape held against the scan
 UNIFORM_SCAN_ROWS = 16
 # The extra decode modes: the time-sharded and associative routes at one
@@ -1574,6 +1592,440 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
     return entry, ts_counts, lse_counts
 
 
+def decode_counters():
+    """The launch counters of the decode kernels (the wrappers themselves)"""
+    from torbi_tpu_torch.ops import (
+        associative, backtrace, band, constant, dense)
+
+    return {
+        'band_forward': band.viterbi_forward_band,
+        'band_forward_wide': band.viterbi_forward_band_wide,
+        'band_spread': band.viterbi_forward_band_spread,
+        'dense_forward': dense.viterbi_forward_dense,
+        'backtrace': backtrace.backtrace_posteriors,
+        'backtrace_pointers': backtrace.backtrace_pointers,
+        'chase_pointers': backtrace.chase_pointers,
+        'backtrace_window': backtrace.backtrace_window,
+        'constant_recurrence': constant.recurrence,
+        'maxplus_matmul': associative.maxplus_matmul,
+    }
+
+
+def mps_running():
+    """Whether a CUDA MPS control or server process runs on this machine
+    (ranks under MPS share the SMs; without it they time-slice the card)"""
+    for comm in Path('/proc').glob('*/comm'):
+        try:
+            if comm.read_text().startswith('nvidia-cuda-mps'):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def scaleout_rank(rank, world, port, workdir):
+    """One rank of ``scaleout_phase``'s gloo world, a process of its own on
+    the device that ``workdir/spec.json`` names: the headline split (whole
+    and uneven) and the dense split through ``decode_sharded``, the file
+    split and the evaluation split, each with this rank's launch counters
+    and calls of the plain versions set to 0 just before and read just
+    after. It makes its inputs from the seeds and writes its gathered
+    paths (``.npy``) and a JSON summary into ``workdir``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import torbi_tpu_torch
+    from torbi_tpu_torch.data import native
+    from torbi_tpu_torch.evaluate import core
+    from torbi_tpu_torch.models import pitch
+    from torbi_tpu_torch.ops import backtrace, band, dense, dispatch
+    from torbi_tpu_torch.parallel import decode_sharded, files
+    from torbi_tpu_torch.parallel.sharded import slice_rows
+    from torbi_tpu_torch.scripts import eval_synth
+
+    workdir = Path(workdir)
+    spec = json.loads((workdir / 'spec.json').read_text())
+    device = torch.device(spec['device'])
+    cuda = device.type == 'cuda'
+    if cuda:
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        'gloo', init_method=f'tcp://127.0.0.1:{port}', world_size=world,
+        rank=rank)
+
+    def say(message):
+        print(f'[smoke rank {rank}] {message}', flush=True)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    counters = decode_counters()
+    # The plain versions the wrappers of K1, K2 and K3 fall back to on CPU
+    # tensors, counted where they are looked up
+    plain_calls = {}
+    for module, name in ((band, 'band_forward_reference'),
+                         (dense, 'dense_forward_reference'),
+                         (backtrace, 'backtrace_reference')):
+        def counted(*args, _real=getattr(module, name), _name=name,
+                    **kwargs):
+            plain_calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        plain_calls[name] = 0
+        setattr(module, name, counted)
+
+    def run(label, fn):
+        for counter in counters.values():
+            counter.launches = 0
+        plain_calls.update(dict.fromkeys(plain_calls, 0))
+        sync()
+        out = fn()
+        sync()
+        launches = {name: counter.launches
+                    for name, counter in counters.items()}
+        say(f'{label}: launches {launches}, plain versions {plain_calls}')
+        return out, {'launches': launches, 'plain': dict(plain_calls)}
+
+    try:
+        summary = {'rank': rank}
+        batch, frames, states = spec['headline']
+        start, stop = slice_rows(batch, world, rank)
+        # What the main path hands the kernels: the epsilon step applied
+        obs = dispatch.convert(torch.from_numpy(
+            pitch.synthetic_posteriorgrams(batch, frames, states)).to(device),
+            True, True).contiguous()
+        trans = torch.from_numpy(np.log(
+            pitch.transition_matrix() + TINY).astype(np.float32)).to(device)
+        init = torch.from_numpy(np.log(
+            np.full(states, 1.0 / states, np.float32) + TINY)).to(device)
+        bf = torch.full((batch,), frames, dtype=torch.int32, device=device)
+
+        def headline(rows=batch):
+            return decode_sharded(obs[:rows], bf[:rows], trans, init,
+                                  finite_observation=True, device=device)
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        path, summary['headline'] = run(
+            f'headline split, rows {start}-{stop} of {batch}', headline)
+        np.save(workdir / f'headline_rank{rank}.npy', path.cpu().numpy())
+        times = []
+        for _ in range(5):
+            dist.barrier()
+            sync()
+            begin = time.perf_counter()
+            headline()
+            sync()
+            times.append((time.perf_counter() - begin) * 1e3)
+        summary['headline']['ms'] = statistics.median(times)
+        if cuda:
+            width = band.detect_band(trans)[1]
+            resident = {
+                size: band.resident_clusters(states, width, size, device)
+                for size in band.cluster_sizes(states, width)}
+            summary['headline'].update(
+                plan=band.cluster_plan(stop - start, states, width,
+                                       resident.get),
+                peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        uneven = spec['uneven']
+        path, summary['uneven'] = run(
+            f'headline split, {uneven} rows (uneven)',
+            lambda: headline(uneven))
+        np.save(workdir / f'uneven_rank{rank}.npy', path.cpu().numpy())
+        del obs, path
+
+        # The dense batch of the main process, from its seed
+        rng = np.random.default_rng(1)
+        dense_batch, dense_frames = spec['dense']
+        dense_obs = dispatch.convert(torch.from_numpy(np.log(
+            rng.dirichlet(np.ones(states), size=(dense_batch, dense_frames))
+            .astype(np.float32) + TINY).astype(np.float32)).to(device),
+            True, True).contiguous()
+        dense_trans = torch.from_numpy(np.log(
+            rng.dirichlet(np.ones(states), size=states).astype(np.float32)
+            + TINY).astype(np.float32)).to(device)
+        dense_bf = torch.tensor(
+            [dense_frames] * (dense_batch - 2) + [dense_frames // 2, 1],
+            dtype=torch.int32, device=device)
+        path, summary['dense'] = run(
+            f'dense split, {dense_batch} x {dense_frames} x {states}',
+            lambda: decode_sharded(dense_obs, dense_bf, dense_trans, init,
+                                   finite_observation=True, device=device))
+        np.save(workdir / f'dense_rank{rank}.npy', path.cpu().numpy())
+
+        native.counts.update(filled=0, fallback=0)
+        _, summary['files'] = run(
+            f'file split, {len(spec["files"])} files',
+            lambda: files.from_files_to_files(
+                spec['files'], spec['files_split'],
+                transition_file=spec['files_transition'], log_probs=True,
+                gpu=spec['gpu']))
+        summary['files'].update(
+            share=files.shard_files_balanced(
+                spec['files'], spec['files_split'])[0],
+            native=dict(native.counts))
+
+        eval_synth.configure(Path(spec['eval_workdir']), spec['eval_config'],
+                             [spec['eval_dataset']], spec['eval_files'])
+        writes = []
+        real_write = core._write
+
+        def write(results):
+            writes.append(1)
+            real_write(results)
+
+        core._write = write
+        results, summary['evaluation'] = run(
+            f'evaluation split, {spec["eval_dataset"]}',
+            lambda: torbi_tpu_torch.evaluate.datasets(
+                [spec['eval_dataset']], gpu=spec['gpu'], num_threads=1))
+        summary['evaluation'].update(results=results, writes=len(writes))
+        (workdir / f'rank{rank}.json').write_text(json.dumps(summary))
+    finally:
+        dist.destroy_process_group()
+
+
+def scaleout_phase(torch, device, card, headline, exact_path, dense_path,
+                   eval_single, reset_counts, read_counts):
+    """The batch scale-out on one card (``parallel``): a gloo world of
+    SCALEOUT_RANKS rank processes sharing ``device`` (NCCL takes no two
+    ranks of one device), each a ``python chip_smoke.py --scaleout-rank``
+    that makes its inputs from the seeds (``scaleout_rank``):
+
+    1. the headline through ``decode_sharded`` (256 rows a rank: K1's
+       cluster design, then K3) and SCALEOUT_UNEVEN rows (uneven), each
+       rank's gathered path bitwise ``exact_path``, this process's
+       headline path (its first rows), each rank launching K1 and K3 and no
+       plain version;
+    2. the dense batch of ``dense_path`` (K2 and K3 in each rank, K2's
+       cooperative launch under two contexts), bitwise;
+    3. ``parallel.files.from_files_to_files`` on file_path_phase's corpus
+       (regenerated): the shares disjoint, covering the corpus, equal to
+       ``shard_files_balanced``'s partition, every output bitwise this
+       process's ``from_files_to_files``, each rank's native loader filling
+       every batch with no fallback;
+    4. the evaluation harness over both ranks on evaluation_phase's
+       SCALEOUT_DATASET corpus: the aggregated RPA and frames equal
+       ``eval_single``'s, the results file written once, by rank 0.
+
+    Then a world of one over NCCL in this process (the gather on the
+    card), bitwise ``exact_path``, and ``scripts.scaling --mode overhead``
+    with one and two ranks at BATCH x FRAMES x STATES pitch. Returns each
+    rank's launches of K1, K2 and K3 per part. ``device`` is the card (or,
+    to rehearse the phase's logic, the CPU, with gloo for the world of
+    one)."""
+    import torch.distributed as dist
+
+    import torbi_tpu_torch
+    from torbi_tpu_torch import bench
+    from torbi_tpu_torch.ops import dispatch
+    from torbi_tpu_torch.parallel import decode_sharded, files
+    from torbi_tpu_torch.scripts.modes_timing import free_port, run_ranks
+
+    cuda = device.type == 'cuda'
+    gpu = None if cuda else 'cpu'
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        # The ranks share the card with this process's cached blocks
+        torch.cuda.empty_cache()
+    workdir = ROOT / 'build' / 'smoke_scaleout'
+    shutil.rmtree(workdir, ignore_errors=True)
+    (workdir / 'files').mkdir(parents=True)
+    lengths = np.random.default_rng(FILE_SEED).integers(
+        400, 1600, size=FILE_COUNT)
+    inputs, outputs, trans_path = bench.write_corpus(
+        str(workdir / 'files'), lengths, STATES)
+    split = [path.replace('_out', '_split') for path in outputs]
+    torbi_tpu_torch.from_files_to_files(
+        inputs, outputs, transition_file=trans_path, log_probs=True,
+        gpu=device)
+    eval_config = 'synth-smoke-scaleout'
+    eval_dir = ROOT / 'build' / 'smoke_eval' / 'eval'
+    (eval_dir / f'{eval_config}.json').unlink(missing_ok=True)
+    obs, trans, init, bf = headline
+    spec = {
+        'device': str(device), 'gpu': gpu,
+        'headline': [int(obs.shape[0]), int(obs.shape[1]), STATES],
+        'uneven': SCALEOUT_UNEVEN, 'dense': [DENSE_BATCH, DENSE_FRAMES],
+        'files': inputs, 'files_split': split, 'files_transition': trans_path,
+        'eval_workdir': str(ROOT / 'build' / 'smoke_eval'),
+        'eval_config': eval_config, 'eval_dataset': SCALEOUT_DATASET,
+        'eval_files': EVAL_FILES}
+    (workdir / 'spec.json').write_text(json.dumps(spec))
+    info(f'scale-out: MPS {"on" if mps_running() else "off"}; '
+         f'{SCALEOUT_RANKS} rank processes on {device} in a gloo world')
+
+    begin = time.perf_counter()
+    try:
+        texts = run_ranks(
+            lambda rank, port: [
+                sys.executable, str(Path(__file__).resolve()),
+                '--scaleout-rank', str(rank), str(SCALEOUT_RANKS), str(port),
+                str(workdir)],
+            SCALEOUT_RANKS, SCALEOUT_TIMEOUT,
+            env=dict(GLOO_SOCKET_IFNAME='lo'), cwd=ROOT)
+    except RuntimeError as error:
+        fail(f'scale-out ranks failed: {error}')
+    for text in texts:
+        for line in text.splitlines():
+            if line.startswith('[smoke rank'):
+                print(line, flush=True)
+    ranks = [json.loads((workdir / f'rank{rank}.json').read_text())
+             for rank in range(SCALEOUT_RANKS)]
+    info(f'scale-out: the {SCALEOUT_RANKS} ranks ran in '
+         f'{time.perf_counter() - begin:.1f} s')
+
+    def require_kernels(part, names, absent=()):
+        for rank, summary in enumerate(ranks):
+            launches = summary[part]['launches']
+            plain = summary[part]['plain']
+            if cuda and (any(launches[name] < 1 for name in names)
+                         or any(launches[name] for name in absent)
+                         or any(plain.values())):
+                fail(f'scale-out {part}, rank {rank}: launches {launches}, '
+                     f'plain versions {plain}; expected {names} launched, '
+                     f'{list(absent)} not, and no plain version')
+
+    def require_path(part, expected):
+        for rank in range(SCALEOUT_RANKS):
+            got = np.load(workdir / f'{part}_rank{rank}.npy')
+            if got.dtype != np.int32 or not np.array_equal(got, expected):
+                fail(f'scale-out {part}, rank {rank}: the gathered path '
+                     'differs from the single-process path (tolerance: '
+                     'bitwise)')
+
+    exact = exact_path.cpu().numpy()
+    require_path('headline', exact)
+    require_path('uneven', exact[:SCALEOUT_UNEVEN])
+    require_kernels('headline', ('band_forward', 'backtrace'),
+                    ('band_forward_wide', 'dense_forward'))
+    require_kernels('uneven', ('band_forward', 'backtrace'),
+                    ('band_forward_wide', 'dense_forward'))
+    for summary in ranks:
+        part = summary['headline']
+        info(f'scale-out headline, rank {summary["rank"]}: K1 plan '
+             f'{part.get("plan")}, {part["ms"]:.3f} ms/call (decode_sharded,'
+             f' host clock, warm median of 5, both ranks on one card), peak '
+             f'device memory {part.get("peak_gb", 0.0):.2f} GB, on {card}')
+    info(f'scale-out headline: every rank\'s gathered path bitwise the '
+         f'single-process path, whole and at {SCALEOUT_UNEVEN} rows; K1 '
+         '(cluster design) and K3 in each rank, no plain version')
+    require_path('dense', dense_path.cpu().numpy())
+    require_kernels('dense', ('dense_forward', 'backtrace'),
+                    ('band_forward',))
+    info('scale-out dense: bitwise the single-process path; K2 and K3 in '
+         'each rank')
+
+    shares = [summary['files']['share'] for summary in ranks]
+    if sorted(sum(shares, [])) != sorted(inputs):
+        fail('scale-out files: the shares are not a partition of the corpus')
+    for rank, share in enumerate(shares):
+        if share != files.shard_files_balanced(
+                inputs, split, rank, SCALEOUT_RANKS)[0]:
+            fail(f'scale-out files, rank {rank}: its share is not '
+                 'shard_files_balanced\'s')
+        native = ranks[rank]['files']['native']
+        if native['fallback'] or native['filled'] < 1:
+            fail(f'scale-out files, rank {rank}: the native loader filled '
+                 f'{native}')
+    for out, single in zip(split, outputs):
+        got, want = np.load(out), np.load(single)
+        if got.dtype != np.int32 or not np.array_equal(got, want):
+            fail(f'scale-out files: {Path(out).name} differs from the '
+                 'single-process output')
+    require_kernels('files', ('band_forward', 'backtrace'))
+    info(f'scale-out files: shares of {[len(s) for s in shares]} files, '
+         f'disjoint, the whole corpus, shard_files_balanced\'s partition; '
+         f'{len(split)} outputs bitwise the single-process ones; native '
+         f'batches {[summary["files"]["native"] for summary in ranks]}')
+
+    want = eval_single[SCALEOUT_DATASET]
+    for rank, summary in enumerate(ranks):
+        got = summary['evaluation']['results'][SCALEOUT_DATASET]
+        if got['rpa'] != want['rpa'] or got['frames'] != want['frames']:
+            fail(f'scale-out evaluation, rank {rank}: RPA {got["rpa"]} over '
+                 f'{got["frames"]} frames, single process {want["rpa"]} over '
+                 f'{want["frames"]}')
+    writes = [summary['evaluation']['writes'] for summary in ranks]
+    written = json.loads((eval_dir / f'{eval_config}.json').read_text())
+    if writes != [1] + [0] * (SCALEOUT_RANKS - 1) or (
+            written != ranks[0]['evaluation']['results']):
+        fail(f'scale-out evaluation: results written {writes} times by '
+             'rank, or the file differs from the results')
+    require_kernels('evaluation', ('band_forward', 'backtrace'))
+    rtf = ranks[0]['evaluation']['results'][SCALEOUT_DATASET]['rtf']
+    info(f'scale-out evaluation ({SCALEOUT_DATASET}, {EVAL_FILES} files): '
+         f'RPA and {want["frames"]} frames equal the single-process run\'s; '
+         f'written once, by rank 0; RTF by context (the slowest rank) '
+         f'{rtf}')
+
+    # A world of one over NCCL: the gather on the card
+    obs_k = dispatch.convert(obs, True, True).contiguous()
+    dist.init_process_group(
+        'nccl' if cuda else 'gloo',
+        init_method=f'tcp://127.0.0.1:{free_port()}', world_size=1, rank=0)
+    try:
+        def one():
+            return decode_sharded(obs_k, bf, trans, init,
+                                  finite_observation=True, device=device)
+
+        reset_counts()
+        path = one()
+        sync()
+        counts = read_counts()
+        one_ms = host_ms(torch, one, calls=5) if cuda else None
+    finally:
+        dist.destroy_process_group()
+    del obs_k
+    if not torch.equal(path, exact_path):
+        fail('scale-out world of one: the path differs from the '
+             'single-process path')
+    if cuda and (counts['band_forward'] < 1 or counts['backtrace'] < 1):
+        fail(f'scale-out world of one launched {counts}')
+    info(f'scale-out world of one ({dist.Backend.NCCL if cuda else "gloo"}):'
+         f' bitwise the single-process path, launches {counts}'
+         + (f', {one_ms[0]:.3f} ms/call warm median of 5' if cuda else ''))
+
+    # The scaling script, overhead mode, one and two ranks on the card
+    begin = time.perf_counter()
+    scaling = subprocess.run(
+        [sys.executable, '-m', 'torbi_tpu_torch.scripts.scaling', '--mode',
+         'overhead', '--ranks', f'1,{SCALEOUT_RANKS}', '--rows-per-device',
+         str(int(obs.shape[0]) // SCALEOUT_RANKS), '--frames',
+         str(int(obs.shape[1])), '--states', str(STATES), '--iters', '3',
+         '--output', str(workdir / 'scaling.json')]
+        + ([] if cuda else ['--gpu', 'cpu']),
+        capture_output=True, text=True, timeout=SCALEOUT_TIMEOUT, cwd=ROOT)
+    if scaling.returncode:
+        fail(f'scripts.scaling failed: {scaling.stdout[-2000:]}'
+             f'{scaling.stderr[-3000:]}')
+    artifact = json.loads(scaling.stdout.strip().splitlines()[-1])
+    single, row = artifact['scales'][0], artifact['scales'][-1]
+    info(f'scaling --mode overhead at {row["batch"]} x {artifact["frames"]} '
+         f'x {artifact["states"]} pitch ({time.perf_counter() - begin:.1f} '
+         f's): one process {single["seconds_per_call"] * 1e3:.3f} ms/call '
+         f'({single["rows_per_device_seconds"] * 1e3:.3f} for one rank\'s '
+         f'{artifact["rows_per_device"]} rows alone), '
+         f'{row["ranks"]} ranks ({row["backend"]}, one card) '
+         f'{row["seconds_per_call"] * 1e3:.3f} ms/call (ranks '
+         f'{row["ms"]} ms; their slices alone {row["decode_ms"]}, the gather '
+         f'alone {row["gather_ms"]}), work_overhead '
+         f'{row["work_overhead"]:.4f}, projected_efficiency '
+         f'{row["projected_efficiency"]:.4f}; on {artifact["card"] or card}; '
+         f'{artifact["note"]}')
+    return {name: {part: [summary[part]['launches'][name]
+                          for summary in ranks]
+                   for part in ('headline', 'uneven', 'dense', 'files',
+                                'evaluation')}
+            for name in ('band_forward', 'dense_forward', 'backtrace')}
+
+
 def pitch_file(path, frames, seed):
     """One log-space pitch posteriorgram file of ``frames`` x STATES, written
     in slices; returns the array"""
@@ -2155,18 +2607,7 @@ def main():
          '(K3; K5 on each sequence of the first '
          f'{len(edges.CHASE_EDGES)})')
 
-    counters = {
-        'band_forward': band.viterbi_forward_band,
-        'band_forward_wide': band.viterbi_forward_band_wide,
-        'band_spread': band.viterbi_forward_band_spread,
-        'dense_forward': dense.viterbi_forward_dense,
-        'backtrace': backtrace.backtrace_posteriors,
-        'backtrace_pointers': backtrace.backtrace_pointers,
-        'chase_pointers': backtrace.chase_pointers,
-        'backtrace_window': backtrace.backtrace_window,
-        'constant_recurrence': constant.recurrence,
-        'maxplus_matmul': associative.maxplus_matmul,
-    }
+    counters = decode_counters()
 
     def reset_counts():
         for fn in counters.values():
@@ -3230,6 +3671,13 @@ def main():
         torch, device, card, (obs, trans, init, bf), result, reset_counts,
         read_counts)
 
+    # 6g. The batch scale-out: two rank processes sharing the card in a gloo
+    # world (the headline, uneven, dense, file and evaluation splits), a
+    # world of one over NCCL, the scaling script's overhead mode
+    scaleout = scaleout_phase(
+        torch, device, card, (obs, trans, init, bf), result, dense_out,
+        evaluation['default'][0], reset_counts, read_counts)
+
     # 7. The lab kernels against their plain versions, bitwise, at small
     # shapes: every forward body at every accumulator count (or tile) with
     # 1, 2, 4 and 8 sequences per CTA at 8 x 64 x 1440 (width 175), the
@@ -3724,6 +4172,8 @@ def main():
         kernels[name]['evaluation_launches'] = evaluation['nobatch'][1][name]
     for name in counters:
         kernels[name]['soak_launches'] = soak_counts[name]
+    for name, parts in scaleout.items():
+        kernels[name]['scaleout_launches'] = parts
     path_counts = {
         'banded': band_counts, 'dense': dense_counts,
         'batch1-serial': serial_counts, 'batch1-window': window_counts,
@@ -3765,6 +4215,9 @@ if __name__ == '__main__':
     try:
         if sys.argv[1:2] == ['--trace-dense']:
             trace_dense(sys.argv[2])
+        elif sys.argv[1:2] == ['--scaleout-rank']:
+            scaleout_rank(int(sys.argv[2]), int(sys.argv[3]),
+                          int(sys.argv[4]), sys.argv[5])
         else:
             main()
     except SystemExit:

@@ -5,8 +5,8 @@ A synthetic corpus of 1440-state pitch posteriorgrams (the clipped walks
 of ``models/pitch.py``) goes through both harnesses, each with its own
 reference pass: the scores, the frame counts and every output file are
 equal. Also: the chunked self-consistency mode, the resume path (kept
-reference outputs are reused), the refusal to run without CUDA unless
-the CPU is asked for, and the refusal of a multi-process world.
+reference outputs are reused) and the refusal to run without CUDA unless
+the CPU is asked for. A multi-process world: tests/test_torch_multiprocess.py.
 """
 import json
 
@@ -115,13 +115,6 @@ def test_no_cuda_raises_without_cpu_request(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         torbi_tpu_torch.evaluate.datasets([DATASET])
     assert not (tmp_path / 'eval').exists()
-
-
-def test_multi_process_world_raises(monkeypatch):
-    monkeypatch.setattr(torch.distributed, 'is_initialized', lambda: True)
-    monkeypatch.setattr(torch.distributed, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='A15'):
-        torbi_tpu_torch.evaluate.datasets([DATASET], gpu='cpu')
 
 
 def test_transition_is_cached_under_the_port(tmp_path, monkeypatch):

@@ -9,8 +9,6 @@ dispatcher's ``backend='timesharded'`` route is held against the oracle
 on inputs with a unique optimum, and its auto policy's predicate at a
 faked shard count.
 """
-import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +25,7 @@ from torbi_tpu.parallel import batch_mesh
 from torbi_tpu.parallel import decode_time_sharded as jax_time_sharded
 from torbi_tpu_torch.ops import dispatch
 from torbi_tpu_torch.parallel import decode_time_sharded, mesh
+from torbi_tpu_torch.scripts.modes_timing import run_ranks
 
 TINY = np.finfo(np.float32).tiny
 WORKER = Path(__file__).with_name('torch_timesharded_worker.py')
@@ -88,12 +87,6 @@ DISPATCH = {
 NOT_DIVISIBLE = {'odd': _case(3, 7, 4)}
 
 
-def _free_port():
-    with socket.socket() as sock:
-        sock.bind(('127.0.0.1', 0))
-        return sock.getsockname()[1]
-
-
 def _inputs():
     arrays = {}
     for name, (obs, trans, init) in {**DIRECT, **NOT_DIVISIBLE}.items():
@@ -113,28 +106,12 @@ def _run_world(world, directory):
     arrays a rank"""
     inputs = directory / 'inputs.npz'
     np.savez(inputs, **_inputs())
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS='1', GLOO_SOCKET_IFNAME='lo')
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(WORKER), str(rank), str(world), str(port),
-             str(inputs), str(directory / f'rank{rank}.npz')],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env)
-        for rank in range(world)]
-    outputs = []
-    try:
-        for proc in procs:
-            outputs.append(proc.communicate(timeout=WORLD_TIMEOUT)[0])
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    failed = [(rank, proc.returncode, output[-2000:])
-              for rank, (proc, output) in enumerate(zip(procs, outputs))
-              if proc.returncode]
-    assert not failed, failed
+    run_ranks(
+        lambda rank, port: [
+            sys.executable, str(WORKER), str(rank), str(world), str(port),
+            str(inputs), str(directory / f'rank{rank}.npz')],
+        world, WORLD_TIMEOUT,
+        env=dict(OMP_NUM_THREADS='1', GLOO_SOCKET_IFNAME='lo'))
     return [dict(np.load(directory / f'rank{rank}.npz'))
             for rank in range(world)]
 

@@ -45,6 +45,27 @@ _derive()
 
 
 ###############################################################################
+# CPU vector math
+###############################################################################
+
+
+def _initialize_vector_math():
+    """Run the CPU's float exp and log once, on this thread, before any
+    parallel call. PyTorch's CPU builds with MKL compute them with MKL's
+    vector math, which sets itself up on its first call; where that first
+    call is a parallel one, a worker thread can compute its whole chunk at
+    the low-accuracy setting (an exp hundreds of ulps off), so that the
+    same input converts differently in that call than in every later one
+    (``tests/torch_vml_first_call.py``)."""
+    import torch
+
+    torch.exp(torch.zeros(64)).add_(1.0).log_()
+
+
+_initialize_vector_math()
+
+
+###############################################################################
 # Module imports
 ###############################################################################
 

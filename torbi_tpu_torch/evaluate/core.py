@@ -8,18 +8,23 @@ factor and timesteps per second. The steps (stems, targets, decode,
 scores, speed) are the functions below; ``EVAL_BACKEND`` picks the decode
 backend ('kernel', 'scan', or 'lse', the approximate smoothed-max decode).
 
-Single process only: the JAX package's shard and aggregate steps across
-host processes wait for the batch scale-out (ROADMAP.md, A15), and a
-``torch.distributed`` world of more than one process raises.
+In a ``torch.distributed`` world of more than one process each rank
+decodes and scores its share of every corpus (balanced by file length, as
+``parallel/files.py`` splits files) on its own card; the ranks then sum
+the scores, take the slowest rank's seconds per timing context, and rank
+0 alone writes the results, which every rank returns.
 """
 import json
+import os
 
 import torch
+import torch.distributed as dist
 
 import torbi_tpu_torch
 from ..models import pitch
+from ..ops import dispatch
+from ..parallel import mesh
 from ..utils import io, timing
-from ..utils.convert import resolve_device
 from ..utils.notify import notify_on_finish
 
 
@@ -29,7 +34,12 @@ def _transition_file():
     path = torbi_tpu_torch.PITCH_TRANSITION_MATRIX
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
-        io.save(pitch.transition_matrix(), path)
+        # The ranks of a world may write it at once: each writes a file of
+        # its own and renames it, so that no rank reads a partial file
+        partial = path.with_name(
+            f'{path.stem}.{os.getpid()}.partial{path.suffix}')
+        io.save(pitch.transition_matrix(), partial)
+        os.replace(partial, path)
     return path
 
 
@@ -38,16 +48,56 @@ def _stems(dataset):
         return json.load(file)
 
 
-def _require_single_process():
-    """Raise in a torch.distributed world of more than one process: each
-    rank would decode and score the whole corpus"""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            'the evaluation harness runs in one process; sharding the '
-            'corpus across processes is not ported yet (ROADMAP.md, queue '
-            'A, item A15: batch scale-out)')
+def _process_shard(stems, input_files):
+    """This rank's share of (stems, input_files): the ranks of a world
+    decode disjoint shares, balanced by probed file lengths (LPT) so that
+    the heavy-tailed speech corpus does not leave one rank last; a single
+    process keeps everything"""
+    if mesh.shards()[0] == 1:
+        return stems, input_files
+    from ..parallel.files import shard_files_balanced
+
+    return shard_files_balanced(input_files, stems)[::-1]
+
+
+def _all_gather(value):
+    """Every rank's ``value`` (a picklable object), by rank. The objects
+    travel as tensors on the group's device: with NCCL, the card that
+    ``datasets`` made current"""
+    gathered = [None] * mesh.shards()[0]
+    dist.all_gather_object(gathered, value)
+    return gathered
+
+
+def _aggregate_metrics(metrics):
+    """Sum each RPA's (total, count) over the ranks; a no-op in a single
+    process"""
+    if mesh.shards()[0] == 1:
+        return
+    local = [(rpa.total, rpa.count) for rpa in metrics.rpas]
+    for rpa, *pairs in zip(metrics.rpas, *_all_gather(local)):
+        rpa.total = float(sum(total for total, _ in pairs))
+        rpa.count = int(sum(count for _, count in pairs))
+
+
+def _union_keys(keys):
+    """The union of every rank's string keys, sorted. Ranks can hold
+    different timing contexts (one rank's reference targets may be on disk
+    already, so it never enters the 'librosa' context)."""
+    union = set()
+    for ranks_keys in _all_gather(sorted(keys)):
+        union.update(ranks_keys)
+    return sorted(union)
+
+
+def _aggregate_seconds(timings):
+    """Wall seconds per timing context over the ranks: the slowest rank
+    bounds the world, so the max; a context a rank lacks counts 0 there"""
+    if mesh.shards()[0] == 1:
+        return timings
+    keys = _union_keys(timings)
+    local = [timings.get(key, 0.0) for key in keys]
+    return dict(zip(keys, map(max, zip(*_all_gather(local)))))
 
 
 def _paths(dataset, subdir, stems):
@@ -91,9 +141,13 @@ def _score(output_files, target_files):
 
 
 def _speed(frames):
-    """Real-time factor and timesteps/second per timing context"""
+    """Real-time factor and timesteps/second per timing context.
+
+    ``frames`` is the world's frame count; the seconds of each context the
+    slowest rank's.
+    """
     seconds = pitch.frames_to_seconds(frames)
-    timings = timing.results()
+    timings = _aggregate_seconds(timing.results())
     return (
         {key: float(seconds / value) for key, value in timings.items()},
         {key: float(frames / value) for key, value in timings.items()})
@@ -105,20 +159,24 @@ def _evaluate_dataset(dataset, device, num_threads):
     input_files = [
         torbi_tpu_torch.CACHE_DIR / dataset / f'{stem}.pt'
         for stem in stems]
+    stems, input_files = _process_shard(stems, input_files)
 
     target_files = _ensure_targets(dataset, stems, input_files, num_threads)
 
     output_files = _paths(dataset, torbi_tpu_torch.CONFIG, stems)
-    torbi_tpu_torch.from_files_to_files(
-        input_files,
-        output_files,
-        transition_file=_transition_file(),
-        log_probs=True,
-        gpu=device,
-        num_threads=num_threads,
-        backend=torbi_tpu_torch.EVAL_BACKEND)
+    # One rank's share: its decodes join no collective
+    with dispatch.rank_share():
+        torbi_tpu_torch.from_files_to_files(
+            input_files,
+            output_files,
+            transition_file=_transition_file(),
+            log_probs=True,
+            gpu=device,
+            num_threads=num_threads,
+            backend=torbi_tpu_torch.EVAL_BACKEND)
 
     metrics = _score(output_files, target_files)
+    _aggregate_metrics(metrics)
     rtf, timesteps_per_second = _speed(metrics.rpas[0].count)
     return metrics() | {
         'frames': metrics.rpas[0].count,
@@ -132,18 +190,22 @@ def datasets(datasets=None, gpu=None, num_threads=1):
     """Evaluate Viterbi decoding over the configured corpora; writes
     EVAL_DIR/<CONFIG>.json and returns the results dict.
 
-    ``gpu`` is the decode device: None is cuda:0, an integer a CUDA index,
-    'cpu' the CPU (the kernels' plain versions); without CUDA only 'cpu'
-    works. ``num_threads`` is the reference pass's process count."""
-    _require_single_process()
-    device = resolve_device(gpu)
+    ``gpu`` is the decode device: None is the card of ``LOCAL_RANK`` when
+    ``torchrun`` sets it, else cuda:0 (``parallel.mesh.local_device``), an
+    integer a CUDA index, 'cpu' the CPU (the kernels' plain versions);
+    without CUDA only 'cpu' works. ``num_threads`` is the reference pass's
+    process count. In a world of more than one process every rank calls
+    this and returns the aggregated results; rank 0 writes them."""
+    device = mesh.local_device(gpu)
     if device.type == 'cuda':
         # The kernels build once per checkout at first use and the CUDA
         # context starts at the first operation; done here, neither counts
-        # in the first dataset's decode time
+        # in the first dataset's decode time. NCCL's object gathers run on
+        # the current card
         from ..csrc import build
 
         build.build(build.DECODE_SOURCES)
+        torch.cuda.set_device(device)
         torch.zeros((), device=device)
     if datasets is None:
         datasets = torbi_tpu_torch.DATASETS
@@ -151,10 +213,15 @@ def datasets(datasets=None, gpu=None, num_threads=1):
     results = {
         dataset: _evaluate_dataset(dataset, device, num_threads)
         for dataset in datasets}
+    if mesh.shards()[1] is None or dist.get_rank() == 0:
+        _write(results)
+    return results
 
+
+def _write(results):
+    """EVAL_DIR/<CONFIG>.json; one writer, rank 0, in a world"""
     torbi_tpu_torch.EVAL_DIR.mkdir(parents=True, exist_ok=True)
     with open(
             torbi_tpu_torch.EVAL_DIR / f'{torbi_tpu_torch.CONFIG}.json',
             'w') as file:
         json.dump(results, file)
-    return results

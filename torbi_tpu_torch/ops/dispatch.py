@@ -46,9 +46,15 @@ CUDA kernels take runtime shapes, so the JAX package's frame and batch
 buckets, state padding, packed mod-M input and batch-sharding
 ``shard_map`` mesh have no counterpart here; the time-sharded route's
 shards are the ranks of a process group, where the JAX package takes its
-local devices. On a CPU device the kernel routes run the kernels' plain
+local devices. A decode of one rank's share of a job split over the ranks
+(``rank_share``: ``parallel.decode_sharded``, ``parallel.files``, the
+sharded evaluation) weighs one shard, as a JAX host weighs its own
+devices. On a CPU device the kernel routes run the kernels' plain
 versions.
 """
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -73,6 +79,37 @@ _band_matrix_cache = {}
 
 def _round_up(value, multiple):
     return ((value + multiple - 1) // multiple) * multiple
+
+
+class _Share(threading.local):
+    """This thread's ``rank_share``: whether it decodes one rank's share of
+    a split job, and the batch of the whole job (None for a file share)"""
+    active = False
+    batch = None
+
+
+_share = _Share()
+
+
+@contextlib.contextmanager
+def rank_share(batch=None):
+    """Decode, inside the ``with`` block, one rank's share of a job that the
+    ranks of a process group split between them (parallel/sharded.py,
+    parallel/files.py, the sharded evaluation).
+
+    Each rank decodes other rows, so no decode inside may join a
+    collective the other ranks do not: the time-sharded auto policy weighs
+    one shard, as the JAX package's weighs a host's local devices, and
+    ``backend='timesharded'`` raises. ``batch`` is the batch of the whole
+    job when the share is a slice of one array (``decode_sharded``): the
+    batch-1 auto-chunking then opens only for a job of one sequence, so a
+    slice of one row decodes as the whole batch does."""
+    saved = _share.active, _share.batch
+    _share.active, _share.batch = True, batch
+    try:
+        yield
+    finally:
+        _share.active, _share.batch = saved
 
 
 BACKENDS = ('kernel', 'scan', 'lse', 'timesharded')
@@ -277,6 +314,11 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     import torbi_tpu_torch
 
     backend = resolve_backend(backend)
+    if backend == 'timesharded' and _share.active:
+        # Raised on every rank, an empty share's too, before any collective
+        raise ValueError(
+            "backend='timesharded' splits one sequence over the ranks; a "
+            "decode of one rank's share of a split job cannot take it")
     device = resolve_device(device)
     observation = to_tensor(observation, torch.float32)
     if observation.ndim != 3:
@@ -311,9 +353,12 @@ def decode(observation, batch_frames, transition, initial, backend=None,
 
     # Exact time-sharded route for one long sequence: forced by
     # backend='timesharded', or taken by the auto policy where sharding
-    # the frames over the process group's ranks beats the serial kernels
+    # the frames over the process group's ranks beats the serial kernels.
+    # One rank's share of a split job weighs one shard: the other ranks
+    # decode other rows and would never join its collectives
     if backend == 'timesharded' or timesharded_auto(
-            backend, batch, frames, states, _shard_count()):
+            backend, batch, frames, states,
+            1 if _share.active else _shard_count()):
         if batch != 1:
             raise ValueError(
                 "backend='timesharded' decodes one sequence (batch 1), "
@@ -345,8 +390,9 @@ def decode(observation, batch_frames, transition, initial, backend=None,
 
     # Batch-1 auto-chunking: a single long banded sequence decodes as
     # entropy-chunk rows (ops/autochunk.py); None falls through to the
-    # serial decode
-    if (batch == 1 and band is not None and band[1] > 0
+    # serial decode. A slice of a larger batch (rank_share) is not one
+    if (batch == 1 and _share.batch in (None, 1)
+            and band is not None and band[1] > 0
             and backend == 'kernel'
             and frames >= int(torbi_tpu_torch.BATCH1_AUTO_CHUNK_MIN_FRAMES)
             and bool(torbi_tpu_torch.BATCH1_AUTO_CHUNK)):

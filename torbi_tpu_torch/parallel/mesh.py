@@ -3,11 +3,15 @@
 Counterpart of ``torbi_tpu/parallel/mesh.py``. A shard is a rank of a
 ``torch.distributed`` process group, where the JAX package shards over the
 devices of a mesh: the default group, or a group the caller passes. Without
-an initialised process group there is one shard.
+an initialised process group there is one shard. A rank decodes on its own
+card (``local_device``), where a JAX host decodes on its local devices.
 """
 import os
 
+import torch
 import torch.distributed as dist
+
+from ..utils.convert import resolve_device
 
 # Groups of the leading ranks of a group, made once per (group, count)
 _leading_groups = {}
@@ -25,11 +29,21 @@ def initialize_distributed():
         return
     if 'RANK' not in os.environ or 'WORLD_SIZE' not in os.environ:
         return
-    import torch
-
     dist.init_process_group(
         'nccl' if torch.cuda.is_available() else 'gloo',
         init_method='env://')
+
+
+def local_device(gpu=None):
+    """A rank's decode device: ``gpu`` when given (as ``from_probabilities``
+    takes it), else the card of the ``LOCAL_RANK`` that ``torchrun`` sets,
+    modulo the cards there are, else cuda:0. Like ``gpu=None`` everywhere,
+    it never means the CPU: without CUDA it raises."""
+    if gpu is None and 'LOCAL_RANK' in os.environ and (
+            torch.cuda.is_available()):
+        return torch.device(
+            'cuda', int(os.environ['LOCAL_RANK']) % torch.cuda.device_count())
+    return resolve_device(gpu)
 
 
 def shards(group=None):

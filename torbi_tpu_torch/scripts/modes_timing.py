@@ -41,6 +41,7 @@ number it prints is a device time.
 """
 import argparse
 import json
+import os
 import socket
 import statistics
 import subprocess
@@ -92,12 +93,15 @@ def graph_ms(fn, calls=20, replays=5):
     return start.elapsed_time(stop) / (calls * replays)
 
 
-def host_ms(fn, calls, sync):
-    """Warm median ms of ``calls`` host-clock calls, each synchronised"""
+def host_ms(fn, calls, sync, barrier=None):
+    """Warm median ms of ``calls`` host-clock calls, each synchronised and,
+    with ``barrier``, each started after it"""
     fn()
     sync()
     times = []
     for _ in range(calls):
+        if barrier is not None:
+            barrier()
         start = time.perf_counter()
         fn()
         sync()
@@ -224,6 +228,37 @@ def free_port():
     with socket.socket() as sock:
         sock.bind(('127.0.0.1', 0))
         return sock.getsockname()[1]
+
+
+def run_ranks(argv_for_rank, world, timeout, env=None, cwd=None):
+    """Run a world of ``world`` rank processes on one free local port:
+    ``argv_for_rank(rank, port)`` is each rank's command line, ``env`` is
+    added to this process's environment. Waits up to ``timeout`` seconds
+    for each rank, kills any still running, and returns each rank's output
+    (standard output and error) by rank; raises RuntimeError with each
+    failed rank's exit code and the end of its output."""
+    port = free_port()
+    procs = [
+        subprocess.Popen(
+            argv_for_rank(rank, port), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=cwd,
+            env=dict(os.environ, **(env or {})))
+        for rank in range(world)]
+    texts = []
+    try:
+        for proc in procs:
+            texts.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [(rank, proc.returncode, text[-3000:])
+              for rank, (proc, text) in enumerate(zip(procs, texts))
+              if proc.returncode]
+    if failed:
+        raise RuntimeError(f'ranks of a world of {world} failed: {failed}')
+    return texts
 
 
 def time_routes(args, device, sms, clock_hz):
