@@ -18,7 +18,10 @@ TASK on the CPU and writes this rank's results to OUTPUT:
 - ``evaluate``: ``evaluate.datasets`` on the corpus the JSON file INPUTS
   points at (``cache``, ``partitions``, ``eval``, ``transition``, ``config``,
   ``dataset``); to the JSON file OUTPUT the results, the writes of the
-  results file, and the timing contexts before and after aggregation.
+  results file, and the timing contexts before and after aggregation;
+- ``trace``: the first case of INPUTS through ``parallel.decode_sharded``
+  under a CPU ``torch.profiler`` profile, its ``torbi.*`` spans
+  (``profile_spans``) to the JSON file OUTPUT.
 
 ``run_world`` starts a world of these workers from a test. Imports only
 torbi_tpu_torch (never JAX or torbi_tpu).
@@ -106,6 +109,32 @@ def evaluate_task(inputs, output):
         'results': results, 'writes': len(writes), 'seconds': seconds}))
 
 
+def profile_spans(profile):
+    """[(name, enclosing span's name or None)] of a finished profile's
+    ``torbi.*`` ranges, in the order they opened"""
+    found = []
+    for event in sorted(profile.events(), key=lambda e: e.time_range.start):
+        if not event.name.startswith('torbi.'):
+            continue
+        parent = event.cpu_parent
+        while parent is not None and not parent.name.startswith('torbi.'):
+            parent = parent.cpu_parent
+        found.append((event.name, parent.name if parent else None))
+    return found
+
+
+def trace_task(inputs, output):
+    cases = np.load(inputs)
+    name = cases.files[0].split('/')[0]
+    obs, bf, trans, init = (
+        torch.from_numpy(cases[f'{name}/{part}'])
+        for part in ('observation', 'batch_frames', 'transition', 'initial'))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as profile:
+        decode_sharded(obs, bf, trans, init, device='cpu')
+    Path(output).write_text(json.dumps(profile_spans(profile)))
+
+
 def run_world(task, world, inputs, directory, timeout=120):
     """Start a gloo world of ``world`` workers running ``task``
     (``modes_timing.run_ranks``); returns the output paths by rank once
@@ -127,8 +156,8 @@ def main(task, rank, world, port, inputs, output):
         'gloo', init_method=f'tcp://127.0.0.1:{port}', world_size=world,
         rank=rank)
     try:
-        {'decode': decode, 'files': files_task,
-         'evaluate': evaluate_task}[task](inputs, output)
+        {'decode': decode, 'files': files_task, 'evaluate': evaluate_task,
+         'trace': trace_task}[task](inputs, output)
     finally:
         dist.destroy_process_group()
 

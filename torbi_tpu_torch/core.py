@@ -110,13 +110,13 @@ def from_probabilities(
         indices
             The decoded bin indices, int32 on the decode device
             shape=(batch, frames)
+            On a card the call returns once the decode is queued;
+            reading the indices (``.cpu()``, ``.numpy()``) waits for it
     """
-    device = resolve_device(gpu)
-    with timing.context('torbi', device):
-        indices = _dispatch_decode(
+    with timing.span('torbi.from_probabilities'):
+        return _dispatch_decode(
             observation, batch_frames, transition, initial, log_probs,
-            device, num_threads, backend)
-    return indices
+            resolve_device(gpu), num_threads, backend)
 
 
 def _dispatch_decode(observation, batch_frames, transition, initial,

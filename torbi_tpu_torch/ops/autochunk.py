@@ -40,6 +40,7 @@ import torbi_tpu_torch
 from . import backtrace as backtrace_ops
 from . import band as band_ops
 from ..chunk import splits_from_entropy
+from ..utils import timing
 from ..utils.cache import identity_cached as _identity_cached
 
 # The JAX package's frame buckets and 8-row backtrace tile, used here only
@@ -184,9 +185,12 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
 
     # The gather is a copy; K1 converts the raw rows as it loads them
     rows = observation[0, :, :states][gather]
-    _, forward = band_ops.forward_kernel(states, band[1])
-    post_seq, posterior = forward(
-        rows, lengths, initial, band, band_matrix, log_input, apply_epsilon)
-    indices = backtrace_ops.backtrace_posteriors(
-        post_seq, transition, posterior, lengths)
+    name, forward = band_ops.forward_kernel(states, band[1])
+    with timing.span(f'torbi.forward.{name}'):
+        post_seq, posterior = forward(
+            rows, lengths, initial, band, band_matrix, log_input,
+            apply_epsilon)
+    with timing.span('torbi.chase.backtrace'):
+        indices = backtrace_ops.backtrace_posteriors(
+            post_seq, transition, posterior, lengths)
     return indices[row, column][None]

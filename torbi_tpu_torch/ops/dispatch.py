@@ -67,6 +67,7 @@ from .backtrace import (
 from .dense import viterbi_forward_dense
 from .lse import decode_lse
 from .scan import decode_scan
+from ..utils import timing
 from ..utils.cache import identity_cached as _identity_cached
 from ..utils.convert import resolve_device, to_tensor
 
@@ -251,6 +252,8 @@ def kernel_route(transition, band, batch):
     through K3 ('backtrace'), K5 ('backtrace_fused1') or K6
     ('backtrace_window'); K5 and K6 count their launches per phase (K5's
     'backtrace_pointers', K6's 'backtrace_window', both 'chase_pointers').
+    Each call runs inside the span ``torbi.forward.<name>`` or
+    ``torbi.chase.<name>`` (``utils/timing.py``).
     """
     import torbi_tpu_torch
 
@@ -281,15 +284,23 @@ def kernel_route(transition, band, batch):
     chase = (_batch1_chase(band, states)
              if batch == 1 and band is not None else None)
     if chase == 'fused':
-        return forward, ('backtrace_fused1', lambda post, posterior, bf: (
+        chase = ('backtrace_fused1', lambda post, posterior, bf: (
             backtrace_fused1(post, transition, posterior, bf, band, matrix)))
-    if chase == 'window':
-        return forward, ('backtrace_window', lambda post, posterior, bf: (
+    elif chase == 'window':
+        chase = ('backtrace_window', lambda post, posterior, bf: (
             backtrace_window(post, transition, posterior, bf, band, matrix)))
-    return forward, ('backtrace', lambda post, posterior, bf: (
-        backtrace_posteriors(post, transition, posterior, bf)))
+    else:
+        chase = ('backtrace', lambda post, posterior, bf: (
+            backtrace_posteriors(post, transition, posterior, bf)))
+    return _spanned('forward', *forward), _spanned('chase', *chase)
 
 
+def _spanned(role, name, call):
+    """(name, ``call`` inside the span ``torbi.<role>.<name>``)"""
+    return name, timing.spanned(f'torbi.{role}.{name}')(call)
+
+
+@timing.spanned('torbi.decode')
 def decode(observation, batch_frames, transition, initial, backend=None,
            finite_observation=False, log_input=True, apply_epsilon=False,
            device=None):

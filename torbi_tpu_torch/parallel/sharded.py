@@ -14,6 +14,7 @@ import torch.distributed as dist
 
 from . import mesh
 from ..ops import dispatch
+from ..utils import timing
 from ..utils.convert import to_tensor
 
 
@@ -25,6 +26,7 @@ def slice_rows(batch, count, rank):
     return min(rank * per, batch), min((rank + 1) * per, batch)
 
 
+@timing.spanned('torbi.gather')
 def gather_rows(path, batch, count, group):
     """(batch, frames) int32 on ``path``'s device: every rank's slice of
     decoded rows in rank order, ``path`` this rank's. Each slice is padded
@@ -43,6 +45,7 @@ def gather_rows(path, batch, count, group):
     return torch.cat(pieces)[:batch].to(path.device)
 
 
+@timing.spanned('torbi.decode_sharded')
 def decode_sharded(
         observation,
         batch_frames,

@@ -12,11 +12,15 @@ import weakref
 
 import torch
 
+from . import timing
+
 
 def identity_cached(cache, tensor, compute, extra_key=()):
-    """Cache ``compute()`` per live, unmodified tensor"""
+    """Cache ``compute()`` per live, unmodified tensor; each call of
+    ``compute`` runs inside the span ``torbi.build``"""
     if not isinstance(tensor, torch.Tensor) or tensor.is_inference():
-        return compute()
+        with timing.span('torbi.build'):
+            return compute()
     cache_key = (
         id(tensor), tuple(tensor.shape), tensor.data_ptr(), tensor._version,
         extra_key)
@@ -25,7 +29,8 @@ def identity_cached(cache, tensor, compute, extra_key=()):
         if ref() is tensor:
             return result
         del cache[cache_key]
-    result = compute()
+    with timing.span('torbi.build'):
+        result = compute()
     if len(cache) > 64:
         cache.clear()
     cache[cache_key] = (result, weakref.ref(tensor))
