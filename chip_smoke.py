@@ -2210,7 +2210,9 @@ def main():
     # size) bitwise against the plain route (the conversion's torch ops,
     # then the same kernel), in log space and in probability space; the
     # headline's generator makes log(tiny) entries, whose exp is subnormal
-    # (and 0 < p < tiny in probability space)
+    # (and 0 < p < tiny in probability space). Each cluster size on the
+    # converted observation is first held against post_k, the plain
+    # version's output, so the plain route of the folded check is too
     log_tiny = float(np.log(np.float32(TINY)))
     if not bool((obs == log_tiny).any()):
         fail('the headline observation holds no log(tiny) entry')
@@ -2221,7 +2223,10 @@ def main():
             band.viterbi_forward_band, obs, fold_rest))
     for size in band.CLUSTER_TILES:
         kernels['band_forward']['max_abs_err'] = max(
-            kernels['band_forward']['max_abs_err'], hold_folded(
+            kernels['band_forward']['max_abs_err'], require_equal(
+                torch, f'K1 band_forward at the headline, {size} per '
+                'cluster', band._forward_band_clusters(
+                    *k1_args, size)[0], post_k), hold_folded(
                 torch, dispatch, f'K1 band_forward folded at the headline, '
                 f'{size} per cluster', band._forward_band_clusters, obs,
                 fold_rest + (size,)))
@@ -2268,7 +2273,7 @@ def main():
     # holds at once) at each cluster size, whose ratios
     # band.CLUSTER_WAVE_COST holds; the plan's rest (the last 32
     # sequences) at each size; the headline in one launch of 16 clusters
-    # of 32 (two waves)
+    # of 32 (two waves); a four-card rank's 128 rows under two plans
     wave_ms = {}
     for size, clusters in resident.items():
         wave = clusters * size
@@ -2293,6 +2298,79 @@ def main():
              f'{size}: {ms:.3f}' for size, ms in rest_ms.items())
          + f' (the plan takes {k1_plan[-1][2]}); one launch of '
          f'{-(-BATCH // 32)} clusters of 32: {one_launch_ms:.3f} ms')
+    # The plans that clusters of 8 and 16 changed: each batch under the
+    # plan without them (clusters of 4, through _launch_clusters) and as
+    # the wrapper plans it, in turns (old, new, new, old), both outputs
+    # bitwise against the plain version's; the per-size launch counts show
+    # which tiles the wrapper ran. A four-card rank's share of the headline
+    # (128 rows) and the 64-row rest of 1024 rows at the pitch band, the
+    # headline and 128 rows at width 259 (whole waves of 8 there) and the
+    # headline at width 215 (whole waves of 16)
+    size_launches = band.viterbi_forward_band.size_launches
+    plan_turns = {}
+
+    def hold_plans(label, args, expected):
+        rows, plan_width = len(args[0]), args[3][1]
+        old_plan = ((0, rows, 4),)
+        new_plan = band.cluster_plan(rows, STATES, plan_width, lambda size: (
+            band.resident_clusters(STATES, plan_width, size, device)))
+        size_launches.update(dict.fromkeys(size_launches, 0))
+        err = 0.0
+        for name, got in (
+                ('clusters of 4', band._launch_clusters(
+                    *args, old_plan, True, False)[0]),
+                ('the wrapper', band.viterbi_forward_band(*args)[0])):
+            err = max(err, require_equal(
+                torch, f'K1 {label} ({name})', got, expected))
+        wanted = dict.fromkeys(size_launches, 0)
+        wanted[4] += 1
+        for _, _, size in new_plan:
+            wanted[size] += 1
+        if size_launches != wanted:
+            fail(f'K1 {label}: launches per sequences per cluster '
+                 f'{size_launches}, expected {wanted} (plan {new_plan})')
+        wanted[4] -= 1
+        turns = [cuda_ms(torch, fn, iters=5) for fn in (
+            lambda: band._launch_clusters(*args, old_plan, True, False),
+            lambda: band.viterbi_forward_band(*args))]
+        turns += [cuda_ms(torch, fn, iters=5) for fn in (
+            lambda: band.viterbi_forward_band(*args),
+            lambda: band._launch_clusters(*args, old_plan, True, False))]
+        plan_turns[label] = dict(
+            old=old_plan, new=new_plan, ms=turns, wrapper_launches=wanted)
+        info(f'K1 {label}, in turns (ms): plan {old_plan} {turns[0]:.3f}, '
+             f'plan {new_plan} {turns[1]:.3f}, {turns[2]:.3f}, plan '
+             f'{old_plan} {turns[3]:.3f}; new/old '
+             f'{(turns[1] + turns[2]) / (turns[0] + turns[3]):.3f}; the '
+             f'wrapper\'s launches per sequences per cluster {wanted}')
+        return err
+
+    share = BATCH // 4
+    err = max(
+        hold_plans(f'{share} rows at width {width}', (
+            obs_k[:share], bf[:share], init, band_tuple, band_matrix),
+            post_k[:share]),
+        hold_plans(f'64 rows at width {width}', (
+            obs_k[:64], bf[:64], init, band_tuple, band_matrix),
+            post_k[:64]))
+    for halfwidth in (129, 107):
+        plan_trans = torch.from_numpy(
+            fixtures.triangular_log(STATES, halfwidth, TINY)).to(device)
+        plan_band = band.detect_band(plan_trans)
+        plan_args = (obs_k, bf, init, plan_band, band.build_band_matrix(
+            plan_trans, *plan_band[:2]))
+        plan_post = band.band_forward_reference(*plan_args)[0]
+        err = max(err, hold_plans(
+            f'headline at width {plan_band[1]}', plan_args, plan_post))
+        if halfwidth == 129:
+            err = max(err, hold_plans(
+                f'{share} rows at width {plan_band[1]}',
+                tuple(arg[:share] for arg in plan_args[:2]) + plan_args[2:],
+                plan_post[:share]))
+        del plan_trans, plan_args, plan_post
+    kernels['band_forward']['max_abs_err'] = max(
+        kernels['band_forward']['max_abs_err'], err)
+    kernels['band_forward'].update(plan_turns=plan_turns)
 
     # K3: backtrace on K1's output
     idx_k = backtrace.backtrace_posteriors(post_k, trans, posterior_k, bf)

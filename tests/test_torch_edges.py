@@ -94,7 +94,9 @@ def test_edge_lists_cover_the_layouts():
     assert any(edge.lo > 0 for edge in edges.BAND_EDGES)
     assert any(edge.lo + edge.width <= 0 for edge in edges.BAND_EDGES)
     assert any(edge.states % 8 for edge in edges.BAND_EDGES)
-    assert any(edge.batch % 4 for edge in edges.BAND_EDGES)
+    for sequences in band.CLUSTER_TILES:
+        if sequences > 1:
+            assert any(edge.batch % sequences for edge in edges.BAND_EDGES)
     for edge in edges.BAND_EDGES:
         for sequences in band.CLUSTER_TILES:
             assert band.cluster_layout(
@@ -105,15 +107,21 @@ def test_edge_lists_cover_the_layouts():
 
 @pytest.mark.parametrize('batch, plan', [
     (8, ((0, 8, 1),)),
+    (16, ((0, 16, 4),)),
+    (64, ((0, 64, 8),)),
+    (96, ((0, 96, 8),)),
+    (128, ((0, 128, 16),)),
     (512, ((0, 480, 32), (480, 32, 4))),
-    (1024, ((0, 960, 32), (960, 64, 4))),
+    (1024, ((0, 960, 32), (960, 64, 8))),
     (256, ((0, 256, 32),))])
 def test_cluster_plan_pitch(batch, plan):
     """At 1440 states and the pitch band (width 175), 15 clusters held at
     once: the auto-chunk rows (batch 8) take 8 clusters of one sequence;
     the headline (batch 512) one whole wave of 15 clusters of 32, then 32
     sequences in 8 clusters of 4 (one wave, cheaper than 3 waves of 1 or a
-    wave of 32)"""
+    wave of 32); a batch of less than a wave of 32s, or such a rest, runs
+    in one wave of clusters of 8 (64, 96 rows) or 16 (128 rows: 3 waves of
+    clusters of 4 before the sizes between 4 and 32)"""
     assert band.cluster_plan(batch, 1440, 175, h100) == plan
     assert band.forward_kernel(1440, 175) == (
         'band_forward', band.viterbi_forward_band)
@@ -124,7 +132,8 @@ def test_cluster_plan_pitch(batch, plan):
 
 
 @pytest.mark.parametrize('sequences, threads, smem', [
-    (1, 736, 142_988), (4, 192, 137_680), (32, 384, 222_368)])
+    (1, 736, 142_988), (4, 192, 137_680), (8, 192, 150_080),
+    (16, 384, 173_824), (32, 384, 222_368)])
 def test_cluster_layout_pitch(sequences, threads, smem):
     """Each CTA owns 180 of the 1440 destinations; the largest tile's band
     slice and 32 sequences' windows fill 217 KB of the 227 KB"""
@@ -134,12 +143,13 @@ def test_cluster_layout_pitch(sequences, threads, smem):
 
 
 @pytest.mark.parametrize('width, batch1, batch512', [
-    (259, ((0, 1, 1),), ((0, 512, 4),)),
+    (259, ((0, 1, 1),), ((0, 480, 8), (480, 32, 4))),
     (301, ((0, 1, 4),), ((0, 512, 4),)),
     (401, None, None)])
 def test_cluster_plan_wide_bands(width, batch1, batch512):
-    """Wider bands take fewer sequences per cluster; at width 401 no
-    cluster layout fits 1440 states and the wide-band design runs"""
+    """Wider bands take fewer sequences per cluster (at most 8 at width
+    259, 4 at 301); at width 401 no cluster layout fits 1440 states and the
+    wide-band design runs"""
     assert band.cluster_plan(1, 1440, width, h100) == batch1
     assert band.cluster_plan(512, 1440, width, h100) == batch512
     if batch1 is None:
@@ -160,6 +170,18 @@ def test_cluster_layout_small_states():
     assert band.forward_kernel(37, 0)[0] == 'band_forward_wide'
     # 4096 states: the band slice alone passes 227 KB
     assert band.cluster_plan(512, 4096, 175, h100) is None
+
+
+def test_size_launch_counter():
+    """Beside K1's launch count, a count per cluster size, one entry for
+    every size of the tile table, none yet on the CPU (the plain version
+    launches nothing)"""
+    obs = torch.zeros((2, 3, 4))
+    band.viterbi_forward_band(
+        obs, torch.full((2,), 3, dtype=torch.int32), torch.zeros(4),
+        (0, 1, None), torch.zeros((1, 4)))
+    assert band.viterbi_forward_band.size_launches == dict.fromkeys(
+        band.CLUSTER_TILES, 0)
 
 
 def test_forward_wrapper_rejects_sequences():

@@ -70,7 +70,8 @@
 // rows at batch 8) takes K4's thread shape instead: 4 lanes share a
 // destination, each takes every 4th offset, two xor shuffles combine them.
 // A window row holds the NB sequences' values of one source, so a
-// quarter-warp's vector loads fall in distinct banks.
+// quarter-warp's vector loads fall in distinct banks (two ways at NB = 8
+// and 16, whose destination groups of R = 2 skip a row between threads).
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -87,7 +88,12 @@ constexpr int kCluster = 8;  // CTAs per cluster
 // and split the band offsets, NACC accumulators per value; at most
 // MAX_THREADS per CTA. The launch plan (ops/band.py::cluster_plan) takes 1
 // sequence per cluster for the auto-chunk rows, 32 for whole waves of a
-// large batch and 4 for its rest
+// large batch, and for a rest that is less than a wave of 32s (or a batch
+// that is) the size whose waves cost least: 4, 8 or 16. The sizes of 4 or
+// more keep 4 sequences a thread (one float4 source load); 8 and 16 put
+// their SG = 2 or 4 sequence groups beside each other in a warp, at R = 2
+// (a wave at the pitch headline on the H100: 8 per cluster 4.12, 3.94 and
+// 6.37 ms at R = 1, 2 and 4; 16 per cluster 7.62, 6.47 and 6.65 ms)
 template <int NB>
 struct Tile;
 template <>
@@ -97,6 +103,14 @@ struct Tile<1> {
 template <>
 struct Tile<4> {
   static constexpr int NBT = 4, R = 1, G = 1, NACC = 1, MAX_THREADS = 512;
+};
+template <>
+struct Tile<8> {
+  static constexpr int NBT = 4, R = 2, G = 1, NACC = 1, MAX_THREADS = 512;
+};
+template <>
+struct Tile<16> {
+  static constexpr int NBT = 4, R = 2, G = 1, NACC = 1, MAX_THREADS = 512;
 };
 template <>
 struct Tile<32> {
@@ -459,7 +473,7 @@ int cluster_by_conversion(int conv, const float* obs, const int* batch_frames,
 // band[d, j] = transition[j, j + d + lo]. The observation is log-space
 // when log_input is set, else probabilities; apply_epsilon applies the
 // epsilon step (common.cuh, convert_obs). The cluster design with
-// `sequences` (1, 4 or 32) per cluster of 8 CTAs. Returns a
+// `sequences` (1, 4, 8, 16 or 32) per cluster of 8 CTAs. Returns a
 // cudaError_t code: cudaErrorInvalidValue when width < 1, or when the
 // layout needs more threads or shared memory than a CTA may have
 // (ops/band.py::cluster_layout computes the same).
@@ -481,6 +495,8 @@ extern "C" int band_forward(const float* obs, const int* batch_frames,
   switch (sequences) {
     TORBI_CLUSTER_CASE(1)
     TORBI_CLUSTER_CASE(4)
+    TORBI_CLUSTER_CASE(8)
+    TORBI_CLUSTER_CASE(16)
     TORBI_CLUSTER_CASE(32)
     default:
       return cudaErrorInvalidValue;
@@ -499,6 +515,10 @@ extern "C" int band_forward_clusters(int states, int width, int sequences,
       return count_clusters<1>(states, width, clusters);
     case 4:
       return count_clusters<4>(states, width, clusters);
+    case 8:
+      return count_clusters<8>(states, width, clusters);
+    case 16:
+      return count_clusters<16>(states, width, clusters);
     case 32:
       return count_clusters<32>(states, width, clusters);
     default:

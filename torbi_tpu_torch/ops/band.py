@@ -69,14 +69,17 @@ SPREAD_STAGES = 4
 SPREAD_SMEM_BYTES = 227 * 1024
 
 # K1's cluster design (csrc/band_forward.cu, Tile and cluster_layout):
-# clusters of 8 CTAs; for each number of sequences per cluster, the thread
-# tile (sequences per thread, destinations per thread, lanes sharing a
-# destination) and the most threads per CTA. Its layout must fit the opt-in
-# shared memory, CLUSTER_SMEM_BYTES
+# clusters of 8 CTAs; for each number of sequences per cluster (1 for the
+# auto-chunk rows, 32 for whole waves, 4, 8 or 16 for a rest of less than a
+# wave of 32s), the thread tile (sequences per thread, destinations per
+# thread, lanes sharing a destination) and the most threads per CTA. Its
+# layout must fit the opt-in shared memory, CLUSTER_SMEM_BYTES
 CLUSTER_CTAS = 8
 CLUSTER_TILES = {
     1: (1, 1, 4, 1024),
     4: (4, 1, 1, 512),
+    8: (4, 2, 1, 512),
+    16: (4, 2, 1, 512),
     32: (4, 4, 1, 512),
 }
 CLUSTER_SMEM_BYTES = 227 * 1024
@@ -84,9 +87,10 @@ CLUSTER_SMEM_BYTES = 227 * 1024
 # at once, resident_clusters), relative to a wave of clusters of 4:
 # chip_smoke.py's K1 plan phase times a wave of each size at the pitch
 # headline's frames, states and band (NVIDIA H100 80GB HBM3, 700 W: 1.619,
-# 3.226 and 10.127 ms). cluster_plan weighs the launch of a batch's rest
-# with it
-CLUSTER_WAVE_COST = {1: 0.502, 4: 1.0, 32: 3.139}
+# 3.226 and 10.127 ms for 1, 4 and 32; 8 and 16 against 3.238 ms for 4 in
+# another run: 3.937 and 6.409 ms). cluster_plan weighs the launch of a
+# batch's rest with it
+CLUSTER_WAVE_COST = {1: 0.502, 4: 1.0, 8: 1.216, 16: 1.980, 32: 3.139}
 
 # Detection and gating results cached per live, unmodified tensor
 _detect_cache = {}
@@ -286,8 +290,9 @@ def cluster_plan(batch, states, width, resident):
     CLUSTER_WAVE_COST, or joins the whole waves when that size is the
     largest. With 15 clusters held at once at 1440 states and the pitch
     band, batch 8 (the auto-chunk rows) is one launch of 8 clusters of 1
-    sequence, batch 512 (the headline) 480 sequences in clusters of 32,
-    then 32 in clusters of 4."""
+    sequence, batch 128 (a four-card rank's share of the headline) one
+    wave of 8 clusters of 16, batch 512 (the headline) 480 sequences in
+    clusters of 32, then 32 in clusters of 4."""
     sizes = cluster_sizes(states, width)
     if not sizes:
         return None
@@ -384,6 +389,8 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
 
 
 viterbi_forward_band.launches = 0
+# The launches by sequences per cluster, beside the total
+viterbi_forward_band.size_launches = dict.fromkeys(CLUSTER_TILES, 0)
 
 
 def _forward_band_clusters(observation, batch_frames, initial, band,
@@ -437,6 +444,7 @@ def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
                     int(apply_epsilon), size, build.stream(device))
                 build.raise_on_error(lib, 'band_forward', code)
                 viterbi_forward_band.launches += 1
+                viterbi_forward_band.size_launches[size] += 1
     return post_seq, post_seq[:, -1]
 
 
