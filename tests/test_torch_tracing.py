@@ -123,9 +123,13 @@ def test_auto_chunk_route_spans_its_kernels(monkeypatch):
     found = without_builds(profiled(lambda: dispatch.decode(
         obs, np.array([600], np.int32), trans, init, device='cpu')))
     assert chunked and chunked[0] is not None
+    # The entropy pass and the host plan run inside the plan cache's build
     assert found == [('torbi.decode', None),
+                     ('torbi.autochunk.entropy', 'torbi.build'),
+                     ('torbi.autochunk.plan', 'torbi.build'),
                      ('torbi.forward.band_forward', 'torbi.decode'),
-                     ('torbi.chase.backtrace', 'torbi.decode')]
+                     ('torbi.chase.backtrace', 'torbi.decode'),
+                     ('torbi.autochunk.stitch', 'torbi.decode')]
 
 
 def test_dense_route_spans(monkeypatch):

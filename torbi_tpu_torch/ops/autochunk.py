@@ -13,9 +13,12 @@ a single long banded sequence:
    greedy boundaries of the user-facing chunker) and cached per device
    observation and ``batch_frames`` tensor (identity and version): a caller
    who decodes one resident buffer again, with the same ``batch_frames``
-   tensor, skips the entropy pass and its host round trip. Every other call
-   (a new observation, a host array, the default ``batch_frames`` that
-   ``from_probabilities`` builds per call) computes its plan afresh;
+   tensor, skips the entropy pass, its host round trip, the plan and the
+   plan's copies to the device. Every other call (a new observation, a
+   host array, the default ``batch_frames`` that ``from_probabilities``
+   builds per call) computes its plan afresh. A user decoding a new
+   recording pays for the plan on every call, so the benchmark's long
+   recordings pass no ``batch_frames``;
 3. the chunk rows are gathered out of the sequence at the longest chunk's
    length (lengths mask the rest), decoded as one batch through the banded
    route (K1, in the design ``band.forward_kernel`` picks for the rows,
@@ -23,6 +26,16 @@ a single long banded sequence:
    paths gathered back into the (1, frames)
    sequence, frames past the valid length frozen at the last decoded state
    (the reference's padded-batch freeze).
+
+Spans (``utils/timing.py``): ``torbi.autochunk.entropy`` (the entropy pass
+and its copy to the host), ``torbi.autochunk.plan`` (the host plan, its
+arrays and their copies to the device), both inside the plan cache's
+``torbi.build``, and ``torbi.autochunk.stitch`` (the paths gathered back).
+Counters on ``decode_chunked``, beside the kernels' ``.launches``:
+``plans`` (plans computed; cache hits compute none), ``rows`` (chunk rows
+decoded) and ``declines`` (calls handed back to the serial route, by
+reason: ``memory``, ``frames`` for fewer valid frames than
+``BATCH1_AUTO_CHUNK_MIN_FRAMES``, ``plan`` for no plan that pays).
 
 The result is the reference's chunked mode: each chunk decodes with the
 caller's initial distribution, so it is bitwise the oracle run per chunk,
@@ -147,41 +160,48 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
     frames = observation.shape[1]
     # A sequence too big for the route decodes serially
     if declines_for_memory(observation.numel() * 4):
+        _counters.declines['memory'] += 1
         return None
     target = int(torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
     min_frames = int(torbi_tpu_torch.BATCH1_AUTO_CHUNK_MIN_FRAMES)
 
     def compute():
-        entropy = framewise_entropy(
-            observation, states, log_input).cpu().numpy()
+        """The plan's device arrays, or the reason the route declines"""
         valid = min(int(batch_frames[0]), frames)
         if valid < min_frames:
-            return None
-        split_plan = plan_splits(entropy, valid, target)
-        if split_plan is None:
-            return None
-        starts, lengths = split_plan
-        longest = int(lengths.max())
-        # Frame k of row r reads sequence frame starts[r] + k; the frames
-        # past a row's length are masked by its length
-        gather = np.minimum(
-            starts[:, None] + np.arange(longest)[None, :], frames - 1)
-        # Output frame t reads row(t) at t - starts[row(t)]; the tail past
-        # the valid length holds the last decoded state
-        t = np.minimum(np.arange(frames), valid - 1)
-        row = np.searchsorted(starts, t, side='right') - 1
-        return (torch.from_numpy(gather).to(device),
-                torch.from_numpy(lengths).to(device),
-                torch.from_numpy(row).to(device),
-                torch.from_numpy(t - starts[row]).to(device))
+            return 'frames'
+        _counters.plans += 1
+        with timing.span('torbi.autochunk.entropy'):
+            entropy = framewise_entropy(
+                observation, states, log_input).cpu().numpy()
+        with timing.span('torbi.autochunk.plan'):
+            split_plan = plan_splits(entropy, valid, target)
+            if split_plan is None:
+                return 'plan'
+            starts, lengths = split_plan
+            longest = int(lengths.max())
+            # Frame k of row r reads sequence frame starts[r] + k; the
+            # frames past a row's length are masked by its length
+            gather = np.minimum(
+                starts[:, None] + np.arange(longest)[None, :], frames - 1)
+            # Output frame t reads row(t) at t - starts[row(t)]; the tail
+            # past the valid length holds the last decoded state
+            t = np.minimum(np.arange(frames), valid - 1)
+            row = np.searchsorted(starts, t, side='right') - 1
+            return (torch.from_numpy(gather).to(device),
+                    torch.from_numpy(lengths).to(device),
+                    torch.from_numpy(row).to(device),
+                    torch.from_numpy(t - starts[row]).to(device))
 
     plan = _cached_plan(
         observation, batch_frames, compute,
         extra_key=(target, float(torbi_tpu_torch.ENTROPY_THRESHOLD),
                    min_frames, states, bool(log_input), str(device)))
-    if plan is None:
+    if isinstance(plan, str):
+        _counters.declines[plan] += 1
         return None
     gather, lengths, row, column = plan
+    _counters.rows += int(gather.shape[0])
 
     # The gather is a copy; K1 converts the raw rows as it loads them
     rows = observation[0, :, :states][gather]
@@ -193,4 +213,13 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
     with timing.span('torbi.chase.backtrace'):
         indices = backtrace_ops.backtrace_posteriors(
             post_seq, transition, posterior, lengths)
-    return indices[row, column][None]
+    with timing.span('torbi.autochunk.stitch'):
+        return indices[row, column][None]
+
+
+decode_chunked.plans = 0
+decode_chunked.rows = 0
+decode_chunked.declines = {'memory': 0, 'frames': 0, 'plan': 0}
+# The route counts on this function object, not through the module's
+# name, which a wrapper (the tests' spies) may rebind
+_counters = decode_chunked
