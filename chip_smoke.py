@@ -3218,7 +3218,10 @@ def main():
     single_paths = {}
 
     # The default route: entropy-chunk rows through K1 and K3
+    route = autochunk.decode_chunked
+    plan_bytes = route.plan_bytes
     chunked, chunk_counts = run_path('batch-1 auto-chunk path', single_call)
+    plan_bytes = route.plan_bytes - plan_bytes
     if chunk_counts['band_forward'] < 1 or chunk_counts['backtrace'] < 1:
         fail('the auto-chunk path did not launch K1 and K3')
     if (chunk_counts['band_spread'] or chunk_counts['backtrace_pointers']
@@ -3233,7 +3236,11 @@ def main():
         fail('no auto-chunk plan for the peaked pitch sequence')
     starts, lengths = plan
     info(f'auto-chunk plan: {len(starts)} rows, longest chunk '
-         f'{int(lengths.max())} frames, starts {starts.tolist()}')
+         f'{int(lengths.max())} frames, {plan_bytes} plan bytes to the card '
+         f'(decode_chunked.plan_bytes), starts {starts.tolist()}')
+    if plan_bytes != 8 * len(starts):
+        fail(f'the auto-chunk call copied {plan_bytes} plan bytes to the '
+             f'card, not its starts and lengths ({8 * len(starts)})')
     per_chunk = torch.cat([
         single_call(single[:, start:start + length], backend='scan')
         for start, length in zip(starts.tolist(), lengths.tolist())], dim=1)
@@ -3244,14 +3251,27 @@ def main():
     # and its copy to the card. Then a host array every call (the copy to
     # the card included), then one buffer and batch_frames tensor decoded
     # again (the plan cached: no entropy pass)
-    fresh = iter([single.clone() for _ in range(11)])
-    single_paths['auto-chunk, new tensor each call'] = host_ms(
-        torch, lambda: single_call(next(fresh)))
+    def timed_route(label, fn, want_bytes):
+        """host_ms of an auto-chunk call, and the plan bytes it copied to
+        the card a call (decode_chunked.plan_bytes) over host_ms's 11 calls,
+        after one more that may fill the plan cache"""
+        fn()
+        before = route.plan_bytes
+        single_paths[label] = host_ms(torch, fn, calls=10)
+        per_call = (route.plan_bytes - before) / 11
+        info(f'batch-1 {label}: {per_call:.0f} plan bytes to the card a call')
+        if per_call != want_bytes:
+            fail(f'batch-1 {label} copied {per_call} plan bytes to the card '
+                 f'a call, expected {want_bytes}')
+
+    fresh = iter([single.clone() for _ in range(12)])
+    timed_route('auto-chunk, new tensor each call',
+                lambda: single_call(next(fresh)), 8 * len(starts))
     del fresh
-    single_paths['auto-chunk, host array each call'] = host_ms(
-        torch, lambda: single_call(single_host))
-    single_paths['auto-chunk, plan cached (same buffer)'] = host_ms(
-        torch, lambda: single_call(batch_frames=bf1))
+    timed_route('auto-chunk, host array each call',
+                lambda: single_call(single_host), 8 * len(starts))
+    timed_route('auto-chunk, plan cached (same buffer)',
+                lambda: single_call(batch_frames=bf1), 0)
     entropy_ms = cuda_ms(torch, lambda: autochunk.framewise_entropy(
         single, STATES, True), iters=5)
     start = time.perf_counter()

@@ -262,6 +262,35 @@ def test_plan_equals_jax(small_knobs, frames, states, halfwidth, valid, seed):
         np.testing.assert_array_equal(got[1], expected[1])
 
 
+@pytest.mark.parametrize('starts, valid, frames', [
+    ([0, 9, 30, 38, 50, 61], 70, 70),
+    ([0, 12, 20, 33, 47], 60, 75),
+    ([0, 5, 11, 18, 24], 50, 50),
+    ([0, 20, 26, 33, 40], 48, 48),
+    ([0, 16, 32, 48], 64, 64),
+], ids=['valid-is-frames', 'frozen-tail', 'last-longest', 'clamp',
+        'four-rows'])
+def test_plan_arrays_equal_the_host_construction(starts, valid, frames):
+    """The plan's arrays built on the device from (starts, lengths) equal,
+    element for element and in dtype and shape, their numpy construction"""
+    starts = np.array(starts, np.int32)
+    lengths = np.diff(np.append(starts, valid)).astype(np.int32)
+    longest = int(lengths.max())
+    gather = np.minimum(
+        starts[:, None] + np.arange(longest)[None, :], frames - 1)
+    t = np.minimum(np.arange(frames), valid - 1)
+    row = np.searchsorted(starts, t, side='right') - 1
+    expected = (gather, lengths, row, t - starts[row])
+
+    got = autochunk.plan_arrays(starts, lengths, valid, frames, 'cpu')
+    assert len(got) == len(expected)
+    for mine, theirs in zip(got, expected):
+        theirs = torch.from_numpy(theirs)
+        assert mine.dtype == theirs.dtype
+        assert mine.shape == theirs.shape
+        assert torch.equal(mine, theirs)
+
+
 def test_private_tables_are_jax_defaults():
     """The port's private frame buckets and row tile are the JAX package's
     defaults, so production plans follow the same rule"""

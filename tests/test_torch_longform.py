@@ -124,6 +124,7 @@ def test_spans_and_counters_of_a_planned_call(knobs):
     observation = found.observation[None]
     batch_frames = torch.tensor([1500], dtype=torch.int32)
     plans, rows, declines = counts()
+    plan_bytes = autochunk.decode_chunked.plan_bytes
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as profile:
         got = decode(observation, batch_frames)
@@ -134,6 +135,9 @@ def test_spans_and_counters_of_a_planned_call(knobs):
                      ('torbi.autochunk.stitch', 'torbi.decode')]
     assert torch.equal(got.to(torch.int64), path)
     assert counts() == (plans + 1, rows + len(chunk_plan), declines)
+    # Only the chunks' starts and lengths cross to the device: int32 each
+    assert (autochunk.decode_chunked.plan_bytes
+            == plan_bytes + 8 * len(chunk_plan))
 
     # The same observation and batch_frames tensor: the plan is cached,
     # so no entropy pass and no plan, and the rows decode again
@@ -145,6 +149,8 @@ def test_spans_and_counters_of_a_planned_call(knobs):
         'torbi.autochunk.stitch']
     assert torch.equal(again, got)
     assert counts() == (plans + 1, rows + 2 * len(chunk_plan), declines)
+    assert (autochunk.decode_chunked.plan_bytes
+            == plan_bytes + 8 * len(chunk_plan))
 
 
 @pytest.mark.parametrize('reason', ['memory', 'frames', 'plan'])
@@ -161,6 +167,7 @@ def test_declines_count_by_reason(knobs, monkeypatch, reason):
         [viterbi.stabilised(found.observation)], [valid], transition(),
         viterbi.default_initial(STATES))
     plans, rows, declines = counts()
+    plan_bytes = autochunk.decode_chunked.plan_bytes
     got = dispatch.decode(
         found.observation[None], torch.tensor([valid], dtype=torch.int32),
         transition(), viterbi.default_initial(STATES), log_input=True,
@@ -168,6 +175,8 @@ def test_declines_count_by_reason(knobs, monkeypatch, reason):
     assert torch.equal(got[:valid].to(torch.int64), full)
     assert counts() == (plans + (reason == 'plan'), rows,
                         dict(declines, **{reason: declines[reason] + 1}))
+    # A declined call copies no plan to the device
+    assert autochunk.decode_chunked.plan_bytes == plan_bytes
 
 
 def test_the_port_tile_rule_never_declines_the_configurations_plans():

@@ -74,21 +74,20 @@ def splits_from_entropy(
     if isinstance(entropy_values, torch.Tensor):
         entropy_values = entropy_values.cpu().numpy()
     entropy_values = np.asarray(entropy_values)
-    frames = entropy_values.shape[0]
     candidates = entropy_values < entropy_threshold
-    splittable = np.flatnonzero(candidates[1:] & candidates[:-1]) + 1
+    # Byte k is 1 where frames k and k + 1 are both candidates: frame k + 1
+    # is splittable
+    pairs = (candidates[1:] & candidates[:-1]).tobytes()
 
     # Greedy selection: each split is the first splittable frame at least
-    # min_chunk_size after the previous one (frame 0 to start)
+    # min_chunk_size after the previous one (frame 0 to start); bytes.find
+    # scans for the next one in C
     split_points = []
-    position = min_chunk_size
-    while True:
-        index = np.searchsorted(splittable, position)
-        if index == len(splittable) or splittable[index] >= frames:
-            return split_points
-        point = int(splittable[index])
-        split_points.append(point)
-        position = point + min_chunk_size
+    pair = pairs.find(b'\x01', max(min_chunk_size - 1, 0))
+    while pair >= 0:
+        split_points.append(pair + 1)
+        pair = pairs.find(b'\x01', pair + min_chunk_size)
+    return split_points
 
 
 def entropy(observation):

@@ -10,15 +10,18 @@ a single long banded sequence:
 1. the framewise normalized entropy runs as torch ops on the decode device
    and comes back as a (frames,) array;
 2. split points are planned on the host (``chunk.splits_from_entropy``, the
-   greedy boundaries of the user-facing chunker) and cached per device
-   observation and ``batch_frames`` tensor (identity and version): a caller
-   who decodes one resident buffer again, with the same ``batch_frames``
-   tensor, skips the entropy pass, its host round trip, the plan and the
-   plan's copies to the device. Every other call (a new observation, a
-   host array, the default ``batch_frames`` that ``from_probabilities``
-   builds per call) computes its plan afresh. A user decoding a new
-   recording pays for the plan on every call, so the benchmark's long
-   recordings pass no ``batch_frames``;
+   greedy boundaries of the user-facing chunker); only the chunks' starts
+   and lengths cross to the device, in one copy of 8 bytes a row, and the
+   plan's index arrays are built there (``plan_arrays``: the rows' gather,
+   the stitch's row and column of each frame) with no sync. The plan is
+   cached per device observation and ``batch_frames`` tensor (identity and
+   version): a caller who decodes one resident buffer again, with the same
+   ``batch_frames`` tensor, skips the entropy pass, its host round trip,
+   the plan and its copy to the device. Every other call (a new
+   observation, a host array, the default ``batch_frames`` that
+   ``from_probabilities`` builds per call) computes its plan afresh. A
+   user decoding a new recording pays for the plan on every call, so the
+   benchmark's long recordings pass no ``batch_frames``;
 3. the chunk rows are gathered out of the sequence at the longest chunk's
    length (lengths mask the rest), decoded as one batch through the banded
    route (K1, in the design ``band.forward_kernel`` picks for the rows,
@@ -29,13 +32,15 @@ a single long banded sequence:
 
 Spans (``utils/timing.py``): ``torbi.autochunk.entropy`` (the entropy pass
 and its copy to the host), ``torbi.autochunk.plan`` (the host plan, its
-arrays and their copies to the device), both inside the plan cache's
-``torbi.build``, and ``torbi.autochunk.stitch`` (the paths gathered back).
-Counters on ``decode_chunked``, beside the kernels' ``.launches``:
-``plans`` (plans computed; cache hits compute none), ``rows`` (chunk rows
-decoded) and ``declines`` (calls handed back to the serial route, by
-reason: ``memory``, ``frames`` for fewer valid frames than
-``BATCH1_AUTO_CHUNK_MIN_FRAMES``, ``plan`` for no plan that pays).
+copy to the device and the launches that build its arrays there), both
+inside the plan cache's ``torbi.build``, and ``torbi.autochunk.stitch``
+(the paths gathered back). Counters on ``decode_chunked``, beside the
+kernels' ``.launches``: ``plans`` (plans computed; cache hits compute
+none), ``rows`` (chunk rows decoded), ``plan_bytes`` (bytes copied from
+the host to the device for the plans computed: 8 a row) and ``declines``
+(calls handed back to the serial route, by reason: ``memory``, ``frames``
+for fewer valid frames than ``BATCH1_AUTO_CHUNK_MIN_FRAMES``, ``plan`` for
+no plan that pays).
 
 The result is the reference's chunked mode: each chunk decodes with the
 caller's initial distribution, so it is bitwise the oracle run per chunk,
@@ -124,6 +129,29 @@ def plan_splits(entropy_values, valid, target):
     return starts, lengths
 
 
+def plan_arrays(starts, lengths, valid, frames, device):
+    """The plan's device arrays from its host (starts, lengths) int32:
+    (gather, lengths, row, column) on ``device``.
+
+    Only starts and lengths cross to the device, in one (2, rows) int32
+    copy; the rest is built there from sizes the host knows, without a
+    sync. Frame k of row r reads sequence frame starts[r] + k (``gather``,
+    (rows, longest) int64, clamped to the sequence; the frames past a row's
+    length are masked by its length); output frame t reads row(t) at
+    t - starts[row(t)] (``row``, ``column``, (frames,) int64), the tail past
+    the valid length holding the last decoded state.
+    """
+    host = torch.from_numpy(np.stack([starts, lengths]))
+    _counters.plan_bytes += host.nbytes
+    small = host.to(device)
+    starts_d = small[0].long()
+    gather = (starts_d[:, None] + torch.arange(
+        int(lengths.max()), device=device)).clamp_(max=frames - 1)
+    t = torch.arange(frames, device=device).clamp_(max=valid - 1)
+    row = torch.searchsorted(starts_d, t, right=True).sub_(1)
+    return gather, small[1], row, t.sub_(starts_d[row])
+
+
 def declines_for_memory(obs_bytes):
     """Whether the route declines an observation of ``obs_bytes``: it may
     take at most 2/5 of the budget, the JAX package's rule (there the
@@ -178,20 +206,7 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
             split_plan = plan_splits(entropy, valid, target)
             if split_plan is None:
                 return 'plan'
-            starts, lengths = split_plan
-            longest = int(lengths.max())
-            # Frame k of row r reads sequence frame starts[r] + k; the
-            # frames past a row's length are masked by its length
-            gather = np.minimum(
-                starts[:, None] + np.arange(longest)[None, :], frames - 1)
-            # Output frame t reads row(t) at t - starts[row(t)]; the tail
-            # past the valid length holds the last decoded state
-            t = np.minimum(np.arange(frames), valid - 1)
-            row = np.searchsorted(starts, t, side='right') - 1
-            return (torch.from_numpy(gather).to(device),
-                    torch.from_numpy(lengths).to(device),
-                    torch.from_numpy(row).to(device),
-                    torch.from_numpy(t - starts[row]).to(device))
+            return plan_arrays(*split_plan, valid, frames, device)
 
     plan = _cached_plan(
         observation, batch_frames, compute,
@@ -219,6 +234,7 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
 
 decode_chunked.plans = 0
 decode_chunked.rows = 0
+decode_chunked.plan_bytes = 0
 decode_chunked.declines = {'memory': 0, 'frames': 0, 'plan': 0}
 # The route counts on this function object, not through the module's
 # name, which a wrapper (the tests' spies) may rebind

@@ -23,15 +23,17 @@ name:
   count of these spans is the caches' miss count;
 - ``torbi.autochunk.entropy``, ``torbi.autochunk.plan``: batch-1
   auto-chunking's entropy pass with its copy to the host, and its host
-  plan with the plan's copies to the device (``ops/autochunk.py``; inside
+  plan with its one copy to the device and the launches that build the
+  plan's arrays there (``ops/autochunk.py``; inside
   the plan cache's ``torbi.build``); ``torbi.autochunk.stitch``: the chunk
   rows' paths gathered back into the sequence.
 
 Counters are attributes of the function that counts: each kernel
 wrapper's ``.launches``, and the auto-chunk route's
-``decode_chunked.plans`` (plans computed), ``.rows`` (chunk rows decoded)
-and ``.declines`` (calls handed to the serial route, by reason:
-``memory``, ``frames``, ``plan``).
+``decode_chunked.plans`` (plans computed), ``.rows`` (chunk rows
+decoded), ``.plan_bytes`` (bytes the plans copied to the device) and
+``.declines`` (calls handed to the serial route, by reason: ``memory``,
+``frames``, ``plan``).
 """
 import contextlib
 import functools
