@@ -64,8 +64,8 @@ just after each:
   1 x 10,240, 1 x 2048 and on every sequence of the pure-band edges; the
   window route must launch both of its phases and never K5's phase 1
   (the floor pass). The
-  auto-chunk route is timed on a new observation every call (its plan
-  computed each time), from a host array, and with its plan cached;
+  auto-chunk route is timed on a new observation every call, from a host
+  array, and on one buffer decoded again; each call plans afresh;
 - the wide-band paths, bands no cluster layout holds (K1's wide-band
   design): (a) 1 x 256 x 1440 at width 401 over log(tiny) through
   ``from_probabilities`` (K1, then K5); (b) 512 x 512 x 1440 under the
@@ -152,9 +152,9 @@ just after each:
   the partition of ``shard_files_balanced``, the results written once; a
   world of one over NCCL; ``scripts/scaling.py --mode overhead`` with one
   and two ranks at 512 x 512 x 1440;
-- the profiler (``utils/profile.py``): the stage times of the headline and
-  of the batch-1 serial route, and one headline call under
-  ``torch.profiler`` with its top device ops and the device's idle share.
+- the trace: one headline call under ``torch.profiler``, read by the
+  benchmark's ``benchmark/trace.py``, with its top device ops and the
+  device's idle share.
 
 After the build it prints what ptxas reports of K7 and of each of K8's
 tile designs, and fails if a design the plan picks, or K7, spills or
@@ -606,16 +606,42 @@ def dense_big_inputs(torch, device):
     return obs, lengths, trans, initial
 
 
+def traced(torch, fn, trace_dir):
+    """One call of ``fn`` under the benchmark's profiler, its Chrome trace
+    written to trace_dir/trace.json: ``benchmark/trace.py``'s summary,
+    with ``idle_share`` (1 - busy / span)"""
+    from benchmark import trace
+
+    trace_dir = Path(trace_dir)
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    with trace.profiled('cuda') as profile:
+        fn()
+        torch.cuda.synchronize()
+    path = trace_dir / 'trace.json'
+    profile.export_chrome_trace(str(path))
+    summary = trace.summarize(trace.complete_events(path))
+    if summary is None:
+        fail(f'the trace at {path} holds no complete event')
+    summary['idle_share'] = 1.0 - summary['busy_s'] / summary['span_s']
+    return summary
+
+
+def trace_rows(summary, top):
+    """Info lines of the ``top`` longest device ops of a trace summary"""
+    for name, (seconds, count) in list(
+            summary['device_ops'].items())[:top]:
+        info(f'  trace {seconds * 1e3:9.3f} ms x{count:<3} {name[:90]}')
+
+
 def trace_dense(trace_dir):
     """Child process of the dense phase: one call of the dense path at the
     throughput shape under the profiler (a process traces the card once),
-    after a warm-up call; writes its idle share and top device ops to
+    after a warm-up call; writes the trace's summary to
     trace_dir/summary.json"""
     import torch
 
     sys.path.insert(0, str(ROOT))
     import torbi_tpu_torch
-    from torbi_tpu_torch.utils import profile
 
     device = torch.device('cuda', 0)
     obs, lengths, trans, initial = dense_big_inputs(torch, device)
@@ -627,9 +653,7 @@ def trace_dense(trace_dir):
 
     call()
     torch.cuda.synchronize()
-    profile.capture(call, trace_dir)
-    summary = {'busy': profile.device_busy(trace_dir),
-               'rows': profile.device_op_times(trace_dir)[:6]}
+    summary = traced(torch, call, trace_dir)
     (Path(trace_dir) / 'summary.json').write_text(json.dumps(summary))
 
 
@@ -706,8 +730,9 @@ def file_path_phase(torch, device, card, reset_counts, read_counts):
     just after each run. Returns the corpus run's launch counts.
     ``device`` is the card (or, to rehearse the phase's logic, the CPU)"""
     import torbi_tpu_torch
-    from torbi_tpu_torch import bench, core
+    from torbi_tpu_torch import core
     from torbi_tpu_torch.data import native
+    from torbi_tpu_torch.models import pitch
     from torbi_tpu_torch.ops import autochunk, dispatch
     from torbi_tpu_torch.utils import fixtures, io, profile, timing
 
@@ -723,7 +748,7 @@ def file_path_phase(torch, device, card, reset_counts, read_counts):
     start = time.perf_counter()
     lengths = np.random.default_rng(FILE_SEED).integers(
         400, 1600, size=FILE_COUNT)
-    inputs, outputs, trans_path = bench.write_corpus(
+    inputs, outputs, trans_path = pitch.write_corpus(
         str(directory), lengths, STATES)
     trans_prob = np.load(trans_path)
     trans_log = torch.from_numpy(np.log(trans_prob + TINY)).to(device)
@@ -1819,7 +1844,7 @@ def scaleout_phase(torch, device, card, headline, exact_path, dense_path,
     import torch.distributed as dist
 
     import torbi_tpu_torch
-    from torbi_tpu_torch import bench
+    from torbi_tpu_torch.models import pitch
     from torbi_tpu_torch.ops import dispatch
     from torbi_tpu_torch.parallel import decode_sharded, files
     from torbi_tpu_torch.scripts.modes_timing import free_port, run_ranks
@@ -1839,7 +1864,7 @@ def scaleout_phase(torch, device, card, headline, exact_path, dense_path,
     (workdir / 'files').mkdir(parents=True)
     lengths = np.random.default_rng(FILE_SEED).integers(
         400, 1600, size=FILE_COUNT)
-    inputs, outputs, trans_path = bench.write_corpus(
+    inputs, outputs, trans_path = pitch.write_corpus(
         str(workdir / 'files'), lengths, STATES)
     split = [path.replace('_out', '_split') for path in outputs]
     torbi_tpu_torch.from_files_to_files(
@@ -2755,23 +2780,21 @@ def main():
          str(trace_dir)], capture_output=True, text=True, timeout=600)
     if child.returncode:
         fail(f'the traced dense call failed: {child.stderr[-2000:]}')
-    traced = json.loads((trace_dir / 'summary.json').read_text())
-    dense_busy, dense_rows = traced['busy'], traced['rows']
-    if not dense_rows:
+    dense_trace = json.loads((trace_dir / 'summary.json').read_text())
+    if not dense_trace['device_events']:
         fail('the profiler trace of the dense path holds no device event')
     kernels['dense_forward'].update(
-        path_ms=dense_big_ms[0], path_idle_share=dense_busy['idle_share'])
+        path_ms=dense_big_ms[0], path_idle_share=dense_trace['idle_share'])
     info(f'dense path at {DENSE_BIG_BATCH} x {DENSE_BIG_FRAMES} x '
          f'{DENSE_BIG_STATES} (from_probabilities): equals the plain scan '
          f'route on the card; {dense_big_ms[0]:.3f} ms/call warm median of '
          f'10 (min {dense_big_ms[1]:.3f}, max {dense_big_ms[2]:.3f}), '
          f'{DENSE_BIG_BATCH * DENSE_BIG_FRAMES / dense_big_ms[0] * 1e3:.0f} '
          f'timesteps/s, on {card}; traced call: device busy '
-         f'{dense_busy["busy_ms"]:.3f} of {dense_busy["span_ms"]:.3f} ms, '
-         f'idle share {dense_busy["idle_share"]:.4f}')
-    for row in dense_rows[:6]:
-        info(f'  dense trace {row["total_ms"]:9.3f} ms x{row["count"]:<3} '
-             f'{row["name"][:90]}')
+         f'{dense_trace["busy_s"] * 1e3:.3f} of '
+         f'{dense_trace["span_s"] * 1e3:.3f} ms, idle share '
+         f'{dense_trace["idle_share"]:.4f}')
+    trace_rows(dense_trace, 6)
     del dense_big_out, big_obs, big_args
 
     # 4. The banded path (the headline) through from_probabilities
@@ -3247,14 +3270,14 @@ def main():
     require_same('auto-chunk path', chunked, per_chunk,
                  'the plain scan route decoded chunk by chunk on its plan')
     # The batch-1 latency: a new observation every call, as a user's file
-    # is, so each call pays the entropy pass, its host round trip, the plan
-    # and its copy to the card. Then a host array every call (the copy to
-    # the card included), then one buffer and batch_frames tensor decoded
-    # again (the plan cached: no entropy pass)
+    # is; then a host array every call (the copy to the card included);
+    # then one buffer and batch_frames tensor decoded again. Every call
+    # pays the entropy pass, its host round trip, the plan and its copy to
+    # the card
     def timed_route(label, fn, want_bytes):
         """host_ms of an auto-chunk call, and the plan bytes it copied to
         the card a call (decode_chunked.plan_bytes) over host_ms's 11 calls,
-        after one more that may fill the plan cache"""
+        after one more"""
         fn()
         before = route.plan_bytes
         single_paths[label] = host_ms(torch, fn, calls=10)
@@ -3270,8 +3293,8 @@ def main():
     del fresh
     timed_route('auto-chunk, host array each call',
                 lambda: single_call(single_host), 8 * len(starts))
-    timed_route('auto-chunk, plan cached (same buffer)',
-                lambda: single_call(batch_frames=bf1), 0)
+    timed_route('auto-chunk, same buffer again',
+                lambda: single_call(batch_frames=bf1), 8 * len(starts))
     entropy_ms = cuda_ms(torch, lambda: autochunk.framewise_entropy(
         single, STATES, True), iters=5)
     start = time.perf_counter()
@@ -4201,64 +4224,25 @@ def main():
          'tree12 (192 threads), each beside its plain version at the same '
          'size')
 
-    # 9. The profiler: stage times of the headline and of the batch-1
-    # serial route, then one headline call traced
-    stages = profile.time_stages(obs, bf, trans, init, iters=5,
-                                 apply_epsilon=True)
-    sol = profile.speed_of_light(
-        BATCH, FRAMES, STATES, band_tuple, stages['forward_ms'])
-    info('profile headline stages: ' + ', '.join(
-        f'{key} {stages[key]:.3f}' for key in (
-            'forward_ms', 'backtrace_ms', 'glue_ms', 'pipeline_ms',
-            'host_ms', 'e2e_ms')) + f' (kernels {stages["kernels"]}); '
-         f'forward at {sol["utilization"]:.3f} of its {sol["bound_by"]} '
-         f'ideal ({sol["binding_ideal_ms"]:.3f} ms), on {card}')
-    saved = torbi_tpu_torch.BATCH1_AUTO_CHUNK
-    try:
-        torbi_tpu_torch.BATCH1_AUTO_CHUNK = False
-        stages1 = profile.time_stages(single, bf1, trans, init, iters=3,
-                                      apply_epsilon=True)
-    finally:
-        torbi_tpu_torch.BATCH1_AUTO_CHUNK = saved
-    info('profile batch-1 serial stages: ' + ', '.join(
-        f'{key} {stages1[key]:.3f}' for key in (
-            'forward_ms', 'backtrace_ms', 'glue_ms', 'pipeline_ms',
-            'host_ms', 'e2e_ms')) + f' (kernels {stages1["kernels"]})')
-    # The stages timed the kernels that the same route's decode launched
-    for label, timed, counts in (
-            ('headline', stages, band_counts),
-            ('batch-1 serial', stages1, serial_counts)):
-        launched = {name for name, count in counts.items() if count}
-        # dispatch names K5 by its function; its phases count apart
-        names = set(timed['kernels'])
-        if 'backtrace_fused1' in names:
-            names = (names - {'backtrace_fused1'}) | {
-                'backtrace_pointers', 'chase_pointers'}
-        if names != launched:
-            fail(f'time_stages timed {timed["kernels"]} on the {label} '
-                 f'route, whose decode launched {sorted(launched)}')
-    info('time_stages timed the kernels each route launched')
+    # 9. One headline call traced, read by the benchmark's trace.py
     trace_dir = ROOT / 'build' / 'smoke_trace'
     shutil.rmtree(trace_dir, ignore_errors=True)
-    profile.capture(headline, trace_dir)
-    busy = profile.device_busy(trace_dir)
-    all_rows = profile.device_op_times(trace_dir)
-    rows = all_rows[:8]
-    if not rows:
+    headline_trace = traced(torch, headline, trace_dir)
+    ops = headline_trace['device_ops']
+    if not headline_trace['device_events']:
         fail('the profiler trace of the headline holds no device event')
-    elementwise = [row['name'] for row in all_rows
-                   if re.search(r'\b(exp|log)_kernel', row['name'])]
+    elementwise = [name for name in ops
+                   if re.search(r'\b(exp|log)_kernel', name)]
     if elementwise:
         fail('the traced headline call ran elementwise exp/log device ops: '
              f'{elementwise}')
-    info(f'profile headline trace: {len(all_rows)} device ops, no '
+    info(f'profile headline trace: {len(ops)} device ops, no '
          'elementwise exp or log (the conversion runs inside K1)')
-    info(f'profile headline trace: device busy {busy["busy_ms"]:.3f} of '
-         f'{busy["span_ms"]:.3f} ms traced, idle share '
-         f'{busy["idle_share"]:.4f}')
-    for row in rows:
-        info(f'  trace {row["total_ms"]:9.3f} ms x{row["count"]:<3} '
-             f'{row["name"][:90]}')
+    info(f'profile headline trace: device busy '
+         f'{headline_trace["busy_s"] * 1e3:.3f} of '
+         f'{headline_trace["span_s"] * 1e3:.3f} ms traced, idle share '
+         f'{headline_trace["idle_share"]:.4f}')
+    trace_rows(headline_trace, 8)
 
     # 10. The kernels line, then the device line last; K1 and K3 also carry
     # their launches on the file path's corpus run

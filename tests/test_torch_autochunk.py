@@ -9,6 +9,9 @@ the CPU (the kernels' plain versions), torbi_tpu through
 plans are compared exactly; the framewise entropy within rtol 1e-5 and
 atol 1e-6 (the two packages sum it in different orders).
 """
+import gc
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -304,40 +307,57 @@ def test_private_tables_are_jax_defaults():
                 == getattr(jax_defaults, name)), name
 
 
-def test_plan_cache_hits_per_identity(small_knobs, monkeypatch):
-    """Repeated decodes of one observation and batch_frames tensor skip
-    the entropy pass; an in-place edit of either misses"""
-    frames, states = 384, 256
-    obs, trans, init = peaked_case(frames, states, halfwidth=5, seed=9)
+REPEATS = ('same-tensors', 'batch-frames-none', 'host-array',
+           'observation-edited', 'batch-frames-edited', 'probabilities')
+
+
+@pytest.mark.parametrize('case', REPEATS)
+def test_repeated_decodes_plan_afresh_and_keep_nothing(small_knobs,
+                                                        monkeypatch, case):
+    """Two decodes of one long sequence, handed in again as the case says:
+    each call plans afresh, nothing of its plan outlives it, and each path
+    is torbi_tpu's for what that call was given"""
+    frames, states, valid = 384, 256, 352
+    obs, trans, _ = peaked_case(frames, states, halfwidth=5, seed=9)
+    other, _, _ = peaked_case(frames, states, halfwidth=5, seed=14)
+    log_probs = case != 'probabilities'
+    if not log_probs:
+        obs, other = np.exp(obs), np.exp(other)
+    probs = np.exp(trans)
     obs_t = torch.from_numpy(obs.copy())
     bf_t = torch.tensor([frames], dtype=torch.int32)
-    trans_t, init_t = torch.from_numpy(trans), torch.from_numpy(init)
-    calls = []
-    orig = autochunk.framewise_entropy
+    planned = []
+    real = autochunk.plan_arrays
 
     def spy(*args, **kwargs):
-        calls.append(1)
-        return orig(*args, **kwargs)
+        arrays = real(*args, **kwargs)
+        planned.extend(weakref.ref(array) for array in arrays)
+        return arrays
 
-    monkeypatch.setattr(autochunk, 'framewise_entropy', spy)
-    autochunk._plan_cache.clear()
-
-    def decode():
-        return dispatch.decode(obs_t, bf_t, trans_t, init_t,
-                               finite_observation=True, device='cpu')
-
-    first = decode()
-    second = decode()
-    assert len(calls) == 1
-    torch.testing.assert_close(first, second, rtol=0, atol=0)
-    obs_t.mul_(1.0)  # bumps the version, keeps the values
-    decode()
-    assert len(calls) == 2
-    bf_t.fill_(frames)
-    decode()
-    assert len(calls) == 3
-    decode()
-    assert len(calls) == 3
+    monkeypatch.setattr(autochunk, 'plan_arrays', spy)
+    expected = {}
+    for call in range(2):
+        if call and case == 'observation-edited':
+            obs_t.copy_(torch.from_numpy(other))
+        if call and case == 'batch-frames-edited':
+            bf_t.fill_(valid)
+        observation = obs if case == 'host-array' else obs_t
+        batch_frames = None if case == 'batch-frames-none' else bf_t
+        plans = autochunk.decode_chunked.plans
+        got = torbi_tpu_torch.from_probabilities(
+            observation, batch_frames, transition=probs,
+            log_probs=log_probs, gpu='cpu')
+        assert autochunk.decode_chunked.plans == plans + 1
+        assert len(planned) == 4 * (call + 1)
+        gc.collect()
+        assert [ref() for ref in planned] == [None] * len(planned)
+        given = (obs_t.numpy().copy(), int(bf_t[0]))
+        key = (given[0].tobytes(), given[1])
+        if key not in expected:
+            expected[key] = np.asarray(torbi_tpu.from_probabilities(
+                given[0], np.array([given[1]], np.int32), transition=probs,
+                log_probs=log_probs))
+        np.testing.assert_array_equal(got.numpy(), expected[key])
 
 
 def test_memory_rule_declines(small_knobs, monkeypatch):

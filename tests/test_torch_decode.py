@@ -314,8 +314,7 @@ def test_import_pulls_in_no_jax():
     """Importing the port, its profiler and its labs loads neither JAX nor
     the JAX package"""
     code = (
-        'import sys, torbi_tpu_torch, torbi_tpu_torch.profile, '
-        'torbi_tpu_torch.utils.profile, '
+        'import sys, torbi_tpu_torch, torbi_tpu_torch.utils.profile, '
         'torbi_tpu_torch.scripts.kernel_lab, '
         'torbi_tpu_torch.scripts.chase_lab; '
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'

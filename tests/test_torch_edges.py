@@ -7,7 +7,7 @@ plain versions and torbi_tpu's kernels (interpret mode, padded as its
 dispatcher pads them), bitwise. The layout mirror (ops/band.py
 cluster_layout, cluster_plan, forward_kernel) is checked at the pitch
 shape, a band too wide for any cluster layout and small state counts, and
-dispatch and the profiler are checked to name the design they run.
+dispatch is checked to name the design it runs.
 Tolerance: bitwise everywhere.
 """
 import numpy as np
@@ -17,7 +17,7 @@ import torch
 from test_torch_backtrace import jax_indices
 from test_torch_band import jax_forward
 from torbi_tpu_torch.ops import backtrace, band, dispatch
-from torbi_tpu_torch.utils import edges, profile
+from torbi_tpu_torch.utils import edges
 
 TINY = np.finfo(np.float32).tiny
 
@@ -196,9 +196,8 @@ def test_forward_wrapper_rejects_sequences():
     (3, 3, 'band_forward'), (3, 200, 'band_forward_wide'),
     (8, 87, 'band_forward')])
 def test_kernel_route_names_design(monkeypatch, batch, halfwidth, expected):
-    """dispatch.kernel_route and utils/profile.time_stages name the design
-    of K1 that decode runs on the same input, and decode's path equals the
-    plain scan route"""
+    """dispatch.kernel_route names the design of K1 that decode runs on the
+    same input, and decode's path equals the plain scan route"""
     states, frames = 1440, 5
     rng = np.random.default_rng(halfwidth)
     obs = torch.from_numpy(np.log(
@@ -226,5 +225,3 @@ def test_kernel_route_names_design(monkeypatch, batch, halfwidth, expected):
     scan = dispatch.decode(obs, bf, trans, init, backend='scan',
                            device='cpu')
     assert torch.equal(out, scan)
-    stages = profile.time_stages(obs, bf, trans, init, iters=1)
-    assert stages['kernels'] == (expected, 'backtrace')

@@ -22,7 +22,9 @@ test_band_kernel_folded_epsilon_conversion`` holds the JAX kernel:
   the dense, constant and scan routes, which convert first, as
   torbi_tpu's do; paths bitwise against torbi_tpu (peaked inputs: clear
   margins);
-- the memory guard's count of observation copies on each route.
+- the memory guard's count of observation copies on each route;
+- ``dispatch.kernel_route`` names the kernels ``decode`` launches, on the
+  banded, batch-1, window and dense routes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -335,3 +337,78 @@ def test_memory_guard_counts_copies(monkeypatch, route, log_input,
         if expected is None:
             expected = out
         assert torch.equal(out, expected)
+
+
+def kernel_route_case(batch, frames, states, seed, tiny=TINY, dense=False):
+    """A log-Dirichlet observation; a triangular band of half-width 3 over
+    log(tiny) (over -inf at ``tiny=0``) or, with ``dense``, a log-Dirichlet
+    dense transition; a uniform initial distribution"""
+    rng = np.random.default_rng(seed)
+    obs = np.log(rng.dirichlet(np.ones(states), size=(batch, frames))
+                 .astype(np.float32) + TINY)
+    if dense:
+        trans = np.log(rng.dirichlet(np.ones(states), size=states)
+                       .astype(np.float32) + TINY)
+    else:
+        trans = banded_transition(states, 3, tiny > 0)
+    init = np.log(np.full(states, 1.0 / states, dtype=np.float32) + TINY)
+    return (torch.from_numpy(obs),
+            torch.full((batch,), frames, dtype=torch.int32),
+            torch.from_numpy(trans.astype(np.float32)),
+            torch.from_numpy(init))
+
+
+def record_kernel_calls(monkeypatch):
+    """Replace each kernel wrapper where dispatch looks it up by one that
+    records its launch-counter name; returns the list of names"""
+    calls = []
+    for module, attr, name in (
+            (band, 'viterbi_forward_band', 'band_forward'),
+            (band, 'viterbi_forward_band_spread', 'band_spread'),
+            (dispatch, 'viterbi_forward_dense', 'dense_forward'),
+            (dispatch, 'backtrace_posteriors', 'backtrace'),
+            (dispatch, 'backtrace_fused1', 'backtrace_fused1'),
+            (dispatch, 'backtrace_window', 'backtrace_window')):
+        def wrapper(*args, original=getattr(module, attr), name=name,
+                    **kwargs):
+            calls.append(name)
+            return original(*args, **kwargs)
+
+        monkeypatch.setattr(module, attr, wrapper)
+    return calls
+
+
+@pytest.mark.parametrize('batch, states, tiny, window, dense, expected', [
+    (3, 64, TINY, False, False, ('band_forward', 'backtrace')),
+    (1, 64, TINY, False, False, ('band_spread', 'backtrace_fused1')),
+    (1, 256, 0.0, True, False, ('band_spread', 'backtrace_window')),
+    (2, 32, TINY, False, True, ('dense_forward', 'backtrace'))],
+    ids=['banded', 'batch1', 'window', 'dense'])
+def test_decode_launches_kernel_route(monkeypatch, batch, states, tiny,
+                                      window, dense, expected):
+    """decode launches the kernels that dispatch.kernel_route names for the
+    input, in its order (the window chase needs two 128-state rows). The
+    banded routes fold the epsilon step into the forward kernel and convert
+    nothing outside it; the dense route converts once, outside K2"""
+    obs, bf, trans, init = kernel_route_case(
+        batch, 8 if dense else 12, states, seed=5 if dense else 4,
+        tiny=tiny, dense=dense)
+    if window:
+        monkeypatch.setattr(torbi_tpu_torch, 'BACKTRACE_BATCH1_FUSED', False)
+        monkeypatch.setattr(torbi_tpu_torch, 'BACKTRACE_BATCH1_WINDOW', True)
+    forward = {'band_forward': 'viterbi_forward_band',
+               'band_spread': 'viterbi_forward_band_spread'}
+    handed, outside = spy_conversion(monkeypatch, forward.get(expected[0]))
+    calls = record_kernel_calls(monkeypatch)
+    dispatch.decode(obs, bf, trans, init, apply_epsilon=True, device='cpu')
+    assert tuple(calls) == expected
+    gated = band.gate_band(band.detect_band(trans), init, observation=None,
+                           finite_observation=True)
+    (forward_name, _), (chase_name, _) = dispatch.kernel_route(
+        trans, gated, batch)
+    assert (forward_name, chase_name) == expected
+    if dense:
+        assert gated is None and outside == [(True, True)]
+    else:
+        assert [flags for _, flags in handed] == [(True, True)]
+        assert outside == []

@@ -130,8 +130,8 @@ def test_spans_and_counters_of_a_planned_call(knobs):
         got = decode(observation, batch_frames)
     spans = [pair for pair in profile_spans(profile)
              if pair[0].startswith('torbi.autochunk.')]
-    assert spans == [('torbi.autochunk.entropy', 'torbi.build'),
-                     ('torbi.autochunk.plan', 'torbi.build'),
+    assert spans == [('torbi.autochunk.entropy', 'torbi.decode'),
+                     ('torbi.autochunk.plan', 'torbi.decode'),
                      ('torbi.autochunk.stitch', 'torbi.decode')]
     assert torch.equal(got.to(torch.int64), path)
     assert counts() == (plans + 1, rows + len(chunk_plan), declines)
@@ -139,18 +139,19 @@ def test_spans_and_counters_of_a_planned_call(knobs):
     assert (autochunk.decode_chunked.plan_bytes
             == plan_bytes + 8 * len(chunk_plan))
 
-    # The same observation and batch_frames tensor: the plan is cached,
-    # so no entropy pass and no plan, and the rows decode again
+    # The same observation and batch_frames tensor: nothing is cached, so
+    # the call runs the entropy pass and plans again
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as profile:
         again = decode(observation, batch_frames)
     assert [name for name, _ in profile_spans(profile)
             if name.startswith('torbi.autochunk.')] == [
+        'torbi.autochunk.entropy', 'torbi.autochunk.plan',
         'torbi.autochunk.stitch']
     assert torch.equal(again, got)
-    assert counts() == (plans + 1, rows + 2 * len(chunk_plan), declines)
+    assert counts() == (plans + 2, rows + 2 * len(chunk_plan), declines)
     assert (autochunk.decode_chunked.plan_bytes
-            == plan_bytes + 8 * len(chunk_plan))
+            == plan_bytes + 16 * len(chunk_plan))
 
 
 @pytest.mark.parametrize('reason', ['memory', 'frames', 'plan'])

@@ -5,12 +5,12 @@ Each world is one ``python tests/torch_sharded_worker.py`` a rank on a
 free local port, started once per module:
 
 - ``parallel.files.from_files_to_files`` over two small banded corpora,
-  one with random band weights (unique optimal paths) and the benchmark's
-  (``bench.write_corpus``: a symmetric band, so exact ties of path
-  scores, where a conversion a few ulps off picks another path): the
-  shares are disjoint, cover the corpus and are ``shard_files_balanced``'s
-  partition; every output equals the single-process port's and
-  ``torbi_tpu.from_files_to_files``'s;
+  one with random band weights (unique optimal paths) and the synthetic
+  pitch corpus (``models.pitch.write_corpus``: a symmetric band, so exact
+  ties of path scores, where a conversion a few ulps off picks another
+  path): the shares are disjoint, cover the corpus and are
+  ``shard_files_balanced``'s partition; every output equals the
+  single-process port's and ``torbi_tpu.from_files_to_files``'s;
 - ``evaluate.datasets`` over a 1440-state pitch corpus with rank 0's
   reference targets already on disk: the metrics and frames equal the
   single-process run's, every rank returns them, the timing contexts are
@@ -26,7 +26,6 @@ import torch
 
 import torbi_tpu
 import torbi_tpu_torch
-from torbi_tpu_torch import bench
 from torbi_tpu_torch.evaluate import core
 from torbi_tpu_torch.models import pitch
 from torbi_tpu_torch.parallel import files
@@ -42,11 +41,11 @@ EVAL_LENGTHS = (40, 73, 25, 66, 51, 32)
 
 def _corpus(directory, kind):
     """Log-space .npy files under a banded transition's probability file:
-    'ties', the benchmark's corpus; 'unique', random band weights, so that
-    every file has a unique optimal path"""
+    'ties', ``pitch.write_corpus``'s corpus; 'unique', random band
+    weights, so that every file has a unique optimal path"""
     directory.mkdir()
     if kind == 'ties':
-        return bench.write_corpus(str(directory), LENGTHS, STATES)
+        return pitch.write_corpus(str(directory), LENGTHS, STATES)
     rng = np.random.default_rng(50)
     bins = np.arange(STATES)
     band = np.abs(bins[:, None] - bins[None, :]) <= 3

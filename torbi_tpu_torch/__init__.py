@@ -19,13 +19,14 @@ The decoding API is the JAX package's: ``from_probabilities`` and
 (``.pt`` and ``.npy`` files, decoded in batches by ``data``, whose native
 loader, ``csrc/loader.cpp``, builds with g++), with ``save`` and
 ``save_masked``. ``python -m torbi_tpu_torch`` is the command line of the
-file API, and ``python -m torbi_tpu_torch.bench`` the port's benchmark.
-The pitch evaluation harness (``evaluate``, ``python -m
-torbi_tpu_torch.evaluate``) scores decoded corpora against the reference
-CPU decoder (``reference``) over the partitions of ``partition``; the
-corpora come from ``data.download`` and ``data.preprocess``.
-Micro-benchmark labs (``scripts/``) and a profiler (``utils/profile.py``,
-``python -m torbi_tpu_torch.profile``) measure the kernels on the card.
+file API; ``python3 benchmark/run.py --workload <cell> [--trace 1]`` at
+the root of the checkout is the port's benchmark. The pitch evaluation
+harness (``evaluate``, ``python -m torbi_tpu_torch.evaluate``) scores
+decoded corpora against the reference CPU decoder (``reference``) over the
+partitions of ``partition``; the corpora come from ``data.download`` and
+``data.preprocess``. Micro-benchmark labs (``scripts/``), with the timers
+and the speed-of-light model of ``utils/profile.py``, measure the kernels
+on the card.
 The JAX package ``torbi_tpu`` is the reference it is held against; this
 package imports neither it nor JAX.
 

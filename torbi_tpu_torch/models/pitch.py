@@ -6,6 +6,8 @@ constants inlined), so this package needs neither penn nor the JAX package:
 a band-diagonal matrix ``clip(max_bins_per_frame - |i - j|, 0)``,
 row-normalized.
 """
+import os
+
 import numpy as np
 
 # penn constants (penn/config/defaults.py of maxrmorrison/penn)
@@ -69,3 +71,32 @@ def synthetic_posteriorgrams(batch, frames, states=PITCH_BINS, seed=0):
             np.exp(logits).sum(axis=-1, keepdims=True))
         out[start:stop] = np.log(np.exp(obs) + tiny)
     return out
+
+
+def transition_probabilities(states):
+    """The 1440-state pitch matrix, or at other state counts a band of the
+    same shape"""
+    if states == PITCH_BINS:
+        return transition_matrix()
+    halfwidth = max(states // 16, 4)
+    bins = np.arange(states)
+    trans = np.clip(
+        halfwidth + 1.0 - np.abs(bins[:, None] - bins[None, :]), 0, None)
+    return (trans / trans.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def write_corpus(directory, lengths, states):
+    """The file corpus: one log-space .npy file of synthetic pitch
+    posteriorgrams per length (seeds 1000, 1001, ...), and the transition's
+    probability file; returns (input paths, output paths, transition
+    path)"""
+    trans_path = os.path.join(directory, 'transition.npy')
+    np.save(trans_path, transition_probabilities(states))
+    inputs, outputs = [], []
+    for i, length in enumerate(lengths):
+        path = os.path.join(directory, f'{i:05d}.npy')
+        np.save(path, synthetic_posteriorgrams(
+            1, int(length), states, seed=1000 + i)[0])
+        inputs.append(path)
+        outputs.append(os.path.join(directory, f'{i:05d}_out.npy'))
+    return inputs, outputs, trans_path

@@ -13,15 +13,10 @@ a single long banded sequence:
    greedy boundaries of the user-facing chunker); only the chunks' starts
    and lengths cross to the device, in one copy of 8 bytes a row, and the
    plan's index arrays are built there (``plan_arrays``: the rows' gather,
-   the stitch's row and column of each frame) with no sync. The plan is
-   cached per device observation and ``batch_frames`` tensor (identity and
-   version): a caller who decodes one resident buffer again, with the same
-   ``batch_frames`` tensor, skips the entropy pass, its host round trip,
-   the plan and its copy to the device. Every other call (a new
-   observation, a host array, the default ``batch_frames`` that
-   ``from_probabilities`` builds per call) computes its plan afresh. A
-   user decoding a new recording pays for the plan on every call, so the
-   benchmark's long recordings pass no ``batch_frames``;
+   the stitch's row and column of each frame) with no sync. Every call
+   plans afresh and keeps nothing once it returns (the JAX package caches
+   plans per identity; here a user's call brings a new tensor, so such a
+   cache would only hold dead plans on the device);
 3. the chunk rows are gathered out of the sequence at the longest chunk's
    length (lengths mask the rest), decoded as one batch through the banded
    route (K1, in the design ``band.forward_kernel`` picks for the rows,
@@ -33,14 +28,13 @@ a single long banded sequence:
 Spans (``utils/timing.py``): ``torbi.autochunk.entropy`` (the entropy pass
 and its copy to the host), ``torbi.autochunk.plan`` (the host plan, its
 copy to the device and the launches that build its arrays there), both
-inside the plan cache's ``torbi.build``, and ``torbi.autochunk.stitch``
-(the paths gathered back). Counters on ``decode_chunked``, beside the
-kernels' ``.launches``: ``plans`` (plans computed; cache hits compute
-none), ``rows`` (chunk rows decoded), ``plan_bytes`` (bytes copied from
-the host to the device for the plans computed: 8 a row) and ``declines``
-(calls handed back to the serial route, by reason: ``memory``, ``frames``
-for fewer valid frames than ``BATCH1_AUTO_CHUNK_MIN_FRAMES``, ``plan`` for
-no plan that pays).
+inside ``torbi.decode``, and ``torbi.autochunk.stitch`` (the paths
+gathered back). Counters on ``decode_chunked``, beside the kernels'
+``.launches``: ``plans`` (plans computed), ``rows`` (chunk rows decoded),
+``plan_bytes`` (bytes copied from the host to the device for the plans
+computed: 8 a row) and ``declines`` (calls handed back to the serial
+route, by reason: ``memory``, ``frames`` for fewer valid frames than
+``BATCH1_AUTO_CHUNK_MIN_FRAMES``, ``plan`` for no plan that pays).
 
 The result is the reference's chunked mode: each chunk decodes with the
 caller's initial distribution, so it is bitwise the oracle run per chunk,
@@ -59,7 +53,6 @@ from . import backtrace as backtrace_ops
 from . import band as band_ops
 from ..chunk import splits_from_entropy
 from ..utils import timing
-from ..utils.cache import identity_cached as _identity_cached
 
 # The JAX package's frame buckets and 8-row backtrace tile, used here only
 # to decide whether chunking pays, so that both packages make the same plan
@@ -73,10 +66,6 @@ _ROW_TILE = 8
 # used here only for the auto-chunk size rule, so that both packages chunk
 # the same sequences
 _JAX_AUTOCHUNK_BUDGET = 4_500_000_000
-
-# Split plans per (observation, batch_frames) tensor, keyed on identity and
-# version (utils/cache.py)
-_plan_cache = {}
 
 
 def _bucket_frames(frames):
@@ -164,12 +153,6 @@ def declines_for_memory(obs_bytes):
     return obs_bytes * 5 > budget * 2
 
 
-def _cached_plan(observation, batch_frames, compute, extra_key):
-    per_observation = _identity_cached(_plan_cache, observation, dict)
-    return _identity_cached(
-        per_observation, batch_frames, compute, extra_key=extra_key)
-
-
 def decode_chunked(observation, batch_frames, transition, initial, *, states,
                    band, band_matrix, log_input, apply_epsilon, device):
     """Auto-chunked batch-1 decode, or None to fall back to the serial
@@ -190,32 +173,22 @@ def decode_chunked(observation, batch_frames, transition, initial, *, states,
     if declines_for_memory(observation.numel() * 4):
         _counters.declines['memory'] += 1
         return None
-    target = int(torbi_tpu_torch.BATCH1_CHUNK_FRAMES)
-    min_frames = int(torbi_tpu_torch.BATCH1_AUTO_CHUNK_MIN_FRAMES)
-
-    def compute():
-        """The plan's device arrays, or the reason the route declines"""
-        valid = min(int(batch_frames[0]), frames)
-        if valid < min_frames:
-            return 'frames'
-        _counters.plans += 1
-        with timing.span('torbi.autochunk.entropy'):
-            entropy = framewise_entropy(
-                observation, states, log_input).cpu().numpy()
-        with timing.span('torbi.autochunk.plan'):
-            split_plan = plan_splits(entropy, valid, target)
-            if split_plan is None:
-                return 'plan'
-            return plan_arrays(*split_plan, valid, frames, device)
-
-    plan = _cached_plan(
-        observation, batch_frames, compute,
-        extra_key=(target, float(torbi_tpu_torch.ENTROPY_THRESHOLD),
-                   min_frames, states, bool(log_input), str(device)))
-    if isinstance(plan, str):
-        _counters.declines[plan] += 1
+    valid = min(int(batch_frames[0]), frames)
+    if valid < int(torbi_tpu_torch.BATCH1_AUTO_CHUNK_MIN_FRAMES):
+        _counters.declines['frames'] += 1
         return None
-    gather, lengths, row, column = plan
+    _counters.plans += 1
+    with timing.span('torbi.autochunk.entropy'):
+        entropy = framewise_entropy(
+            observation, states, log_input).cpu().numpy()
+    with timing.span('torbi.autochunk.plan'):
+        split_plan = plan_splits(
+            entropy, valid, int(torbi_tpu_torch.BATCH1_CHUNK_FRAMES))
+        if split_plan is None:
+            _counters.declines['plan'] += 1
+            return None
+        gather, lengths, row, column = plan_arrays(
+            *split_plan, valid, frames, device)
     _counters.rows += int(gather.shape[0])
 
     # The gather is a copy; K1 converts the raw rows as it loads them

@@ -57,12 +57,11 @@ NOTE = (
 def inputs(batch, frames, states, device):
     """(observation, batch_frames, transition, initial) on ``device``, from
     seed 0"""
-    from .. import bench
     from ..models import pitch
 
     tiny = np.finfo(np.float32).tiny
     obs = pitch.synthetic_posteriorgrams(batch, frames, states, seed=0)
-    trans = np.log(bench.transition_probabilities(states) + tiny)
+    trans = np.log(pitch.transition_probabilities(states) + tiny)
     init = np.log(np.full(states, 1.0 / states, np.float32) + tiny)
     return (torch.from_numpy(obs).to(device),
             torch.full((batch,), frames, dtype=torch.int32, device=device),

@@ -1,28 +1,17 @@
-"""Profiling on the card: trace capture, device-time breakdown, stage
-timing, and a speed-of-light model of the banded forward pass.
+"""Timing on the card and a speed-of-light model of the banded forward
+pass, for the labs (``scripts/``) and ``chip_smoke.py``.
 
-Counterpart of ``torbi_tpu/utils/profile.py``, on ``torch.profiler`` and
-CUDA:
+Counterpart of ``torbi_tpu/utils/profile.py``'s timers, on CUDA:
 
-- ``trace``/``capture``: run a callable under ``torch.profiler.profile``
-  (CPU and CUDA activities) and export the Chrome trace into a directory.
-- ``device_op_times``: parse that trace into per-op device time (Kineto's
-  kernel, memcpy and memset events; host events are left out).
 - ``time_submissions``/``time_chained``: host-clock seconds per call of
   queued work that ends in one scalar fetch (which synchronises).
-- ``time_stages``: the forward kernel, the backtrace kernel, the whole
-  ``dispatch.decode`` and one end-to-end call, for one input.
 - ``speed_of_light``: the H100 model of the banded forward recursion: issue
   rate, shared-memory load rate and device-memory rate.
 
 On CPU tensors the timers time the plain versions; no number from such a
-run is a device number.
+run is a device number. The port's traces are read by
+``benchmark/trace.py``.
 """
-import contextlib
-import glob
-import gzip
-import json
-import os
 import subprocess
 import sys
 import time
@@ -46,115 +35,11 @@ FP32_LANES_PER_SM = 128
 MINMAX_PER_SM_CLOCK = 64
 SMEM_WORDS_PER_SM_CLOCK = 32
 
-# Kineto's categories of device events in a Chrome trace
-DEVICE_CATEGORIES = ('kernel', 'gpu_memcpy', 'gpu_memset')
-TRACE_FILE = 'torbi_tpu_torch.trace.json'
-
 _rates = {}
 
 
 def _log(message):
     print(f'[profile] {message}', file=sys.stderr, flush=True)
-
-
-###############################################################################
-# Trace capture
-###############################################################################
-
-
-@contextlib.contextmanager
-def trace(trace_dir):
-    """Context manager that profiles its body (CPU and, with a card, CUDA
-    activity) and writes the Chrome trace to ``trace_dir/TRACE_FILE``"""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    cuda = torch.cuda.is_available()
-    if cuda:
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as profiler:
-        yield trace_dir
-        if cuda:
-            torch.cuda.synchronize()
-    profiler.export_chrome_trace(os.path.join(str(trace_dir), TRACE_FILE))
-
-
-def capture(fn, trace_dir):
-    """Run ``fn()`` under the profiler; returns (result, trace_dir)"""
-    with trace(trace_dir):
-        result = fn()
-    return result, trace_dir
-
-
-###############################################################################
-# Trace parsing
-###############################################################################
-
-
-def _load_trace(path):
-    opener = gzip.open if path.endswith('.gz') else open
-    with opener(path, 'rt') as file:
-        return json.load(file)
-
-
-def _complete_events(trace_dir):
-    """(event, is_device) for every complete event of the Chrome traces
-    under ``trace_dir``"""
-    paths = sorted(
-        glob.glob(os.path.join(str(trace_dir), '**', '*.json'),
-                  recursive=True)
-        + glob.glob(os.path.join(str(trace_dir), '**', '*.json.gz'),
-                    recursive=True))
-    for path in paths:
-        data = _load_trace(path)
-        events = data.get('traceEvents', []) if isinstance(data, dict) \
-            else data
-        for event in events:
-            if event.get('ph') == 'X':
-                yield event, (str(event.get('cat', '')).lower()
-                              in DEVICE_CATEGORIES)
-
-
-def device_op_times(trace_dir, top=None):
-    """Per-op device time of the Chrome traces under ``trace_dir``.
-
-    Returns ``{name, total_ms, count}`` rows sorted by total time, from
-    complete events whose category is a device one (``DEVICE_CATEGORIES``);
-    ``[]`` when there is no trace or it holds no device event.
-    """
-    totals = {}
-    for event, is_device in _complete_events(trace_dir):
-        if is_device:
-            name = event.get('name', '?')
-            total, count = totals.get(name, (0.0, 0))
-            totals[name] = (total + float(event.get('dur', 0.0)), count + 1)
-    rows = [{'name': name, 'total_ms': total / 1e3, 'count': count}
-            for name, (total, count) in totals.items()]
-    rows.sort(key=lambda row: -row['total_ms'])
-    return rows[:top] if top else rows
-
-
-def device_busy(trace_dir):
-    """How much of the traced time the device worked: ``busy_ms`` is the
-    union of the device events' intervals, ``span_ms`` runs from the first
-    complete event of any kind to the last, and ``idle_share`` is
-    1 - busy / span (None for an empty trace)"""
-    spans, device = [], []
-    for event, is_device in _complete_events(trace_dir):
-        start = float(event.get('ts', 0.0))
-        interval = (start, start + float(event.get('dur', 0.0)))
-        spans.append(interval)
-        if is_device:
-            device.append(interval)
-    if not spans:
-        return {'busy_ms': 0.0, 'span_ms': 0.0, 'idle_share': None}
-    busy, reach = 0.0, float('-inf')
-    for start, end in sorted(device):
-        if end > reach:
-            busy += end - max(start, reach)
-            reach = end
-    span = max(end for _, end in spans) - min(start for start, _ in spans)
-    return {'busy_ms': busy / 1e3, 'span_ms': span / 1e3,
-            'idle_share': 1.0 - busy / span if span else None}
 
 
 ###############################################################################
@@ -203,108 +88,6 @@ def time_chained(build_step, iters=8, warmup=True, device=None):
     start = time.perf_counter()
     run()
     return (time.perf_counter() - start) / iters
-
-
-def _sync(device):
-    if device.type == 'cuda':
-        torch.cuda.synchronize(device)
-
-
-def time_stages(observation, batch_frames, transition, initial, iters=8,
-                log_input=True, apply_epsilon=False):
-    """Forward kernel, backtrace kernel, the whole decode, and one call, for
-    one input.
-
-    Inputs are tensors on one device, as ``dispatch.decode`` takes them:
-    observation (batch, frames, states) log-probabilities (probabilities
-    when ``log_input=False``; its state dimension may be padded to the next
-    multiple of 128), batch_frames, transition, initial; ``apply_epsilon``
-    as ``decode`` takes it (``from_probabilities`` sets it). The forward
-    and backtrace stages call the kernels that ``dispatch.kernel_route``
-    picks for this input, as ``decode`` does: K1 (cluster or wide-band
-    design) or K4 converting the observation as they load it, or K2 on the
-    observation ``dispatch.convert`` made first, then K3, K5 or K6 (a
-    constant transition, which dispatch decodes in closed form, times K1's
-    wide-band design and the chase on it; a long single sequence, which
-    dispatch may auto-chunk, times the serial route's kernels). Returns
-    milliseconds:
-
-    - forward_ms, backtrace_ms: steady-state time per call (queued calls)
-    - pipeline_ms: ``dispatch.decode`` per call (queued calls)
-    - e2e_ms: one decode call ending in a synchronize (host clock)
-    - glue_ms: pipeline - forward - backtrace (everything but the kernels)
-    - host_ms: e2e - pipeline (launch and synchronisation overhead)
-
-    and ``band`` (from ``detect_band``) and ``kernels`` (the names of the
-    two kernels timed).
-    """
-    from ..ops import band as band_ops
-    from ..ops import dispatch
-
-    if observation.ndim != 3:
-        raise ValueError(
-            'observation must be (batch, frames, states), got shape '
-            f'{tuple(observation.shape)} (the packed 4-D layout of the JAX '
-            'package exists only for its TPU kernel)')
-    device = observation.device
-    states = int(transition.shape[0])
-    obs = observation[..., :states].to(torch.float32).contiguous()
-    batch_frames = batch_frames.to(device=device, dtype=torch.int32)
-    transition = transition.to(device=device, dtype=torch.float32)
-    initial = initial.to(device=device, dtype=torch.float32)
-
-    band = band_ops.gate_band(
-        band_ops.detect_band(transition), initial, observation=None,
-        finite_observation=True)
-    (forward_name, forward), (backtrace_name, chase) = dispatch.kernel_route(
-        transition, band, observation.shape[0])
-    # The banded kernels convert as they load (dispatch's fold); the dense
-    # route's conversion is glue, outside the forward stage
-    flags = {}
-    if band is None:
-        obs = dispatch.convert(obs, log_input, apply_epsilon)
-    else:
-        flags = {'log_input': log_input, 'apply_epsilon': apply_epsilon}
-
-    _log(f'stage: forward ({forward_name})')
-    forward_ms = time_submissions(
-        lambda: forward(obs, batch_frames, initial, **flags),
-        lambda result: result[1][0, 0], iters) * 1e3
-
-    post_seq, posterior = forward(obs, batch_frames, initial, **flags)
-    _log(f'stage: backtrace ({backtrace_name})')
-    backtrace_ms = time_submissions(
-        lambda: chase(post_seq, posterior, batch_frames),
-        lambda result: result[0, 0], iters) * 1e3
-    del post_seq, posterior
-
-    def pipeline():
-        return dispatch.decode(
-            observation, batch_frames, transition, initial,
-            finite_observation=True, log_input=log_input,
-            apply_epsilon=apply_epsilon, device=device)
-
-    _log('stage: dispatch.decode')
-    pipeline_ms = time_submissions(
-        pipeline, lambda result: result[0, 0], iters) * 1e3
-
-    pipeline()
-    _sync(device)
-    start = time.perf_counter()
-    pipeline()
-    _sync(device)
-    e2e_ms = (time.perf_counter() - start) * 1e3
-
-    return {
-        'forward_ms': forward_ms,
-        'backtrace_ms': backtrace_ms,
-        'pipeline_ms': pipeline_ms,
-        'e2e_ms': e2e_ms,
-        'glue_ms': pipeline_ms - forward_ms - backtrace_ms,
-        'host_ms': e2e_ms - pipeline_ms,
-        'band': band,
-        'kernels': (forward_name, backtrace_name),
-    }
 
 
 ###############################################################################

@@ -24,9 +24,9 @@ name:
 - ``torbi.autochunk.entropy``, ``torbi.autochunk.plan``: batch-1
   auto-chunking's entropy pass with its copy to the host, and its host
   plan with its one copy to the device and the launches that build the
-  plan's arrays there (``ops/autochunk.py``; inside
-  the plan cache's ``torbi.build``); ``torbi.autochunk.stitch``: the chunk
-  rows' paths gathered back into the sequence.
+  plan's arrays there (``ops/autochunk.py``; inside ``torbi.decode``);
+  ``torbi.autochunk.stitch``: the chunk rows' paths gathered back into the
+  sequence.
 
 Counters are attributes of the function that counts: each kernel
 wrapper's ``.launches``, and the auto-chunk route's
