@@ -26,7 +26,10 @@ just after each:
   auto-chunk rows, on a 401-wide band (the wide-band design) and over the
   edge list, and timed against the epsilon step plus the kernel; the
   headline also runs with ``log_probs=False``, and its traced call must
-  hold no elementwise exp or log;
+  hold no elementwise exp or log. K1's plans whose launches after the
+  first are dependents (512 rows, also with sorted ragged lengths, and
+  1024 rows) are held bitwise with their dependent-launch count, those of
+  512 rows timed in turns against the same plan launched serially;
 - the dense path: the README toy, a random dense 1440-state transition at
   8 x 64 (two short sequences) and a random dense 1280-state transition at
   512 x 512 (seed 0, two short sequences) -- the dense forward kernel (K2:
@@ -2332,6 +2335,7 @@ def main():
     # headline and 128 rows at width 259 (whole waves of 8 there) and the
     # headline at width 215 (whole waves of 16)
     size_launches = band.viterbi_forward_band.size_launches
+    k1_wrapper = band.viterbi_forward_band
     plan_turns = {}
 
     def hold_plans(label, args, expected):
@@ -2340,6 +2344,7 @@ def main():
         new_plan = band.cluster_plan(rows, STATES, plan_width, lambda size: (
             band.resident_clusters(STATES, plan_width, size, device)))
         size_launches.update(dict.fromkeys(size_launches, 0))
+        k1_wrapper.dependent_launches = 0
         err = 0.0
         for name, got in (
                 ('clusters of 4', band._launch_clusters(
@@ -2354,6 +2359,10 @@ def main():
         if size_launches != wanted:
             fail(f'K1 {label}: launches per sequences per cluster '
                  f'{size_launches}, expected {wanted} (plan {new_plan})')
+        # Every launch of the wrapper's plan after its first is a dependent
+        if k1_wrapper.dependent_launches != len(new_plan) - 1:
+            fail(f'K1 {label}: {k1_wrapper.dependent_launches} dependent '
+                 f'launches, expected {len(new_plan) - 1} (plan {new_plan})')
         wanted[4] -= 1
         turns = [cuda_ms(torch, fn, iters=5) for fn in (
             lambda: band._launch_clusters(*args, old_plan, True, False),
@@ -2396,6 +2405,66 @@ def main():
     kernels['band_forward']['max_abs_err'] = max(
         kernels['band_forward']['max_abs_err'], err)
     kernels['band_forward'].update(plan_turns=plan_turns)
+
+    # A plan's launches after its first are dependents: their clusters
+    # start in the SMs the earlier launch's clusters free as they retire.
+    # Held bitwise at the headline (480 rows in clusters of 32, then 32 in
+    # clusters of 4), at 1024 rows (960, then 64 in clusters of 8; the
+    # headline's rows twice) and on the headline's observation with sorted
+    # ragged lengths (as the batches of a sorted corpus arrive: the first
+    # clusters of the wave end first), each with one dependent launch. The
+    # plans of 512 rows timed in turns against the same plan launched
+    # serially: one launch per entry, each a whole launch of its own
+    sorted_bf = torch.linspace(
+        FRAMES * 0.4, FRAMES, BATCH, device=device).round().to(torch.int32)
+    sorted_args = (obs_k, sorted_bf, init, band_tuple, band_matrix)
+    dependent_turns = {}
+
+    def hold_dependent(label, args, expected, timed):
+        rows = len(args[0])
+        plan = band.cluster_plan(rows, STATES, width, lambda size: (
+            band.resident_clusters(STATES, width, size, device)))
+        if len(plan) < 2:
+            fail(f'K1 {label}: plan {plan} has no launch after its first')
+        k1_wrapper.dependent_launches = 0
+        err = require_equal(torch, f'K1 {label} (plan {plan}, dependent)',
+                            band.viterbi_forward_band(*args)[0], expected)
+        if k1_wrapper.dependent_launches != len(plan) - 1:
+            fail(f'K1 {label}: {k1_wrapper.dependent_launches} dependent '
+                 f'launches, expected {len(plan) - 1}')
+
+        def serial():
+            return [band._forward_band_clusters(
+                args[0][start:start + count], args[1][start:start + count],
+                *args[2:], size)[0] for start, count, size in plan]
+
+        err = max(err, require_equal(
+            torch, f'K1 {label} (plan {plan}, serial)', torch.cat(serial()),
+            expected))
+        if not timed:
+            return err
+        turns = [cuda_ms(torch, fn, iters=5) for fn in (
+            serial, lambda: band.viterbi_forward_band(*args))]
+        turns += [cuda_ms(torch, fn, iters=5) for fn in (
+            lambda: band.viterbi_forward_band(*args), serial)]
+        dependent_turns[label] = dict(plan=plan, ms=turns)
+        info(f'K1 {label}, plan {plan} in turns (ms): serial {turns[0]:.3f}, '
+             f'dependent {turns[1]:.3f}, {turns[2]:.3f}, serial '
+             f'{turns[3]:.3f}; dependent/serial '
+             f'{(turns[1] + turns[2]) / (turns[0] + turns[3]):.4f}')
+        return err
+
+    err = max(
+        hold_dependent(f'{BATCH} rows', k1_args, post_k, True),
+        hold_dependent(f'{BATCH} rows, sorted lengths', sorted_args,
+                       band.band_forward_reference(*sorted_args)[0], True),
+        hold_dependent(
+            f'{2 * BATCH} rows', (torch.cat([obs_k, obs_k]),
+                                  torch.cat([bf, bf])) + k1_args[2:],
+            torch.cat([post_k, post_k]), False))
+    kernels['band_forward']['max_abs_err'] = max(
+        kernels['band_forward']['max_abs_err'], err)
+    kernels['band_forward'].update(dependent_turns=dependent_turns)
 
     # K3: backtrace on K1's output
     idx_k = backtrace.backtrace_posteriors(post_k, trans, posterior_k, bf)
@@ -2803,10 +2872,17 @@ def main():
             obs, transition=trans, initial=init, log_probs=True, gpu=0)
 
     reset_counts()
+    band.viterbi_forward_band.dependent_launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     result = headline()
     torch.cuda.synchronize()
     band_counts = read_counts()
+    if band.viterbi_forward_band.dependent_launches != 1:
+        fail('the banded path launched K1\'s rest as a dependent '
+             f'{band.viterbi_forward_band.dependent_launches} times, '
+             'expected once')
+    kernels['band_forward']['dependent_launches'] = (
+        band.viterbi_forward_band.dependent_launches)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     info(f'banded path launches: {band_counts}')
     if band_counts['band_forward'] < 1 or band_counts['backtrace'] < 1:
@@ -3243,8 +3319,11 @@ def main():
     # The default route: entropy-chunk rows through K1 and K3
     route = autochunk.decode_chunked
     plan_bytes = route.plan_bytes
+    band.viterbi_forward_band.dependent_launches = 0
     chunked, chunk_counts = run_path('batch-1 auto-chunk path', single_call)
     plan_bytes = route.plan_bytes - plan_bytes
+    if band.viterbi_forward_band.dependent_launches:
+        fail('the auto-chunk path launched K1 as a dependent')
     if chunk_counts['band_forward'] < 1 or chunk_counts['backtrace'] < 1:
         fail('the auto-chunk path did not launch K1 and K3')
     if (chunk_counts['band_spread'] or chunk_counts['backtrace_pointers']

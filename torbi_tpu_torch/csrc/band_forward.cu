@@ -212,6 +212,10 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
   const int count = max(0, min(l.per_cta, states - j0));
   const int b0 = static_cast<int>(blockIdx.x / kCluster) * NB;
   const int wsize = l.window * NB;
+  // A plan's next launch (a dependent, ops/band.py::_launch_clusters) may
+  // start once every CTA of this one is resident: its clusters then take
+  // the SMs of this launch's clusters as they retire, the shortest first
+  torbi::grid_launch_dependents();
 
   // This thread's sequences (rows past the batch get 0 frames: never
   // valid, never written) and destinations
@@ -409,6 +413,9 @@ __global__ void __launch_bounds__(Tile<NB>::MAX_THREADS)
       for (int i = 0; i < R; ++i)
         if (live[q] && dest[i] && g == 0)
           post_seq[offset(q, i, t)] = prev[q][i];
+  // A dependent launch completes only after the launch before it, so what
+  // follows on the stream (K3) sees both launches' rows
+  torbi::grid_dependency_wait();
 }
 
 template <int NB, int CONV>
@@ -416,7 +423,7 @@ int launch_cluster_design(const float* obs, const int* batch_frames,
                           const float* initial, const float* band,
                           float* post_seq, int batch, int frames, int states,
                           int lo, int width, float floor_value, int has_floor,
-                          cudaStream_t stream) {
+                          int dependent, cudaStream_t stream) {
   size_t optin = 0;
   const cudaError_t err = torbi::optin_smem(&optin);
   if (err != cudaSuccess) return err;
@@ -427,8 +434,9 @@ int launch_cluster_design(const float* obs, const int* batch_frames,
   const int clusters = (batch + NB - 1) / NB;
   return torbi::launch_cluster(
       band_cluster_kernel<NB, CONV>, kCluster, dim3(clusters * kCluster),
-      dim3(l.threads), smem, stream, obs, batch_frames, initial, band,
-      post_seq, batch, frames, states, lo, width, floor_value, has_floor);
+      dim3(l.threads), smem, stream, dependent, obs, batch_frames, initial,
+      band, post_seq, batch, frames, states, lo, width, floor_value,
+      has_floor);
 }
 
 // The conversion's instances share the layout and the launch bounds (one
@@ -449,12 +457,12 @@ int cluster_by_conversion(int conv, const float* obs, const int* batch_frames,
                           const float* initial, const float* band,
                           float* post_seq, int batch, int frames, int states,
                           int lo, int width, float floor_value, int has_floor,
-                          cudaStream_t stream) {
+                          int dependent, cudaStream_t stream) {
 #define TORBI_CONV_CASE(CONV)                                                \
   case CONV:                                                                 \
     return launch_cluster_design<NB, CONV>(                                  \
         obs, batch_frames, initial, band, post_seq, batch, frames, states,   \
-        lo, width, floor_value, has_floor, stream);
+        lo, width, floor_value, has_floor, dependent, stream);
   switch (conv) {
     TORBI_CONV_CASE(0)
     TORBI_CONV_CASE(1)
@@ -473,16 +481,18 @@ int cluster_by_conversion(int conv, const float* obs, const int* batch_frames,
 // band[d, j] = transition[j, j + d + lo]. The observation is log-space
 // when log_input is set, else probabilities; apply_epsilon applies the
 // epsilon step (common.cuh, convert_obs). The cluster design with
-// `sequences` (1, 4, 8, 16 or 32) per cluster of 8 CTAs. Returns a
-// cudaError_t code: cudaErrorInvalidValue when width < 1, or when the
-// layout needs more threads or shared memory than a CTA may have
+// `sequences` (1, 4, 8, 16 or 32) per cluster of 8 CTAs; with `dependent`
+// set, launched as a programmatic dependent of the kernel before it on the
+// stream (a plan's launches after its first; their rows are disjoint).
+// Returns a cudaError_t code: cudaErrorInvalidValue when width < 1, or when
+// the layout needs more threads or shared memory than a CTA may have
 // (ops/band.py::cluster_layout computes the same).
 extern "C" int band_forward(const float* obs, const int* batch_frames,
                             const float* initial, const float* band,
                             float* post_seq, int batch, int frames,
                             int states, int lo, int width, float floor_value,
                             int has_floor, int log_input, int apply_epsilon,
-                            int sequences, void* stream) {
+                            int sequences, int dependent, void* stream) {
   if (batch <= 0 || frames <= 0 || states <= 0 || width < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -491,7 +501,8 @@ extern "C" int band_forward(const float* obs, const int* batch_frames,
   case NB:                                                                   \
     return cluster_by_conversion<NB>(conv, obs, batch_frames, initial, band, \
                                      post_seq, batch, frames, states, lo,    \
-                                     width, floor_value, has_floor, s);
+                                     width, floor_value, has_floor,          \
+                                     dependent, s);
   switch (sequences) {
     TORBI_CLUSTER_CASE(1)
     TORBI_CLUSTER_CASE(4)

@@ -372,7 +372,7 @@ int launch(const float* obs, const int* batch_frames, const float* initial,
     return cudaErrorInvalidValue;
   return torbi::launch_cluster(
       band_spread_kernel<DMAX, CONV>, kCluster, dim3(kCluster),
-      dim3(l.threads), smem, stream, obs, batch_frames, initial, band,
+      dim3(l.threads), smem, stream, 0, obs, batch_frames, initial, band,
       post_seq, frames, states, lo, width, floor_value, has_floor);
 }
 

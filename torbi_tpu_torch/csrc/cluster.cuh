@@ -44,6 +44,21 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// Programmatic dependent launch (Hopper): once every CTA of a grid has run
+// grid_launch_dependents (or exited), the grid launched after it on the
+// stream as a dependent (launch_cluster's `dependent`) may start, its
+// CTAs taking SMs as this grid's retire. grid_dependency_wait blocks until
+// the grid this one depends on has completed and its stores are visible.
+// Both are no-ops in a grid that has no dependent or was not launched as
+// one
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // The asynchronous exchange of K4 (csrc/band_spread.cu) and the spread
 // lab's probe (csrc/lab_spread.cu): each CTA waits on an mbarrier in its
 // own shared memory for the bytes it expects, and the senders' bulk copies
@@ -172,11 +187,15 @@ cudaError_t max_active_clusters(void (*kernel)(Params...), int cluster,
 
 // Launch `kernel` on `grid` blocks in clusters of `cluster` along x, with
 // `smem` bytes of dynamic shared memory; returns a cudaError_t code. A
-// cluster of more than 8 (the portable maximum) is allowed explicitly
+// cluster of more than 8 (the portable maximum) is allowed explicitly.
+// With `dependent` set the launch is a programmatic dependent of the
+// kernel before it on the stream (grid_launch_dependents above): the
+// kernel must run grid_dependency_wait before it exits, so that what
+// follows it on the stream still follows the kernel before it
 template <typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, dim3 grid,
                            dim3 block, size_t smem, cudaStream_t stream,
-                           Args... args) {
+                           int dependent, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -186,18 +205,20 @@ cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, dim3 grid,
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchAttribute attribute[1];
+  cudaLaunchAttribute attribute[2];
   attribute[0].id = cudaLaunchAttributeClusterDimension;
   attribute[0].val.clusterDim.x = cluster;
   attribute[0].val.clusterDim.y = 1;
   attribute[0].val.clusterDim.z = 1;
+  attribute[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attribute[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = grid;
   config.blockDim = block;
   config.dynamicSmemBytes = smem;
   config.stream = stream;
   config.attrs = attribute;
-  config.numAttrs = 1;
+  config.numAttrs = dependent ? 2 : 1;
   err = cudaLaunchKernelEx(&config, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

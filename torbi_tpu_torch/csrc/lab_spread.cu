@@ -401,7 +401,7 @@ int launch_async(const float* obs, float* out, int frames, int states,
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   return torbi::launch_cluster(kernel, CLUSTER, dim3(CLUSTER),
-                               dim3(l.warps * 32), smem, stream, obs, out,
+                               dim3(l.warps * 32), smem, stream, 0, obs, out,
                                frames, states, width);
 }
 

@@ -391,6 +391,8 @@ def viterbi_forward_band(observation, batch_frames, initial, band,
 viterbi_forward_band.launches = 0
 # The launches by sequences per cluster, beside the total
 viterbi_forward_band.size_launches = dict.fromkeys(CLUSTER_TILES, 0)
+# The launches made as dependents of the launch before them
+viterbi_forward_band.dependent_launches = 0
 
 
 def _forward_band_clusters(observation, batch_frames, initial, band,
@@ -419,7 +421,11 @@ def _forward_band_clusters(observation, batch_frames, initial, band,
 def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
                      plan, log_input, apply_epsilon):
     """K1's cluster design on checked CUDA tensors, one launch per entry
-    (start, count, sequences per cluster) of ``plan``"""
+    (start, count, sequences per cluster) of ``plan``. Every launch after
+    the first is a programmatic dependent of the one before it (the
+    entries' rows are disjoint): its clusters take the SMs that the
+    earlier launch's clusters free as they retire, the shortest rows of a
+    sorted batch first, not only once that launch has ended"""
     lo, width, floor = band
     batch, frames, states = observation.shape
     if plan is None:
@@ -433,7 +439,8 @@ def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
         lib = _library()
         row = frames * states
         with torch.cuda.device(device):
-            for start, count, size in plan:
+            for entry, (start, count, size) in enumerate(plan):
+                dependent = int(entry > 0)
                 code = lib.band_forward(
                     build.pointer(observation, start * row),
                     build.pointer(batch_frames, start),
@@ -441,10 +448,12 @@ def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
                     build.pointer(post_seq, start * row), count, frames,
                     states, lo, width, 0.0 if floor is None else floor,
                     int(floor is not None), int(log_input),
-                    int(apply_epsilon), size, build.stream(device))
+                    int(apply_epsilon), size, dependent,
+                    build.stream(device))
                 build.raise_on_error(lib, 'band_forward', code)
                 viterbi_forward_band.launches += 1
                 viterbi_forward_band.size_launches[size] += 1
+                viterbi_forward_band.dependent_launches += dependent
     return post_seq, post_seq[:, -1]
 
 
@@ -665,8 +674,9 @@ def _library():
     lib = build.library('band_forward')
     # states..width, floor, has_floor, log_input, apply_epsilon
     shape = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
+    # sequences, dependent, the stream
     lib.band_forward.argtypes = [ctypes.c_void_p] * 5 + shape + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.band_forward_clusters.argtypes = [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.band_forward.restype = ctypes.c_int
