@@ -43,6 +43,15 @@ just after each:
   shared memory), and its plan printed; the path at 512 x 512 x 1280 equals the
   plain scan route on the card, is timed by the host clock and traced
   once (idle share, top device ops);
+- pYIN's HMM (``models/pyin.py``: 1202 states, no band, -inf transition
+  and initial entries, probabilities in): K2 at vec 0 (the states are not
+  a multiple of 4) at the ``pyin-b512-sorted`` cell's longest batch, 512
+  rows of up to 861 frames, bitwise its plain version, K3 on its output
+  bitwise its plain version and the paths the benchmark's plain
+  reference decode, the path through ``from_probabilities(...,
+  log_probs=False)`` equal to them with its launches and the conversion's
+  counters; K2's plan printed, and the conversion, K2 and K3 timed in
+  turns;
 - the batch-1 kernels: K4 (its band tile in registers, the mbarrier
   exchange, one cluster of 16 CTAs) at 1 x 10,240 and 1 x 2048, in the
   three conversions, on every sequence of every band edge and at its
@@ -231,6 +240,9 @@ SOAK_CASES, SOAK_SEED = 240, 20261017
 SCALEOUT_RANKS, SCALEOUT_UNEVEN = 2, 509
 SCALEOUT_DATASET = 'synthdaps'
 SCALEOUT_TIMEOUT = 600
+# pYIN's HMM (1202 states, dense): the rows of the pyin-b512-sorted
+# cell's longest batch, its probabilities made from this seed
+PYIN_ROWS, PYIN_SEED = 512, 2 ** 32 + 7
 # Rows of the uniform path at the headline's shape held against the scan
 UNIFORM_SCAN_ROWS = 16
 # The extra decode modes: the time-sharded and associative routes at one
@@ -2054,6 +2066,134 @@ def scaleout_phase(torch, device, card, headline, exact_path, dense_path,
             for name in ('band_forward', 'dense_forward', 'backtrace')}
 
 
+def pyin_phase(torch, device, card, reset_counts, read_counts):
+    """pYIN's HMM (``models/pyin.py``, 1202 states, no band) on the dense
+    route at the ``pyin-b512-sorted`` cell's longest batch: 512 rows of
+    its last sorted lengths (up to 861 frames) of the cell's generated
+    probabilities (``benchmark/pyin.py``, seed PYIN_SEED). K2 at vec 0 (the
+    states are not a multiple of 4) held bitwise against
+    ``dense_forward_reference`` (in sub-batches), K3 on its output against
+    ``backtrace_reference`` and the paths against the benchmark's plain
+    reference decode; the path through ``from_probabilities(...,
+    log_probs=False)`` equal to them, with its launches and the
+    conversion's counters. Prints K2's plan and times the conversion, K2
+    and K3 in turns. Returns a dict of the timings"""
+    from benchmark import inputs, pyin as pyin_inputs
+    from benchmark.reference import viterbi as reference_viterbi
+    from torbi_tpu_torch.models import pyin
+    from torbi_tpu_torch.ops import backtrace, dense, dispatch
+
+    import torbi_tpu_torch
+
+    traffic = json.loads(
+        (ROOT / 'benchmark' / 'traffic' / 'pyin-sorted-pool4096.json')
+        .read_text())
+    lengths = inputs.lengths(
+        traffic['pool'], **traffic['lengths'])[-PYIN_ROWS:]
+    states = pyin.STATES
+    probs = pyin_inputs.observations(
+        lengths, pyin.PITCH_BINS, traffic,
+        inputs.device_generator(PYIN_SEED, device), device)
+    bf = torch.tensor(lengths, dtype=torch.int32, device=device)
+    trans_p = torch.from_numpy(pyin.transition_matrix()).to(device)
+    init_p = torch.from_numpy(pyin.initial()).to(device)
+    trans, init = torch.log(trans_p), torch.log(init_p)
+    obs_k = dispatch.convert(probs, False, True).contiguous()
+    frames = max(lengths)
+    info(f'pyin: {PYIN_ROWS} rows of {min(lengths)}-{frames} frames x '
+         f'{states} states ({sum(lengths)} real frames), '
+         f'{int((trans_p > 0).sum())} positive pairs')
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = dense.dense_plan(PYIN_ROWS, states, sms)
+    info(f'pyin: K2 plan at {PYIN_ROWS} x {states}: {plan}')
+    if plan is None or plan['vec']:
+        fail(f'pyin: expected a plan with vec 0 at {states} states, got '
+             f'{plan}')
+    post_seq, posterior = dense.viterbi_forward_dense(obs_k, bf, trans, init)
+    torch.cuda.synchronize()
+    for start in range(0, PYIN_ROWS, DENSE_SUB):
+        rows = slice(start, start + DENSE_SUB)
+        want, _ = dense.dense_forward_reference(
+            obs_k[rows], bf[rows], trans, init)
+        require_equal(torch, f'pyin K2 rows {start}-{start + DENSE_SUB - 1}',
+                      post_seq[rows], want)
+        del want
+    indices = backtrace.backtrace_posteriors(post_seq, trans, posterior, bf)
+    require_equal(torch, 'pyin K3', indices, backtrace.backtrace_reference(
+        post_seq, trans, posterior, bf))
+    paths = reference_viterbi.decode_blocks(
+        [obs_k[row] for row in range(PYIN_ROWS)], lengths, trans, init)
+    for row, path in enumerate(paths):
+        if not torch.equal(indices[row, :lengths[row]].long(), path):
+            fail(f'pyin: row {row} of K3 differs from the plain reference '
+                 'decode')
+    info(f'pyin: K3 paths equal the plain reference decode on all '
+         f'{PYIN_ROWS} rows')
+
+    values = dispatch.convert.values
+    reasons = dict(dispatch.decode.dense_reasons)
+    reset_counts()
+
+    def call():
+        return torbi_tpu_torch.from_probabilities(
+            probs, bf, trans_p, init_p, log_probs=False, gpu=device)
+
+    decoded = call()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if not torch.equal(decoded, indices):
+        fail('pyin: from_probabilities differs from K2 then K3')
+    if (counts['dense_forward'], counts['backtrace']) != (1, 1) or any(
+            count for name, count in counts.items()
+            if name not in ('dense_forward', 'backtrace')):
+        fail(f'pyin: from_probabilities launched {counts}')
+    converted = dispatch.convert.values - values
+    after = dict(dispatch.decode.dense_reasons)
+    if converted != probs.numel() or after != dict(
+            reasons, width=reasons['width'] + 1):
+        fail(f'pyin: convert.values +{converted} (expected '
+             f'{probs.numel()}), dense_reasons {reasons} -> {after}')
+    info(f'pyin: from_probabilities(..., log_probs=False) equals K2 then '
+         f'K3, launches {counts}, convert.values +{converted}, '
+         f'dense_reasons width +1')
+
+    # The conversion, K2 and K3 in turns, then the whole call
+    def k2():
+        return dense.viterbi_forward_dense(obs_k, bf, trans, init)
+
+    def k3():
+        return backtrace.backtrace_posteriors(post_seq, trans, posterior, bf)
+
+    def conversion():
+        return dispatch.convert(probs, False, True)
+
+    times = {'convert': [], 'dense_forward': [], 'backtrace': []}
+    for name, fn in (('convert', conversion), ('dense_forward', k2),
+                     ('backtrace', k3), ('backtrace', k3),
+                     ('dense_forward', k2), ('convert', conversion)):
+        times[name].append(cuda_ms(torch, fn, iters=3))
+    call_ms = host_ms(torch, call, calls=5)
+    operations = 2 * (sum(lengths) - PYIN_ROWS) * (
+        int((trans_p > 0).sum()) + states)
+    k2_bound, _ = bound_ms(4 * probs.numel() * 2, operations)
+    conv_bound, _ = bound_ms(4 * probs.numel() * 2, 0)
+    info(f'pyin: ms in turns (conversion, K2, K3, K3, K2, conversion) on '
+         f'{card}: conversion {times["convert"]}, K2 '
+         f'{times["dense_forward"]}, K3 {times["backtrace"]}; the call '
+         f'(host clock, warm median of 5) {call_ms[0]:.3f} (min '
+         f'{call_ms[1]:.3f}, max {call_ms[2]:.3f}); the algorithm\'s '
+         f'bound {k2_bound:.3f} ms (its positive pairs and the floor at 2 '
+         f'FP32 instructions each), one read and write of the observation '
+         f'{conv_bound:.3f} ms')
+    del post_seq, posterior, obs_k, probs
+    torch.cuda.empty_cache()
+    return {'convert_ms': times['convert'],
+            'dense_forward_ms': times['dense_forward'],
+            'backtrace_ms': times['backtrace'], 'call_ms': call_ms[0],
+            'plan': plan}
+
+
 def pitch_file(path, frames, seed):
     """One log-space pitch posteriorgram file of ``frames`` x STATES, written
     in slices; returns the array"""
@@ -2865,6 +3005,10 @@ def main():
          f'{dense_trace["idle_share"]:.4f}')
     trace_rows(dense_trace, 6)
     del dense_big_out, big_obs, big_args
+
+    # pYIN's HMM on the dense route at the cell's longest batch
+    kernels['dense_forward']['pyin'] = pyin_phase(
+        torch, device, card, reset_counts, read_counts)
 
     # 4. The banded path (the headline) through from_probabilities
     def headline():

@@ -3,9 +3,10 @@
 With no profiler recording a span enters no ``record_function``; under
 ``torch.profiler.profile`` every route leaves its ``torbi.*`` ranges,
 nested as the decode nests: the entry point, ``torbi.decode`` (nested
-again on the memory guard's row groups), the forward and chase kernels by
-their launch counters' names, the gather of a split batch, and a rebuilt
-cache entry as ``torbi.build``.
+again on the memory guard's row groups), the conversion pass of a route
+that does not fold it (``torbi.convert``), the forward and chase kernels
+by their launch counters' names, the gather of a split batch, and a
+rebuilt cache entry as ``torbi.build``.
 """
 import json
 
@@ -138,7 +139,9 @@ def test_dense_route_spans(monkeypatch):
     trans = np.log(rng.dirichlet(np.ones(16), size=16).astype(np.float32))
     found = without_builds(profiled(lambda: decode(
         torch.from_numpy(obs), None, torch.from_numpy(trans))))
-    assert found[2:] == [('torbi.forward.dense_forward', 'torbi.decode'),
+    # The conversion runs as a pass of its own before K2
+    assert found[2:] == [('torbi.convert', 'torbi.decode'),
+                         ('torbi.forward.dense_forward', 'torbi.decode'),
                          ('torbi.chase.backtrace', 'torbi.decode')]
 
 

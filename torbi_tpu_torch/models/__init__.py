@@ -1,1 +1,2 @@
 from . import pitch
+from . import pyin

@@ -40,7 +40,9 @@ forward kernels (K1, K4), which convert each value as they load it, as in
 the JAX package (its ``fold_obs``): the banded and auto-chunk routes make
 no converted copy of the observation. The constant closed form, the dense
 route, ``'scan'``, ``'lse'`` and the time-sharded route convert first
-(``convert``), as the JAX package does.
+(``convert``: its span ``torbi.convert`` and its counter ``convert.values``),
+as the JAX package does. ``decode.dense_reasons`` counts the decodes that
+launch the dense kernel by why the banded kernels declined them.
 
 CUDA kernels take runtime shapes, so the JAX package's frame and batch
 buckets, state padding, packed mod-M input and batch-sharding
@@ -171,7 +173,11 @@ def _decode_timesharded(observation, batch_frames, transition, initial,
     frames = observation.shape[1]
     valid = int(batch_frames[0])
     obs = observation[0, :valid, :states].to(device)
-    obs = convert(obs, log_input, apply_epsilon).contiguous()
+    if not log_input or apply_epsilon:
+        with timing.span('torbi.convert'):
+            _convert_counters.values += obs.numel()
+            obs = convert(obs, log_input, apply_epsilon)
+    obs = obs.contiguous()
     size, group = mesh.shards()
     count = timesharded_shard_count(obs.shape[0], size)
     sub = mesh.leading_group(count, group)
@@ -209,6 +215,15 @@ def convert(observation, log_input, apply_epsilon):
         observation = torch.exp(observation)
         observation.add_(FP32_TINY).log_()
     return observation
+
+
+# Elements of the observation that the routes' conversion passes converted
+# (``decode`` and the time-sharded route; the banded kernels convert as
+# they load, and count nothing). Counted on this function object, not
+# through the module's name, which a wrapper (the tests' spies) may rebind;
+# so is ``decode.dense_reasons``
+convert.values = 0
+_convert_counters = convert
 
 
 def _band_matrix(transition, band):
@@ -381,19 +396,22 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     # Banded route: bit-exact when the transition structure and the
     # finiteness preconditions allow it (ops/band.py docstring). The
     # observation's finiteness is that of what the kernel sees, after the
-    # log conversion.
+    # log conversion. ``reason`` says why a decode that launches K2 took
+    # the dense route (``decode.dense_reasons``)
     band = None
+    reason = 'backend'
     if backend == 'kernel' and torbi_tpu_torch.USE_BAND_KERNEL:
+        detected = band_ops.detect_band(transition)
         band = band_ops.gate_band(
-            band_ops.detect_band(transition), initial,
-            observation=None, finite_observation=True)
+            detected, initial, observation=None, finite_observation=True)
+        reason = 'width' if detected is None else 'floor'
         if band is not None and not finite_observation:
             view = observation[..., :states]
             finite = torch.isfinite(view)
             if not log_input:
                 finite &= view > 0
             if not bool(finite.all()):
-                band = None
+                band, reason = None, 'observation'
     constant = band is not None and band[1] == 0
     # The banded kernels convert the observation as they load it (the JAX
     # dispatcher's fold_obs); every other route converts first
@@ -444,8 +462,10 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     obs = observation.to(device, non_blocking=True)
     if states_in != states:
         obs = obs[..., :states]
-    if not fold:
-        obs = convert(obs, log_input, apply_epsilon)
+    if not fold and (not log_input or apply_epsilon):
+        with timing.span('torbi.convert'):
+            _convert_counters.values += obs.numel()
+            obs = convert(obs, log_input, apply_epsilon)
     obs = obs.contiguous()
 
     if backend == 'scan':
@@ -456,7 +476,20 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     if constant:
         return constant_ops.decode_constant(
             obs, batch_frames, initial, band[2])
+    if band is None:
+        _decode_counters.dense_reasons[reason] += 1
     (_, forward), (_, chase) = kernel_route(transition, band, batch)
     flags = (log_input, apply_epsilon) if fold else (True, False)
     post_seq, posterior = forward(obs, batch_frames, initial, *flags)
     return chase(post_seq, posterior, batch_frames)
+
+
+# Decodes that launched the dense forward kernel (K2), by the reason the
+# banded kernels declined the transition: 'width' (``detect_band`` finds no
+# band within ``BAND_MAX_FRACTION`` of the states), 'floor' (the band's
+# exterior asks more of the initial distribution than it gives:
+# ``gate_band``), 'observation' (an observation that is not finite, or
+# not positive as probabilities) or 'backend' (``USE_BAND_KERNEL`` off)
+decode.dense_reasons = {
+    'width': 0, 'floor': 0, 'observation': 0, 'backend': 0}
+_decode_counters = decode

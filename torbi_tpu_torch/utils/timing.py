@@ -26,14 +26,20 @@ name:
   plan with its one copy to the device and the launches that build the
   plan's arrays there (``ops/autochunk.py``; inside ``torbi.decode``);
   ``torbi.autochunk.stitch``: the chunk rows' paths gathered back into the
-  sequence.
+  sequence;
+- ``torbi.convert``: the observation's conversion as a pass of its own
+  (``ops/dispatch.py``: the dense, constant, ``'scan'``, ``'lse'`` and
+  time-sharded routes; inside ``torbi.decode``).
 
 Counters are attributes of the function that counts: each kernel
 wrapper's ``.launches``, and the auto-chunk route's
 ``decode_chunked.plans`` (plans computed), ``.rows`` (chunk rows
 decoded), ``.plan_bytes`` (bytes the plans copied to the device) and
 ``.declines`` (calls handed to the serial route, by reason: ``memory``,
-``frames``, ``plan``).
+``frames``, ``plan``); ``dispatch.convert.values`` (the observation's
+elements the conversion pass converted); ``dispatch.decode.dense_reasons``
+(decodes that launched the dense kernel K2, by why the banded kernels
+declined: ``width``, ``floor``, ``observation``, ``backend``).
 """
 import contextlib
 import functools
