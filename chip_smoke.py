@@ -37,15 +37,18 @@ just after each:
   streamed, the group barriers), then K3. K2 is held bitwise against its
   plain version at those shapes (at 512 x 512 all sequences, the plain
   version in sub-batches of 64) and at the edges of its launch plan (1, 3
-  and 130 sequences at 96 and 2048 states, 3 x 97; each also on the
-  cheapest plan of either slice mode), timed beside its bounds
+  and 130 sequences at 96 and 2048 states, 3 x 24 x 97, 1 x 64 x 97 and
+  8 x 64 x 1203, the last three on its padded sources; each also on the
+  cheapest plan of either slice mode), with ``padded_launches`` 1 on the
+  toy's 3 states and 0 at 1440 and 1280, timed beside its bounds
   (operations: the FP32 instructions per candidate of its SASS loop;
   shared memory), and its plan printed; the path at 512 x 512 x 1280 equals the
   plain scan route on the card, is timed by the host clock and traced
   once (idle share, top device ops);
 - pYIN's HMM (``models/pyin.py``: 1202 states, no band, -inf transition
-  and initial entries, probabilities in): K2 at vec 0 (the states are not
-  a multiple of 4) at the ``pyin-b512-sorted`` cell's longest batch, 512
+  and initial entries, probabilities in): K2 on its padded sources (the
+  states are not a multiple of 4; ``padded_launches`` 1 a call) at the
+  ``pyin-b512-sorted`` cell's longest batch, 512
   rows of up to 861 frames, bitwise its plain version, K3 on its output
   bitwise its plain version and the paths the benchmark's plain
   reference decode, the path through ``from_probabilities(...,
@@ -196,12 +199,13 @@ TINY = np.finfo(np.float32).tiny
 BATCH, FRAMES, STATES = 512, 512, 1440
 DENSE_BATCH, DENSE_FRAMES = 8, 64
 # K2's throughput shape (README's dense shape), the edges of its launch
-# plan (batch, states) at a few ragged frames, and the sub-batch of its
-# plain version there
+# plan (batch, frames, states; states off a multiple of 4 take the padded
+# sources), ragged, and the sub-batch of its plain version there
 DENSE_BIG_BATCH, DENSE_BIG_FRAMES, DENSE_BIG_STATES = 512, 512, 1280
-DENSE_EDGES = ((1, 96), (3, 96), (130, 96), (1, 2048), (3, 2048),
-               (130, 2048), (3, 97))
-DENSE_EDGE_FRAMES, DENSE_SUB = 24, 64
+DENSE_EDGES = ((1, 24, 96), (3, 24, 96), (130, 24, 96), (1, 24, 2048),
+               (3, 24, 2048), (130, 24, 2048), (3, 24, 97), (1, 64, 97),
+               (8, 64, 1203))
+DENSE_SUB = 64
 # The batch-1 shape of bench.py: one sequence of 10,240 frames, and a short
 # one below the auto-chunk threshold
 SINGLE_FRAMES, SHORT_FRAMES = 10240, 2048
@@ -2070,8 +2074,10 @@ def pyin_phase(torch, device, card, reset_counts, read_counts):
     """pYIN's HMM (``models/pyin.py``, 1202 states, no band) on the dense
     route at the ``pyin-b512-sorted`` cell's longest batch: 512 rows of
     its last sorted lengths (up to 861 frames) of the cell's generated
-    probabilities (``benchmark/pyin.py``, seed PYIN_SEED). K2 at vec 0 (the
-    states are not a multiple of 4) held bitwise against
+    probabilities (``benchmark/pyin.py``, seed PYIN_SEED). K2 on its
+    padded sources (the states are not a multiple of 4: the padded
+    transition and the exchange, one ``padded_launches`` a call) held
+    bitwise against
     ``dense_forward_reference`` (in sub-batches), K3 on its output against
     ``backtrace_reference`` and the paths against the benchmark's plain
     reference decode; the path through ``from_probabilities(...,
@@ -2107,11 +2113,15 @@ def pyin_phase(torch, device, card, reset_counts, read_counts):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     plan = dense.dense_plan(PYIN_ROWS, states, sms)
     info(f'pyin: K2 plan at {PYIN_ROWS} x {states}: {plan}')
-    if plan is None or plan['vec']:
-        fail(f'pyin: expected a plan with vec 0 at {states} states, got '
-             f'{plan}')
+    if plan is None:
+        fail(f'pyin: no K2 plan at {states} states')
+    k2_wrapper = dense.viterbi_forward_dense
+    padded = k2_wrapper.padded_launches
     post_seq, posterior = dense.viterbi_forward_dense(obs_k, bf, trans, init)
     torch.cuda.synchronize()
+    if k2_wrapper.padded_launches - padded != 1:
+        fail(f'pyin: K2 staged through the padded exchange '
+             f'{k2_wrapper.padded_launches - padded} times, expected once')
     for start in range(0, PYIN_ROWS, DENSE_SUB):
         rows = slice(start, start + DENSE_SUB)
         want, _ = dense.dense_forward_reference(
@@ -2134,6 +2144,7 @@ def pyin_phase(torch, device, card, reset_counts, read_counts):
     values = dispatch.convert.values
     reasons = dict(dispatch.decode.dense_reasons)
     reset_counts()
+    padded = k2_wrapper.padded_launches
 
     def call():
         return torbi_tpu_torch.from_probabilities(
@@ -2142,8 +2153,12 @@ def pyin_phase(torch, device, card, reset_counts, read_counts):
     decoded = call()
     torch.cuda.synchronize()
     counts = read_counts()
+    padded_launches = k2_wrapper.padded_launches - padded
     if not torch.equal(decoded, indices):
         fail('pyin: from_probabilities differs from K2 then K3')
+    if padded_launches != 1:
+        fail(f'pyin: from_probabilities staged K2 through the padded '
+             f'exchange {padded_launches} times, expected once')
     if (counts['dense_forward'], counts['backtrace']) != (1, 1) or any(
             count for name, count in counts.items()
             if name not in ('dense_forward', 'backtrace')):
@@ -2155,8 +2170,8 @@ def pyin_phase(torch, device, card, reset_counts, read_counts):
         fail(f'pyin: convert.values +{converted} (expected '
              f'{probs.numel()}), dense_reasons {reasons} -> {after}')
     info(f'pyin: from_probabilities(..., log_probs=False) equals K2 then '
-         f'K3, launches {counts}, convert.values +{converted}, '
-         f'dense_reasons width +1')
+         f'K3, launches {counts}, padded_launches +{padded_launches}, '
+         f'convert.values +{converted}, dense_reasons width +1')
 
     # The conversion, K2 and K3 in turns, then the whole call
     def k2():
@@ -2191,7 +2206,7 @@ def pyin_phase(torch, device, card, reset_counts, read_counts):
     return {'convert_ms': times['convert'],
             'dense_forward_ms': times['dense_forward'],
             'backtrace_ms': times['backtrace'], 'call_ms': call_ms[0],
-            'plan': plan}
+            'plan': plan, 'padded_launches': padded_launches}
 
 
 def pitch_file(path, frames, seed):
@@ -2657,11 +2672,14 @@ def main():
             *args[2:])[0] for start in range(0, args[0].shape[0], DENSE_SUB)])
 
     def plan_text(plan):
+        # K2 stages in 16-byte copies always; K1's wide-band design also
+        # in loads where the states are off a multiple of 4
+        copies = ('16-byte copies' if plan.get('vec', True) else 'loads')
         return (f'{plan["groups"]} groups x {plan["dest_groups"]} CTAs, '
                 f'{plan["bc"]} sequences (passes of {plan["bp"]}) x '
                 f'{plan["jc"]} destinations a CTA, {plan["threads"]} '
                 f'threads, split {plan["split"]}, chunks of {plan["chunk"]} '
-                f'sources ({"16-byte copies" if plan["vec"] else "loads"}), '
+                f'sources ({copies}), '
                 f'slice {"resident" if plan["resident"] else "streamed"}'
                 + (f' over a window of {plan["window"]} sources'
                    if 'window' in plan else '')
@@ -2693,17 +2711,19 @@ def main():
     err = max(err, require_equal(
         torch, 'K2 dense_forward (toy)', tpost_k, tpost_r))
     # The plan's edges: one, three and 130 sequences at 96 and 2048 states
-    # (at 130 x 2048 the plan streams the transition slice) and 97 states
-    # (rows off 16 bytes: loads, not copies), ragged, with one-frame
-    # sequences; random log-probabilities made on the card
+    # (at 130 x 2048 the plan streams the transition slice), and 97 and
+    # 1203 states (rows off 16 bytes: the padded transition and the
+    # exchange, one padded launch each), ragged, with one-frame sequences;
+    # random log-probabilities made on the card
     edge_gen = torch.Generator(device).manual_seed(3)
-    for batch_e, states_e in DENSE_EDGES:
-        lengths = torch.randint(1, DENSE_EDGE_FRAMES + 1, (batch_e,),
+    k2_wrapper = dense.viterbi_forward_dense
+    for batch_e, frames_e, states_e in DENSE_EDGES:
+        lengths = torch.randint(1, frames_e + 1, (batch_e,),
                                 generator=edge_gen, device=device)
-        lengths[0] = DENSE_EDGE_FRAMES
+        lengths[0] = frames_e
         lengths[-1] = 1
         e_args = (torch.log(torch.rand(
-            (batch_e, DENSE_EDGE_FRAMES, states_e), generator=edge_gen,
+            (batch_e, frames_e, states_e), generator=edge_gen,
             device=device) + TINY), lengths.to(torch.int32),
             torch.log(torch.rand((states_e, states_e), generator=edge_gen,
                                  device=device) + TINY),
@@ -2711,19 +2731,26 @@ def main():
                                  device=device) + TINY))
         want = dense_reference(e_args)
         plan = dense.dense_plan(batch_e, states_e, sms)
+        padded = k2_wrapper.padded_launches
         err = max(err, require_equal(
-            torch, f'K2 dense_forward at {batch_e} x {DENSE_EDGE_FRAMES} x '
+            torch, f'K2 dense_forward at {batch_e} x {frames_e} x '
             f'{states_e} ({plan_text(plan)})',
             dense.viterbi_forward_dense(*e_args)[0], want))
         # Both slice modes wherever a plan holds them (the cheapest plan of
-        # each): the kernel's four instances (resident or streamed slice,
-        # copies or loads)
+        # each): the kernel's two instances (resident or streamed slice)
         for plan in slice_mode_plans(
                 dense.dense_plans(batch_e, states_e, sms)):
             err = max(err, require_equal(
                 torch, f'K2 dense_forward at {batch_e} x '
-                f'{DENSE_EDGE_FRAMES} x {states_e} ({plan_text(plan)})',
+                f'{frames_e} x {states_e} ({plan_text(plan)})',
                 dense.viterbi_forward_dense(*e_args, plan=plan)[0], want))
+        launched = k2_wrapper.padded_launches - padded
+        if launched != (1 + len(slice_mode_plans(dense.dense_plans(
+                batch_e, states_e, sms)))) * (states_e % 4 != 0):
+            fail(f'K2 at {batch_e} x {frames_e} x {states_e}: {launched} '
+                 'launches staged through the padded exchange')
+        info(f'K2 at {batch_e} x {frames_e} x {states_e}: padded_launches '
+             f'+{launched}')
     # The throughput shape, made on the card from seed 0
     big_obs, big_bf, big_trans, big_init = dense_big_inputs(torch, device)
     if band.detect_band(big_trans) is not None:
@@ -2757,8 +2784,8 @@ def main():
     # candidates); the bytes: observation in, stream out, the transition
     # once
     k2_loop, k2_per_candidate = sass_loop_instructions(
-        build, 'dense_forward', 'dense_forward_kernelILb'
-        f'{int(big_plan["resident"])}ELb{int(big_plan["vec"])}E')
+        build, 'dense_forward',
+        f'dense_forward_kernelILb{int(big_plan["resident"])}EE')
     smem_words = 2 * dense.TILE / dense.TILE ** 2
 
     def dense_bounds(batch, frames, states, lengths):
@@ -2937,9 +2964,12 @@ def main():
                   [0.25, 0.25, 0.5]], dtype=np.float32),
         np.array([0.4, 0.35, 0.25], dtype=np.float32))
     reset_counts()
+    k2_wrapper = dense.viterbi_forward_dense
+    padded = k2_wrapper.padded_launches
     toy = torbi_tpu_torch.from_probabilities(
         toy_probs[0], transition=toy_probs[1], initial=toy_probs[2],
         gpu=0)
+    padded_toy = k2_wrapper.padded_launches - padded
     dense_out = torbi_tpu_torch.from_probabilities(
         dense_obs, batch_frames=dense_bf, transition=dense_trans,
         initial=init, log_probs=True, gpu=0)
@@ -2952,7 +2982,18 @@ def main():
     dense_big_out = dense_big()
     torch.cuda.synchronize()
     dense_counts = read_counts()
-    info(f'dense path launches: {dense_counts}')
+    # The toy's 3 states take the padded sources; 1440 and 1280 states
+    # read the transition and the stream in place
+    padded_dense = k2_wrapper.padded_launches - padded - padded_toy
+    info(f'dense path launches: {dense_counts}; padded_launches: the toy '
+         f'+{padded_toy}, {DENSE_BATCH} x {DENSE_FRAMES} x {STATES} and '
+         f'{DENSE_BIG_BATCH} x {DENSE_BIG_FRAMES} x {DENSE_BIG_STATES} '
+         f'+{padded_dense}')
+    if (padded_toy, padded_dense) != (1, 0):
+        fail(f'padded_launches: the toy +{padded_toy} (expected 1), the '
+             f'1440 and 1280 shapes +{padded_dense} (expected 0)')
+    kernels['dense_forward']['padded_launches'] = {
+        'toy': padded_toy, f'{STATES} and {DENSE_BIG_STATES}': padded_dense}
     if toy.device != device or toy.dtype != torch.int32:
         fail(f'toy result is {toy.dtype} on {toy.device}')
     if toy.tolist() != [[1, 2, 2]]:

@@ -30,7 +30,8 @@ def owners(plan, batch, states):
     return count
 
 
-@pytest.mark.parametrize('states', [3, 96, 256, 1280, 1440, 2048])
+@pytest.mark.parametrize('states', [
+    3, 96, 256, 1201, 1202, 1203, 1280, 1440, 2048])
 @pytest.mark.parametrize('batch', [1, 3, 8, 130, 512])
 def test_plan_owns_every_output_once(batch, states):
     plan = dense.dense_plan(batch, states, SMS)
@@ -49,8 +50,18 @@ def test_plan_owns_every_output_once(batch, states):
     assert cells * plan['split'] <= plan['threads'] <= dense.MAX_THREADS
     assert 32 % plan['split'] == 0
     assert plan['chunk'] % max(8, 4 * plan['split']) == 0
-    # 16-byte copies only where every row starts on 16 bytes
-    assert plan['vec'] == (states % 4 == 0)
+    # One staging path, 16-byte copies over the states rounded up to 4: no
+    # choice of copies or loads left in the plan; every staged row stride
+    # a multiple of 4 floats (the stream's rows where the states are one,
+    # read in place; else the padded transition's and the exchange's), and
+    # every chunk, the last one too, whole groups of 4 sources
+    assert 'vec' not in plan
+    sources = dense.sources(states)
+    assert 0 <= sources - states < 4
+    strides = (sources, 2 * sources) if states % 4 else (states, states)
+    assert all(stride % 4 == 0 for stride in strides)
+    last = sources - (-(-sources // plan['chunk']) - 1) * plan['chunk']
+    assert 0 < last <= plan['chunk'] and last % 4 == 0
     # Shared row strides: 16-byte rows, an odd number of 16-byte words each
     # (8 consecutive rows on 32 banks), the slice's rows whole when resident
     chunk_stride = dense.chunk_stride(plan['chunk'])

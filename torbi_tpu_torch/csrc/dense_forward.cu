@@ -28,19 +28,27 @@
 // [d jc, d jc + jc) in every frame, so every (sequence, destination) has
 // one owner (ops/dense.py::dense_plan picks bc, jc and the rest for the
 // shape and checks that), and its transition rows serve all bc sequences.
-// The posterior needs no exchange buffer: frame t - 1's values are the
-// stream rows post_seq[b, t - 1], which every CTA writes to device memory
-// anyway; after a group's CTAs have written a frame, they meet at a
-// barrier of their group (an atomic counter in device memory) and read
-// the rows they need back through L2 (L1 is not coherent, and a line of
-// row t - 1 can hold the start of row t, so no read goes through L1).
-// Groups never wait for each other.
+// Frame t - 1's values are the stream rows post_seq[b, t - 1], which
+// every CTA writes to device memory anyway; after a group's CTAs have
+// written a frame, they meet at a barrier of their group (an atomic
+// counter in device memory) and read the rows they need back through L2
+// (L1 is not coherent, and a line of row t - 1 can hold the start of row
+// t, so no read goes through L1). Groups never wait for each other.
 //
 // Per frame a CTA reads its sequences' rows in chunks of `chunk` sources,
 // double-buffered in shared memory: chunk c + 1 is in flight while chunk c
-// is computed, as 16-byte cp.async.cg copies when the states are a
-// multiple of 4 (every row then starts on 16 bytes), else as loads and
-// stores. The transition slice stays in shared memory for the launch
+// is computed, as 16-byte cp.async.cg copies (cp.async of 4 or 8 bytes
+// exists only as .ca, through L1). So every staged row starts on 16
+// bytes: the sources run over the states rounded up to 4 (`sources`),
+// and the transition comes with that row stride. Where the states are
+// not a multiple of 4, the rows of post_seq are off 16 bytes, and the
+// posterior is read from a padded exchange instead, (batch, 2, sources):
+// every output of frame t also goes to exchange[b, t & 1], its pad
+// columns -inf (written at frame 0, never again); frame t + 1 overwrites
+// the parity frame t read only after the group's barrier that ends frame
+// t. The -inf pads of both operands add only -inf candidates, so the
+// outputs are those of the unpadded recursion bitwise. The transition
+// slice stays in shared memory for the launch
 // (`resident`), or streams in the same chunks beside the posterior. The
 // plan weighs both at every group count and takes the cheaper by its cost
 // model: a resident slice saves reading it from L2 every frame and wins
@@ -61,6 +69,8 @@
 // pass reading its own rows. A sequence past its batch_frames keeps the
 // value its thread wrote last frame; a group whose sequences have all
 // stopped computes no more and meets at no more barriers.
+#include <cstdint>
+
 #include "persistent.cuh"
 
 namespace {
@@ -79,8 +89,24 @@ struct Plan {
   int split;        // lanes sharing one cell of the tile
   int chunk;        // sources per chunk, a multiple of max(8, 4 split)
   int resident;     // the whole slice in shared memory
-  int vec;          // states a multiple of 4: 16-byte asynchronous copies
   int threads;
+};
+
+// The sources a row is staged over: the states rounded up to 4
+__host__ __device__ inline int sources_of(int states) {
+  return (states + 3) / 4 * 4;
+}
+
+// Where frame t's posterior row of sequence b lies for the next frame to
+// read: rows + b seq_stride + (t & frame_mask) frame_stride. The stream
+// (post_seq, frame_mask all ones) or the exchange (its two parities,
+// frame_mask 1); set at the launch, so that the chunk loop reads it from
+// the kernel's parameters
+struct Source {
+  const float* rows;
+  size_t seq_stride;
+  int frame_stride;
+  int frame_mask;
 };
 
 // Row strides in shared memory, in floats: a multiple of 4 whose quarter
@@ -102,42 +128,31 @@ inline size_t smem_floats(const Plan& p, int states) {
 
 // Copy `rows` rows of sources [i0, i0 + count) from `src` (row r at
 // src + r * src_stride) into `dst` (row r at dst + r * dst_stride), by
-// the whole CTA: 16-byte asynchronous copies, committed by the caller
-// (VEC: count, i0 and the stride multiples of 4), or loads through L2 and
-// stores, -inf past `limit` sources. Rows at or past `live` are left as
-// they are. (csrc/band_wide.cu's stage_rows steps its indices instead of
-// dividing; moving K2 onto it is a change of K2 of its own, PERF.md §7)
-template <bool VEC>
+// the whole CTA in 16-byte asynchronous copies, committed by the caller
+// (count, i0, the strides and both rows' starts multiples of 4 floats).
+// Rows at or past `live` are left as they are. (csrc/band_wide.cu's
+// stage_rows steps its indices instead of dividing; moving K2 onto it is
+// a change of K2 of its own, PERF.md §7)
 __device__ __forceinline__ void stage(float* dst, int dst_stride,
                                       const float* src, size_t src_stride,
-                                      int rows, int live, int i0, int count,
-                                      int limit) {
-  if constexpr (VEC) {
-    const int quads = count / 4;
-    for (int e = threadIdx.x; e < rows * quads; e += blockDim.x) {
-      const int r = e / quads;
-      const int q = e - r * quads;
-      if (r < live)
-        torbi::cp_async16(dst + r * dst_stride + 4 * q,
-                          src + r * src_stride + i0 + 4 * q);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * count; e += blockDim.x) {
-      const int r = e / count;
-      const int i = e - r * count;
-      if (r < live)
-        dst[r * dst_stride + i] = i0 + i < limit
-                                      ? __ldcg(src + r * src_stride + i0 + i)
-                                      : torbi::neg_inf();
-    }
+                                      int rows, int live, int i0,
+                                      int count) {
+  const int quads = count / 4;
+  for (int e = threadIdx.x; e < rows * quads; e += blockDim.x) {
+    const int r = e / quads;
+    const int q = e - r * quads;
+    if (r < live)
+      torbi::cp_async16(dst + r * dst_stride + 4 * q,
+                        src + r * src_stride + i0 + 4 * q);
   }
 }
 
-template <bool RESIDENT, bool VEC>
+template <bool RESIDENT>
 __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
     const float* __restrict__ obs, const int* __restrict__ batch_frames,
     const float* __restrict__ initial, const float* __restrict__ transition,
-    float* __restrict__ post_seq, unsigned* __restrict__ counters, int batch,
+    float* __restrict__ post_seq, float* __restrict__ exchange,
+    const Source prev, unsigned* __restrict__ counters, int batch,
     int frames, int states, Plan p) {
   extern __shared__ __align__(16) float smem[];
   const int cs = chunk_stride(p);
@@ -159,7 +174,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
   const int ty = cell / tx_n;
   const bool active = ty < ty_n;
   const int passes = p.bc / p.bp;
-  const int chunks = (states + p.chunk - 1) / p.chunk;
+  const int sources = sources_of(states);
+  const int chunks = (sources + p.chunk - 1) / p.chunk;
   const size_t seq_stride = static_cast<size_t>(frames) * states;
   const int jlive = min(p.jc, states - j0);
 
@@ -181,6 +197,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
     return static_cast<size_t>(seq_of(s, o / kTile)) * seq_stride +
            static_cast<size_t>(t) * states + j0 + tx + (o % kTile) * tx_n;
   };
+  // Output o of frame t into the stream and, given one, the exchange
+  auto put = [&](int s, int o, int t, float v) {
+    post_seq[out_index(s, o, t)] = v;
+    if (exchange)
+      exchange[static_cast<size_t>(seq_of(s, o / kTile)) * prev.seq_stride +
+               (t & prev.frame_mask) * prev.frame_stride + j0 + tx +
+               (o % kTile) * tx_n] = v;
+  };
 
   // The frames this group computes: up to its longest sequence
   if (tid == 0) group_end = 1;
@@ -197,7 +221,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
       const int j = e / ss;
       const int i = e - j * ss;
       trans_s[e] = j < jlive && i < states
-                       ? transition[static_cast<size_t>(j0 + j) * states + i]
+                       ? transition[static_cast<size_t>(j0 + j) * sources + i]
                        : torbi::neg_inf();
     }
   }
@@ -207,27 +231,36 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
   // read all the same, its candidates go unused) and a streamed slice
   auto issue = [&](int t, int s, int c) {
     const int i0 = c * p.chunk;
-    const int count = min(p.chunk, states - i0);
+    const int count = min(p.chunk, sources - i0);
     const int rows = min(p.bp, batch - (b0 + s * p.bp));
-    stage<VEC>(post_s + static_cast<size_t>(c & 1) * p.bp * cs, cs,
-               post_seq + static_cast<size_t>(b0 + s * p.bp) * seq_stride +
-                   static_cast<size_t>(t - 1) * states,
-               seq_stride, p.bp, rows, i0, VEC ? count : p.chunk, states);
+    stage(post_s + static_cast<size_t>(c & 1) * p.bp * cs, cs,
+          prev.rows + static_cast<size_t>(b0 + s * p.bp) * prev.seq_stride +
+              static_cast<size_t>((t - 1) & prev.frame_mask) *
+                  prev.frame_stride,
+          prev.seq_stride, p.bp, rows, i0, count);
     if constexpr (!RESIDENT)
-      stage<VEC>(trans_s + static_cast<size_t>(c & 1) * p.jc * cs, cs,
-                 transition + static_cast<size_t>(j0) * states, states,
-                 p.jc, jlive, i0, VEC ? count : p.chunk, states);
+      stage(trans_s + static_cast<size_t>(c & 1) * p.jc * cs, cs,
+            transition + static_cast<size_t>(j0) * sources, sources, p.jc,
+            jlive, i0, count);
     torbi::cp_async_commit();
   };
 
-  // Frame 0: post = obs[0] + initial
+  // Frame 0: post = obs[0] + initial; the last slice's CTA writes the
+  // exchange's pad columns of its group's sequences, in both parities
   for (int s = 0; s < passes; ++s)
 #pragma unroll
     for (int o = 0; o < kOut; ++o)
-      if (owns(s, o)) {
-        const size_t at = out_index(s, o, 0);
-        post_seq[at] = obs[at] + initial[j0 + tx + (o % kTile) * tx_n];
-      }
+      if (owns(s, o))
+        put(s, o, 0,
+            obs[out_index(s, o, 0)] + initial[j0 + tx + (o % kTile) * tx_n]);
+  if (exchange && j0 + p.jc >= states) {
+    const int pads = sources - states;
+    const int rows = 2 * (min(b0 + p.bc, batch) - b0);
+    for (int e = tid; e < rows * pads; e += blockDim.x)
+      exchange[static_cast<size_t>(b0 + e / pads / 2) * prev.seq_stride +
+               (e / pads % 2) * prev.frame_stride + states + e % pads] =
+          torbi::neg_inf();
+  }
   if (t_end > 1) torbi::group_sync(counters + g, p.dest_groups, 1);
 
   for (int t = 1; t < t_end; ++t) {
@@ -263,7 +296,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
         }
         __syncthreads();
         if (active) {
-          const int quads = (min(p.chunk, states - c * p.chunk) + 3) / 4;
+          const int quads = min(p.chunk, sources - c * p.chunk) / 4;
           const float* ps = post_s + static_cast<size_t>(c & 1) * p.bp * cs +
                             static_cast<size_t>(ty) * cs;
           const float* ts =
@@ -282,9 +315,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
 #pragma unroll
       for (int o = 0; o < kOut; ++o)
         if (owns(s, o))
-          post_seq[out_index(s, o, t)] =
+          put(s, o, t,
               t < bfq[o / kTile] ? ob[o] + acc[o / kTile][o % kTile]
-                                 : __ldcg(post_seq + out_index(s, o, t - 1));
+                                 : __ldcg(post_seq + out_index(s, o, t - 1)));
     }
     if (t + 1 < t_end) torbi::group_sync(counters + g, p.dest_groups, t + 1);
   }
@@ -300,19 +333,28 @@ __global__ void __launch_bounds__(kMaxThreads, 1) dense_forward_kernel(
         }
 }
 
-template <bool RESIDENT, bool VEC>
+template <bool RESIDENT>
 int launch(const float* obs, const int* batch_frames, const float* initial,
-           const float* transition, float* post_seq, unsigned* counters,
-           int batch, int frames, int states, const Plan& p,
-           cudaStream_t stream) {
+           const float* transition, float* post_seq, float* exchange,
+           unsigned* counters, int batch, int frames, int states,
+           const Plan& p, cudaStream_t stream) {
   const size_t smem = smem_floats(p, states) * sizeof(float);
   Plan plan = p;
-  void* args[] = {&obs,     &batch_frames, &initial, &transition,
-                  &post_seq, &counters,    &batch,   &frames,
-                  &states,   &plan};
-  return torbi::launch_persistent(dense_forward_kernel<RESIDENT, VEC>,
+  const int sources = sources_of(states);
+  Source prev = {post_seq, static_cast<size_t>(frames) * states, states,
+                 -1};
+  if (exchange)
+    prev = {exchange, 2 * static_cast<size_t>(sources), sources, 1};
+  void* args[] = {&obs,      &batch_frames, &initial,  &transition,
+                  &post_seq, &exchange,     &prev,     &counters,
+                  &batch,    &frames,       &states,   &plan};
+  return torbi::launch_persistent(dense_forward_kernel<RESIDENT>,
                                   p.groups * p.dest_groups, p.threads, smem,
                                   args, stream);
+}
+
+bool aligned16(const void* pointer) {
+  return reinterpret_cast<uintptr_t>(pointer) % 16 == 0;
 }
 
 bool valid(const Plan& p, int batch, int states, size_t optin) {
@@ -328,50 +370,45 @@ bool valid(const Plan& p, int batch, int states, size_t optin) {
          p.split <= 32 && (p.split & (p.split - 1)) == 0 &&
          p.threads % 32 == 0 && p.threads <= kMaxThreads &&
          p.threads >= cells * p.split && p.chunk >= step &&
-         p.chunk % step == 0 && (!p.vec || states % 4 == 0) &&
+         p.chunk % step == 0 &&
          smem_floats(p, states) * sizeof(float) <= optin;
-}
-
-template <bool RESIDENT>
-int launch_vec(const float* obs, const int* batch_frames,
-               const float* initial, const float* transition,
-               float* post_seq, unsigned* counters, int batch, int frames,
-               int states, const Plan& p, cudaStream_t stream) {
-  return p.vec ? launch<RESIDENT, true>(obs, batch_frames, initial,
-                                        transition, post_seq, counters,
-                                        batch, frames, states, p, stream)
-               : launch<RESIDENT, false>(obs, batch_frames, initial,
-                                         transition, post_seq, counters,
-                                         batch, frames, states, p, stream);
 }
 
 }  // namespace
 
 // obs, post_seq: (batch, frames, states) float32; batch_frames: (batch,)
-// int32; initial: (states,) float32; transition: (states, states) float32,
-// row = destination; counters: (groups,) uint32 zeros, the group barriers.
-// The plan's fields as ops/dense.py::dense_plan gives them. Returns a
-// cudaError_t code: cudaErrorInvalidValue for a plan that does not own
-// every output once or does not fit the card.
+// int32; initial: (states,) float32; transition: (states, sources)
+// float32, row = destination, sources the states rounded up to 4, its pad
+// columns -inf; exchange: (batch, 2, sources) float32 scratch where the
+// states are not a multiple of 4, else null (the posterior is then read
+// from post_seq); counters: (groups,) uint32 zeros, the group barriers.
+// The staged tensors start on 16 bytes. The plan's fields as
+// ops/dense.py::dense_plan gives them. Returns a cudaError_t code:
+// cudaErrorInvalidValue for a plan that does not own every output once or
+// does not fit the card, or a staged tensor off 16 bytes or missing.
 extern "C" int dense_forward(const float* obs, const int* batch_frames,
                              const float* initial, const float* transition,
-                             float* post_seq, unsigned* counters, int batch,
-                             int frames, int states, int bc, int bp, int jc,
-                             int groups, int dest_groups, int split,
-                             int chunk, int resident, int vec, int threads,
-                             void* stream) {
+                             float* post_seq, float* exchange,
+                             unsigned* counters, int batch, int frames,
+                             int states, int bc, int bp, int jc, int groups,
+                             int dest_groups, int split, int chunk,
+                             int resident, int threads, void* stream) {
   if (batch <= 0 || frames <= 0 || states <= 0) return cudaErrorInvalidValue;
+  if (!aligned16(transition) ||
+      (exchange ? !aligned16(exchange)
+                : states % 4 != 0 || !aligned16(post_seq)))
+    return cudaErrorInvalidValue;
   const Plan p = {bc,    bp,    jc,       groups, dest_groups,
-                  split, chunk, resident, vec,    threads};
+                  split, chunk, resident, threads};
   size_t optin = 0;
   cudaError_t err = torbi::optin_smem(&optin);
   if (err != cudaSuccess) return err;
   if (!valid(p, batch, states, optin)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return resident ? launch_vec<true>(obs, batch_frames, initial, transition,
-                                     post_seq, counters, batch, frames,
-                                     states, p, s)
-                  : launch_vec<false>(obs, batch_frames, initial, transition,
-                                      post_seq, counters, batch, frames,
-                                      states, p, s);
+  return resident ? launch<true>(obs, batch_frames, initial, transition,
+                                 post_seq, exchange, counters, batch, frames,
+                                 states, p, s)
+                  : launch<false>(obs, batch_frames, initial, transition,
+                                  post_seq, exchange, counters, batch, frames,
+                                  states, p, s);
 }

@@ -457,9 +457,10 @@ def _launch_clusters(observation, batch_frames, initial, band, band_matrix,
     return post_seq, post_seq[:, -1]
 
 
-# The plan's fields in the order csrc/band_wide.cu takes them: K2's, then
-# the window
-WIDE_PLAN_FIELDS = dense.PLAN_FIELDS + ('window',)
+# The plan's fields in the order csrc/band_wide.cu takes them: K2's, with
+# ``vec`` (16-byte copies or loads) before the threads, then the window
+WIDE_PLAN_FIELDS = ('bc', 'bp', 'jc', 'groups', 'dest_groups', 'split',
+                    'chunk', 'resident', 'vec', 'threads', 'window')
 
 
 def wide_plans(batch, states, width, resident, smem=dense.SMEM_BYTES):

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from ..csrc import build
+from ..utils.cache import identity_cached as _identity_cached
 
 # K2's launch plan (csrc/dense_forward.cu): a thread's register tile of
 # TILE sequences x TILE destinations, at most MAX_THREADS threads a CTA,
@@ -35,11 +36,35 @@ L2_BYTES_PER_CLOCK = 20
 CHUNK_CLOCKS = 500
 # The plan's fields in the order csrc/dense_forward.cu takes them
 PLAN_FIELDS = ('bc', 'bp', 'jc', 'groups', 'dest_groups', 'split', 'chunk',
-               'resident', 'vec', 'threads')
+               'resident', 'threads')
+
+# Padded transitions (``padded_transition``) per live, unmodified tensor
+_padded_cache = {}
 
 
 def _ceil(value, divisor):
     return -(-value // divisor)
+
+
+def sources(states):
+    """The sources K2 stages a row over: the states rounded up to 4, so
+    that every staged row starts on 16 bytes"""
+    return _ceil(states, 4) * 4
+
+
+def padded_transition(transition):
+    """The (states, sources(states)) copy of ``transition`` that K2
+    streams where the states are not a multiple of 4 or the tensor does
+    not start on 16 bytes: its columns, then -inf. Built once per live,
+    unmodified tensor (``utils/cache.py``)"""
+    def pad():
+        states = transition.shape[0]
+        padded = torch.full((states, sources(states)), float('-inf'),
+                            dtype=transition.dtype, device=transition.device)
+        padded[:, :states] = transition
+        return padded
+
+    return _identity_cached(_padded_cache, transition, pad)
 
 
 def chunk_stride(chunk):
@@ -94,21 +119,23 @@ def dense_plans(batch, states, resident, smem=SMEM_BYTES, width=None):
     jc), each thread a TILE x TILE tile of them in passes of ``bp``
     sequences, ``split`` lanes per tile cell (each every split-th group of
     4 sources) when the cells are few. A CTA reads its sequences'
-    posterior in chunks of ``chunk`` sources, double-buffered (``vec``:
-    16-byte asynchronous copies, when the states are a multiple of 4);
-    its transition slice stays in shared memory for the launch
+    posterior in chunks of ``chunk`` sources, double-buffered; its
+    transition slice stays in shared memory for the launch
     (``resident``) or streams with the chunks. For each group count the
     plans of both slice modes that fit, each with the largest chunk that
     fits and its modelled time per frame (``cost``, in clocks): the larger
     of the CTA's candidates at two FP32 instructions each and the bytes it
     reads from L2, over the row or the window, plus its chunks' barriers.
     Each plan is a dict with those fields, ``ctas``, ``threads`` and
-    ``smem_bytes``."""
+    ``smem_bytes``. K2 stages over ``sources(states)`` in 16-byte copies
+    always; a wide-band plan also carries ``vec``, whether its chunks
+    are 16-byte copies (the states a multiple of 4) or loads."""
     for groups in range(1, min(batch, resident) + 1):
         per_group = _ceil(_ceil(batch, groups), TILE) * TILE
         jc = _ceil(_ceil(states, resident // groups), TILE) * TILE
         dest_groups = _ceil(states, jc)
-        sources = states if width is None else band_window(states, jc, width)
+        staged = (sources(states) if width is None
+                  else band_window(states, jc, width))
         if jc // TILE > MAX_THREADS:
             continue
         # Sequences in passes of bp, so that a pass's cells fit the threads
@@ -126,23 +153,24 @@ def dense_plans(batch, states, resident, smem=SMEM_BYTES, width=None):
             plan = {
                 'groups': groups, 'dest_groups': dest_groups, 'bc': bc,
                 'bp': bp, 'jc': jc, 'split': split, 'chunk': step,
-                'resident': not streamed, 'vec': states % 4 == 0,
+                'resident': not streamed,
                 'threads': _ceil(split * cells, 32) * 32,
                 'ctas': groups * dest_groups}
             if width is not None:
-                plan['window'] = sources
+                plan['vec'] = states % 4 == 0
+                plan['window'] = staged
             if smem_bytes(plan, states) > smem:
                 continue
             # The largest chunk that fits, up to the whole row or window
-            while (plan['chunk'] < sources and smem_bytes(
+            while (plan['chunk'] < staged and smem_bytes(
                     dict(plan, chunk=plan['chunk'] + step), states) <= smem):
                 plan['chunk'] += step
             plan['smem_bytes'] = smem_bytes(plan, states)
-            read = (bc + (jc if streamed else 0)) * sources * 4
+            read = (bc + (jc if streamed else 0)) * staged * 4
             plan['cost'] = (
-                max(2 * bc * jc * sources / FP32_PER_CLOCK,
+                max(2 * bc * jc * staged / FP32_PER_CLOCK,
                     read / L2_BYTES_PER_CLOCK)
-                + passes * _ceil(sources, plan['chunk']) * CHUNK_CLOCKS)
+                + passes * _ceil(staged, plan['chunk']) * CHUNK_CLOCKS)
             yield plan
 
 
@@ -181,7 +209,13 @@ def viterbi_forward_dense(observation, batch_frames, transition, initial,
     """Dense forward pass: the K2 kernel (csrc/dense_forward.cu) on CUDA
     tensors, its plain version on CPU tensors. Arguments and results as in
     ``dense_forward_reference``; all tensors contiguous on one device.
-    ``plan`` replaces the launch plan ``dense_plan`` picks for the card."""
+    ``plan`` replaces the launch plan ``dense_plan`` picks for the card.
+
+    K2 stages its rows in 16-byte copies, so where the states are not a
+    multiple of 4 it streams ``padded_transition`` (also where the
+    transition does not start on 16 bytes) and reads the posterior from a
+    padded two-frame exchange (counted in ``padded_launches``); else the
+    transition and the stream in place."""
     device = observation.device
     if device.type == 'cpu':
         return dense_forward_reference(
@@ -193,6 +227,17 @@ def viterbi_forward_dense(observation, batch_frames, transition, initial,
     build.check('transition', transition, (states, states), torch.float32,
                 device)
     build.check('initial', initial, (states,), torch.float32, device)
+    return _launch(observation, batch_frames, transition, initial, plan)
+
+
+viterbi_forward_dense.launches = 0
+viterbi_forward_dense.padded_launches = 0
+
+
+def _launch(observation, batch_frames, transition, initial, plan):
+    """K2 on checked card tensors, as ``viterbi_forward_dense`` gives it"""
+    batch, frames, states = observation.shape
+    device = observation.device
     post_seq = torch.empty_like(observation)
     if batch and frames:
         plan = dict(plan or dense_plan(batch, states, _sms(device)) or {})
@@ -200,8 +245,13 @@ def viterbi_forward_dense(observation, batch_frames, transition, initial,
             raise ValueError(
                 f'no launch plan of the dense forward kernel holds {batch} '
                 f'x {states} states')
-        # The 16-byte copies read the transition rows too
-        plan['vec'] = plan['vec'] and transition.data_ptr() % 16 == 0
+        padded = states % 4 != 0
+        if padded or transition.data_ptr() % 16:
+            transition = padded_transition(transition)
+        # No fill: K2 writes the exchange's pad columns at frame 0
+        exchange = (torch.empty((batch, 2, sources(states)),
+                                dtype=torch.float32, device=device)
+                    if padded else None)
         counters = torch.zeros(
             (plan['groups'],), dtype=torch.int32, device=device)
         lib = _library()
@@ -209,15 +259,15 @@ def viterbi_forward_dense(observation, batch_frames, transition, initial,
             code = lib.dense_forward(
                 build.pointer(observation), build.pointer(batch_frames),
                 build.pointer(initial), build.pointer(transition),
-                build.pointer(post_seq), build.pointer(counters), batch,
-                frames, states, *(int(plan[key]) for key in PLAN_FIELDS),
+                build.pointer(post_seq),
+                None if exchange is None else build.pointer(exchange),
+                build.pointer(counters), batch, frames, states,
+                *(int(plan[key]) for key in PLAN_FIELDS),
                 build.stream(device))
         build.raise_on_error(lib, 'dense_forward', code)
         viterbi_forward_dense.launches += 1
+        viterbi_forward_dense.padded_launches += int(padded)
     return post_seq, post_seq[:, -1]
-
-
-viterbi_forward_dense.launches = 0
 
 
 def _sms(device):
@@ -227,7 +277,7 @@ def _sms(device):
 
 def _library():
     lib = build.library('dense_forward')
-    lib.dense_forward.argtypes = [ctypes.c_void_p] * 6 + [
+    lib.dense_forward.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * (3 + len(PLAN_FIELDS)) + [ctypes.c_void_p]
     lib.dense_forward.restype = ctypes.c_int
     return lib
