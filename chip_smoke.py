@@ -55,6 +55,21 @@ just after each:
   log_probs=False)`` equal to them with its launches and the conversion's
   counters; K2's plan printed, and the conversion, K2 and K3 timed in
   turns;
+- the in-list route (``ops/sparse.py``; ``--beats`` runs this phase
+  alone, ``--beats quick`` its edges alone): K9 and K10 bitwise against
+  their plain versions and the route's paths equal to K2 then K3's on
+  random sparse HMMs with ties at the edge shapes (``SPARSE_EDGES``: one
+  frame, one row, ragged lengths, -inf initial entries, the four
+  conversions, K9's observation ring and in-lists in shared memory or
+  not) and on a frame of -inf; madmom's beat tracker
+  (``models/beats.py``, 5617 states) at the ``dbnbeat-b16-tracks`` cell's
+  longest batch, 16 tracks of up to 42,006 frames: K9 and K10 bitwise, the
+  paths equal to K2 then K3's and to the benchmark's plain reference, the
+  path through ``from_probabilities(..., log_probs=True)`` with one K9
+  and one K10 launch, nothing else and no conversion pass; K9 and K2
+  timed in turns there, K9 at 256, 512 and 1024 threads a track, and K9
+  against K2 at the shares the gate's threshold comes from
+  (``SPARSE_SHARES``);
 - the batch-1 kernels: K4 (its band tile in registers, the mbarrier
   exchange, one cluster of 16 CTAs) at 1 x 10,240 and 1 x 2048, in the
   three conversions, on every sequence of every band edge and at its
@@ -247,6 +262,26 @@ SCALEOUT_TIMEOUT = 600
 # pYIN's HMM (1202 states, dense): the rows of the pyin-b512-sorted
 # cell's longest batch, its probabilities made from this seed
 PYIN_ROWS, PYIN_SEED = 512, 2 ** 32 + 7
+# madmom's DBN beat tracker (5617 states, 8,934 positive pairs): the rows
+# of the dbnbeat-b16-tracks cell's longest batch, its activations drawn from
+# this seed; the in-list route's edge shapes (batch, frames, states, the
+# in-degree of a light destination, seed: odd state counts, one frame, one
+# row; K9's observation ring in shared memory up to 11,622 states, its
+# values loaded on the frame past it (11,700: the in-lists resident; 20,000:
+# in global memory)) and the random sparse HMMs
+# the gate's threshold is timed at (batch, frames, states, and the in-degree
+# of a random one, or madmom's or pYIN's transition, or madmom's with one
+# source a state: no warp-reduced in-list)
+BEATS_SEED = 2 ** 33 + 11
+SPARSE_EDGES = ((1, 1, 97, 2, 1), (1, 64, 97, 2, 2), (3, 50, 1000, 3, 3),
+                (5, 40, 5617, 2, 4), (7, 33, 2048, 1, 5), (2, 30, 9000, 3, 6),
+                (2, 20, 11700, 0, 7), (2, 20, 20000, 4, 8))
+SPARSE_SHARES = ((16, 2048, 5617, 'madmom'), (1, 4096, 5617, 'madmom'),
+                 (16, 2048, 5617, 'chain'),
+                 (16, 2048, 5617, 6), (16, 2048, 5617, 18),
+                 (16, 2048, 5617, 56), (512, 861, 1202, 'pyin'))
+# K9's threads a sequence timed at the cell's longest batch
+SPARSE_THREADS = (256, 512, 1024)
 # Rows of the uniform path at the headline's shape held against the scan
 UNIFORM_SCAN_ROWS = 16
 # The extra decode modes: the time-sharded and associative routes at one
@@ -1639,7 +1674,7 @@ def modes_phase(torch, device, card, headline, exact_path, reset_counts,
 def decode_counters():
     """The launch counters of the decode kernels (the wrappers themselves)"""
     from torbi_tpu_torch.ops import (
-        associative, backtrace, band, constant, dense)
+        associative, backtrace, band, constant, dense, sparse)
 
     return {
         'band_forward': band.viterbi_forward_band,
@@ -1652,6 +1687,8 @@ def decode_counters():
         'backtrace_window': backtrace.backtrace_window,
         'constant_recurrence': constant.recurrence,
         'maxplus_matmul': associative.maxplus_matmul,
+        'sparse_forward': sparse.viterbi_forward_sparse,
+        'sparse_backtrace': sparse.backtrace_sparse,
     }
 
 
@@ -2207,6 +2244,365 @@ def pyin_phase(torch, device, card, reset_counts, read_counts):
             'dense_forward_ms': times['dense_forward'],
             'backtrace_ms': times['backtrace'], 'call_ms': call_ms[0],
             'plan': plan, 'padded_launches': padded_launches}
+
+
+def sparse_hmm(torch, batch, frames, states, degree, seed, device):
+    """A random sparse HMM with ties, on ``device``: each destination a few
+    sources (0 to 2 degree; one in 20 a long list of 9-40, which K9's
+    warps reduce), values and the observation drawn from a few levels so
+    that candidates tie, a -inf exterior, -inf entries in the initial
+    distribution, ragged lengths (the first row whole). Returns
+    (observation, batch_frames, transition, initial), log space"""
+    rng = np.random.default_rng(seed)
+    trans = np.full((states, states), -np.inf, np.float32)
+    for j in range(states):
+        count = (int(rng.integers(9, 41)) if rng.random() < 0.05
+                 else int(rng.integers(0, 2 * degree + 1)))
+        chosen = rng.choice(states, min(count, states), replace=False)
+        trans[j, chosen] = np.log(rng.choice([0.25, 0.5, 1.0], len(chosen)))
+    obs = np.log(rng.choice([0.1, 0.2, 0.4], (batch, frames, states)))
+    with np.errstate(divide='ignore'):
+        init = np.log(rng.choice([0.0, 0.5, 1.0], states))
+    init[0] = 0.0
+    lengths = rng.integers(0, frames + 1, batch)
+    lengths[0] = frames
+    return (torch.from_numpy(obs.astype(np.float32)).to(device),
+            torch.from_numpy(lengths.astype(np.int32)).to(device),
+            torch.from_numpy(trans).to(device),
+            torch.from_numpy(init.astype(np.float32)).to(device))
+
+
+def require_pointers(torch, name, got, expected, batch_frames):
+    """K9's pointers against its plain version's on the rows the chase
+    reads (1 <= t < batch_frames; the kernel leaves the others unwritten)"""
+    frames = got.shape[1]
+    for row, length in enumerate(batch_frames.tolist()):
+        top = min(length, frames)
+        if top > 1 and not torch.equal(got[row, 1:top],
+                                       expected[row, 1:top]):
+            fail(f'{name}: K9\'s pointers of row {row} differ from its '
+                 'plain version (tolerance: bitwise)')
+    info(f'{name}: K9\'s pointers bitwise equal to its plain version on '
+         'every frame the chase reads')
+
+
+def sparse_route_paths(torch, obs, bf, trans, init, conversion):
+    """(K9 then K10's paths, K2 then K3's paths, K9's outputs) of one
+    log-space input, K9 folding ``conversion`` (log_input,
+    apply_epsilon), K2 on the converted copy"""
+    from torbi_tpu_torch.ops import backtrace, dense, dispatch, sparse
+
+    lists = sparse.in_lists(trans)
+    pointers, posterior = sparse.viterbi_forward_sparse(
+        obs, bf, init, lists, *conversion)
+    paths = sparse.backtrace_sparse(pointers, posterior, bf, lists)
+    converted = dispatch.convert(obs, *conversion).contiguous()
+    post_seq, last = dense.viterbi_forward_dense(converted, bf, trans, init)
+    dense_paths = backtrace.backtrace_posteriors(post_seq, trans, last, bf)
+    return paths, dense_paths, (pointers, posterior, converted, post_seq)
+
+
+def beats_phase(torch, device, card, reset_counts, read_counts,
+                quick=False):
+    """The in-list route (``ops/sparse.py``): K9 and K10 bitwise against
+    their plain versions, and the route's paths equal to K2 then K3's, on
+    the edge shapes (random sparse HMMs with ties, -inf initial entries,
+    ragged lengths, in the four conversions at the first shapes); then,
+    unless ``quick``, madmom's beat tracker (``models/beats.py``) at the
+    dbnbeat-b16-tracks cell's longest batch, 16 tracks of up to 42,006
+    frames of the cell's generated densities: K9 and K10 bitwise, the paths
+    equal to K2 then K3's and to the benchmark's plain reference (madmom's
+    sparse Viterbi), the path through ``from_probabilities(...,
+    log_probs=True)`` with one K9 and one K10 launch, no K2, no conversion
+    pass; K9 and K2 timed in turns there, and K9 against K2 at the gate's
+    threshold (``SPARSE_SHARES``: 1% of 5617^2 pairs; pYIN's 16.1% at 1202
+    states, 512 rows). Returns a dict of the timings"""
+    from benchmark import beats as beats_inputs, inputs
+    from benchmark.reference import beats as reference
+    from torbi_tpu_torch.models import beats, pyin
+    from torbi_tpu_torch.ops import backtrace, dense, dispatch, sparse
+
+    import torbi_tpu_torch
+
+    result = {}
+    for index, (batch, frames, states, degree, seed) in enumerate(
+            SPARSE_EDGES):
+        obs, bf, trans, init = sparse_hmm(
+            torch, batch, frames, states, degree, seed, device)
+        lists = sparse.in_lists(trans)
+        layout = sparse.forward_layout(states, lists.pairs)
+        conversions = ((True, False), (True, True), (False, False),
+                       (False, True)) if index < 3 else ((True, True),)
+        for conversion in conversions:
+            raw = obs if conversion[0] else torch.exp(obs)
+            label = (f'sparse edge {batch} x {frames} x {states} '
+                     f'({lists.pairs} pairs, {layout}), conversion '
+                     f'{conversion}')
+            paths, dense_paths, (pointers, posterior, converted, _) = (
+                sparse_route_paths(torch, raw, bf, trans, init, conversion))
+            want_pointers, want_posterior = sparse.sparse_forward_reference(
+                raw, bf, init, lists, *conversion)
+            require_pointers(torch, label, pointers, want_pointers, bf)
+            require_equal(torch, f'{label} K9 posterior', posterior,
+                          want_posterior)
+            require_equal(torch, f'{label} K10', paths,
+                          sparse.backtrace_sparse_reference(
+                              pointers, posterior, bf))
+            if not torch.equal(paths, dense_paths):
+                fail(f'{label}: the in-list route\'s paths differ from K2 '
+                     'then K3\'s')
+            info(f'{label}: the paths equal K2 then K3\'s')
+            del pointers, posterior, converted
+    # A frame of -inf everywhere: every later posterior is -inf, the seed
+    # 0, and K10 reads every pointer
+    obs, bf, trans, init = sparse_hmm(torch, 3, 40, 1000, 3, 8, device)
+    obs[:, 20] = float('-inf')
+    paths, dense_paths, (pointers, posterior, _, _) = sparse_route_paths(
+        torch, obs, bf, trans, init, (True, False))
+    require_equal(torch, 'sparse -inf frame K10', paths,
+                  sparse.backtrace_sparse_reference(pointers, posterior, bf))
+    if not torch.equal(paths, dense_paths):
+        fail('sparse -inf frame: the paths differ from K2 then K3\'s')
+    info('sparse -inf frame: K10 follows the pointers and equals K2 then K3')
+    if quick:
+        return result
+
+    # madmom's beat tracker at the cell's longest batch
+    traffic = json.loads(
+        (ROOT / 'benchmark' / 'traffic' / 'dbnbeat-sorted-pool48.json')
+        .read_text())
+    config = json.loads(
+        (ROOT / 'benchmark' / 'configs' / 'dbnbeat5617-default.json')
+        .read_text())
+    lengths = inputs.lengths(traffic['pool'], **traffic['lengths'])[
+        -config['BATCH_SIZE']:]
+    host = inputs.host_generator(BEATS_SEED)
+    tracks = beats_inputs.activations(
+        lengths, traffic['activations'], beats.FPS, host)
+    obs = beats_inputs.log_densities(tracks, config['dbn'], device)
+    bf = torch.tensor(lengths, dtype=torch.int32, device=device)
+    trans = torch.from_numpy(beats.transition_matrix()).to(device)
+    init = torch.from_numpy(beats.initial()).to(device)
+    lists = sparse.detect_sparse(trans)
+    if lists is None or lists.pairs != 8934:
+        fail(f'beats: the gate declined madmom\'s transition ({lists})')
+    if sparse.detect_sparse(torch.log(torch.from_numpy(
+            pyin.transition_matrix()).to(device))) is not None:
+        fail('beats: the gate took pYIN\'s transition')
+    layout = sparse.forward_layout(beats.STATES, lists.pairs)
+    info(f'beats: {len(lengths)} tracks of {min(lengths)}-{max(lengths)} '
+         f'frames x {beats.STATES} states ({sum(lengths)} real frames), '
+         f'{lists.pairs} pairs; K9 layout {layout}, K10 layout '
+         f'{sparse.chase_layout(beats.STATES, lists.pairs)}')
+
+    (pointers, posterior), k9_ms = cuda_once(
+        torch, lambda: sparse.viterbi_forward_sparse(
+            obs, bf, init, lists, True, True))
+    paths, k10_ms = cuda_once(torch, lambda: sparse.backtrace_sparse(
+        pointers, posterior, bf, lists))
+    info(f'beats: K9 {k9_ms:.3f} ms, K10 {k10_ms:.3f} ms (first calls)')
+    want_pointers, want_posterior = sparse.sparse_forward_reference(
+        obs, bf, init, lists, True, True)
+    require_pointers(torch, 'beats K9', pointers, want_pointers, bf)
+    require_equal(torch, 'beats K9 posterior', posterior, want_posterior)
+    del want_pointers, want_posterior
+    require_equal(torch, 'beats K10', paths,
+                  sparse.backtrace_sparse_reference(pointers, posterior, bf))
+    rows = reference.decode(reference.stabilised(obs), lengths,
+                            reference.hmm(config['dbn'], device)[0], init)
+    for row, length in enumerate(lengths):
+        if not torch.equal(paths[row, :length].long(), rows[row, :length]):
+            fail(f'beats: row {row} differs from the plain reference '
+                 '(madmom\'s sparse Viterbi)')
+    del rows
+    info('beats: the paths equal the benchmark\'s plain reference on all '
+         f'{len(lengths)} tracks')
+
+    values = dispatch.convert.values
+    reasons = dict(dispatch.decode.dense_reasons)
+    reset_counts()
+
+    def call():
+        return torbi_tpu_torch.from_probabilities(
+            obs, bf, trans, init, log_probs=True, gpu=device)
+
+    cuda = device.type == 'cuda'
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    decoded = call()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    counts = read_counts()
+    if not torch.equal(decoded, paths):
+        fail('beats: from_probabilities differs from K9 then K10')
+    # The plain versions on the CPU count no launch
+    if cuda and ((counts['sparse_forward'], counts['sparse_backtrace'])
+                 != (1, 1) or any(
+                     count for name, count in counts.items()
+                     if name not in ('sparse_forward', 'sparse_backtrace'))):
+        fail(f'beats: from_probabilities launched {counts}')
+    if (dispatch.convert.values != values
+            or dict(dispatch.decode.dense_reasons) != reasons):
+        fail('beats: from_probabilities ran a conversion pass or counted a '
+             'dense decode')
+    info(f'beats: from_probabilities(..., log_probs=True) equals K9 then '
+         f'K10, launches {counts}, no conversion pass; peak memory '
+         f'{peak} bytes')
+    del pointers, posterior
+
+    # K2 then K3 on the same batch
+    converted = dispatch.convert(obs, True, True).contiguous()
+    del obs
+    torch.cuda.empty_cache()
+    (post_seq, last), k2_ms = cuda_once(
+        torch, lambda: dense.viterbi_forward_dense(
+            converted, bf, trans, init))
+    dense_paths, k3_ms = cuda_once(
+        torch, lambda: backtrace.backtrace_posteriors(
+            post_seq, trans, last, bf))
+    if not torch.equal(dense_paths, paths):
+        fail('beats: the in-list route\'s paths differ from K2 then K3\'s')
+    info(f'beats: the paths equal K2 then K3\'s (K2 {k2_ms:.3f} ms, K3 '
+         f'{k3_ms:.3f} ms)')
+    del post_seq, last
+
+    def k9():
+        return sparse.viterbi_forward_sparse(converted, bf, init, lists)
+
+    def k2():
+        return dense.viterbi_forward_dense(converted, bf, trans, init)
+
+    times = {'sparse_forward': [], 'dense_forward': []}
+    for name, fn in (('sparse_forward', k9), ('dense_forward', k2),
+                     ('dense_forward', k2), ('sparse_forward', k9)):
+        times[name].append(cuda_ms(torch, fn, iters=1, warmup=0))
+    pointers, posterior = k9()
+    k10 = cuda_ms(torch, lambda: sparse.backtrace_sparse(
+        pointers, posterior, bf, lists), iters=3)
+    del pointers, posterior
+    call_ms = host_ms(torch, lambda: torbi_tpu_torch.from_probabilities(
+        converted, bf, trans, init, log_probs=True, gpu=device), calls=3)
+    real = sum(lengths)
+    least, _ = bound_ms(4 * (real * beats.STATES + lists.pairs),
+                        2 * (real - len(lengths)) * lists.pairs)
+    # K9 at other threads a sequence
+    for threads in SPARSE_THREADS:
+        custom = dict(layout, threads=threads,
+                      per=-(-beats.STATES // threads))
+        got = sparse.viterbi_forward_sparse(converted, bf, init, lists,
+                                            layout=custom)
+        want = k9()
+        if not torch.equal(got[1], want[1]):
+            fail(f'beats: K9 at {threads} threads differs')
+        del got, want
+        threads_ms = cuda_ms(torch, lambda: sparse.viterbi_forward_sparse(
+            converted, bf, init, lists, layout=custom), iters=2)
+        result[f'threads_{threads}_ms'] = threads_ms
+        info(f'beats: K9 at {threads} threads a track: {threads_ms:.3f} ms')
+    info(f'beats: ms in turns (K9, K2, K2, K9) on {card}: K9 '
+         f'{times["sparse_forward"]}, K2 {times["dense_forward"]}; K10 '
+         f'{k10:.3f}; the call (host clock, warm median of 3) '
+         f'{call_ms[0]:.3f}; K9\'s bound {least:.3f} ms (the observation '
+         f'read once); {max(lengths)} serial frames: '
+         f'{min(times["sparse_forward"]) / max(lengths) * 1e3:.3f} us a '
+         'frame')
+    del converted
+    torch.cuda.empty_cache()
+    result.update(sparse_forward_ms=times['sparse_forward'],
+                  dense_forward_ms=times['dense_forward'],
+                  sparse_backtrace_ms=k10, call_ms=call_ms[0],
+                  peak_bytes=peak)
+
+    # K9 against K2 at denser transitions: the gate's threshold
+    for batch, frames, states, degree in SPARSE_SHARES:
+        if degree == 'pyin':
+            dense_trans = torch.log(torch.from_numpy(
+                pyin.transition_matrix()).to(device))
+        elif degree == 'madmom':
+            dense_trans = trans
+        elif degree == 'chain':
+            # madmom's, each first state keeping its lowest source alone
+            dense_trans = trans.clone()
+            keep = torch.isfinite(dense_trans).int().argmax(dim=1)
+            dense_trans.fill_(float('-inf'))
+            rows = torch.arange(states, device=device)
+            dense_trans[rows, keep] = trans[rows, keep]
+        else:
+            dense_trans = sparse_hmm(torch, 1, 1, states, degree, 9,
+                                     device)[2]
+        share_lists = sparse.in_lists(dense_trans)
+        share_obs = torch.log(torch.rand(
+            (batch, frames, states), device=device,
+            generator=torch.Generator(device=device).manual_seed(5)))
+        share_bf = torch.full((batch,), frames, dtype=torch.int32,
+                              device=device)
+        share_init = torch.zeros(states, device=device)
+        turns = {'sparse_forward': [], 'dense_forward': []}
+        for name in ('sparse_forward', 'dense_forward', 'dense_forward',
+                     'sparse_forward'):
+            turns[name].append(cuda_ms(torch, (
+                (lambda: sparse.viterbi_forward_sparse(
+                    share_obs, share_bf, share_init, share_lists))
+                if name == 'sparse_forward' else
+                (lambda: dense.viterbi_forward_dense(
+                    share_obs, share_bf, dense_trans, share_init))),
+                iters=1))
+        share = share_lists.pairs / states ** 2
+        info(f'sparse gate: {batch} x {frames} x {states} at '
+             f'{share_lists.pairs} pairs ({100 * share:.3f}% of S^2, '
+             f'K9 layout {sparse.forward_layout(states, share_lists.pairs)})'
+             f': K9 {turns["sparse_forward"]} ms, K2 '
+             f'{turns["dense_forward"]} ms in turns')
+        result[f'share_{batch}x{frames}x{states}_{share_lists.pairs}'] = (
+            dict(share=share, **turns))
+        del share_obs, dense_trans, share_lists
+        torch.cuda.empty_cache()
+    return result
+
+
+def beats_main(quick):
+    """``python3 chip_smoke.py --beats [quick]``: the in-list route's
+    phase alone, its kernels and K2, K3 built first"""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail('the in-list phase needs a CUDA card')
+    sys.path.insert(0, str(ROOT))
+    from torbi_tpu_torch.csrc import build
+
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    from torbi_tpu_torch.utils import profile
+
+    global ISSUE_PER_S
+    sms, clock_hz = profile.device_rates()
+    ISSUE_PER_S = profile.FP32_LANES_PER_SM * sms * clock_hz
+    start = time.perf_counter()
+    names = ('sparse_forward', 'sparse_backtrace', 'dense_forward',
+             'backtrace')
+    build.build(names)
+    info(f'built {", ".join(names)} in {time.perf_counter() - start:.1f} s')
+    for name in names[:2]:
+        for line in (build.report(name) or '').splitlines():
+            if 'registers' in line or 'spill' in line:
+                info(f'{name}: {line.strip()}')
+    counters = decode_counters()
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    result = beats_phase(torch, device, card, reset_counts, read_counts,
+                         quick=quick)
+    print(json.dumps({'sparse': result, 'ok': True}), flush=True)
 
 
 def pitch_file(path, frames, seed):
@@ -3050,6 +3446,11 @@ def main():
     # pYIN's HMM on the dense route at the cell's longest batch
     kernels['dense_forward']['pyin'] = pyin_phase(
         torch, device, card, reset_counts, read_counts)
+
+    # madmom's beat tracker on the in-list route at the cell's longest
+    # batch, the route's edges, and the gate's threshold
+    sparse_times = beats_phase(torch, device, card, reset_counts,
+                               read_counts)
 
     # 4. The banded path (the headline) through from_probabilities
     def headline():
@@ -4517,7 +4918,11 @@ def main():
     for name in ('band_spread', 'backtrace_pointers', 'chase_pointers'):
         kernels[name]['evaluation_launches'] = evaluation['nobatch'][1][name]
     for name in counters:
-        kernels[name]['soak_launches'] = soak_counts[name]
+        if name in kernels:
+            kernels[name]['soak_launches'] = soak_counts[name]
+        else:
+            # The in-list route's kernels report in the sparse line
+            sparse_times[f'{name}_soak_launches'] = soak_counts[name]
     for name, parts in scaleout.items():
         kernels[name]['scaleout_launches'] = parts
     path_counts = {
@@ -4551,6 +4956,7 @@ def main():
                 line[extra] = value
         lines.append(line)
     print(json.dumps({'kernels': lines}), flush=True)
+    print(json.dumps({'sparse': sparse_times}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu',
         'kind': torch.cuda.get_device_name(0),
@@ -4561,6 +4967,8 @@ if __name__ == '__main__':
     try:
         if sys.argv[1:2] == ['--trace-dense']:
             trace_dense(sys.argv[2])
+        elif sys.argv[1:2] == ['--beats']:
+            beats_main(quick=sys.argv[2:3] == ['quick'])
         elif sys.argv[1:2] == ['--scaleout-rank']:
             scaleout_rank(int(sys.argv[2]), int(sys.argv[3]),
                           int(sys.argv[4]), sys.argv[5])

@@ -5,8 +5,10 @@ With no profiler recording a span enters no ``record_function``; under
 nested as the decode nests: the entry point, ``torbi.decode`` (nested
 again on the memory guard's row groups), the conversion pass of a route
 that does not fold it (``torbi.convert``), the forward and chase kernels
-by their launch counters' names, the gather of a split batch, and a
-rebuilt cache entry as ``torbi.build``.
+by their launch counters' names (the in-list route's
+``torbi.forward.sparse_forward`` and ``torbi.chase.sparse_backtrace``),
+the gather of a split batch, and a rebuilt cache entry as
+``torbi.build`` (the in-list route's in-lists among them).
 """
 import json
 
@@ -143,6 +145,43 @@ def test_dense_route_spans(monkeypatch):
     assert found[2:] == [('torbi.convert', 'torbi.decode'),
                          ('torbi.forward.dense_forward', 'torbi.decode'),
                          ('torbi.chase.backtrace', 'torbi.decode')]
+
+
+def test_sparse_route_spans(monkeypatch):
+    """madmom's beat tracker at 20 fps: the in-list route folds the
+    conversion, so no ``torbi.convert``; its in-lists are built once, on
+    the first call; its counters count the pairs and no launch on the
+    CPU (the gate widened to the 20-fps space's 0.64% of the pairs)"""
+    from torbi_tpu_torch.models import beats
+    from torbi_tpu_torch.ops import sparse
+
+    monkeypatch.setattr(sparse, 'MAX_SHARE', 0.01)
+    rng = np.random.default_rng(2)
+    obs = torch.from_numpy(beats.observation(
+        rng.uniform(0.01, 0.99, (2, 9)).astype(np.float32), fps=20))
+    trans = torch.from_numpy(beats.transition_matrix(fps=20))
+    initial = torch.from_numpy(beats.initial(238))
+    launches = (sparse.viterbi_forward_sparse.launches,
+                sparse.backtrace_sparse.launches)
+    pairs = sparse.viterbi_forward_sparse.pairs
+
+    def call():
+        return torbi_tpu_torch.from_probabilities(
+            obs, None, trans, initial, log_probs=True, gpu='cpu')
+
+    first = profiled(call)
+    assert without_builds(first) == [
+        ('torbi.from_probabilities', None),
+        ('torbi.decode', 'torbi.from_probabilities'),
+        ('torbi.forward.sparse_forward', 'torbi.decode'),
+        ('torbi.chase.sparse_backtrace', 'torbi.decode')]
+    # The band statistics and the in-lists, each built once
+    assert [name for name, _ in first].count('torbi.build') >= 2
+    assert without_builds(profiled(call)) == without_builds(first)
+    assert 'torbi.build' not in [name for name, _ in profiled(call)]
+    assert (sparse.viterbi_forward_sparse.launches,
+            sparse.backtrace_sparse.launches) == launches
+    assert sparse.viterbi_forward_sparse.pairs - pairs == 3 * 365 * 2 * 9
 
 
 def test_decode_sharded_spans_in_a_gloo_world(tmp_path):

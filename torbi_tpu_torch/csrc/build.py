@@ -25,7 +25,8 @@ BUILD_DIR = CSRC_DIR.parent.parent / 'build' / 'torbi_tpu_torch'
 # The decode kernels' sources, then the labs'
 DECODE_SOURCES = (
     'band_forward', 'band_wide', 'band_spread', 'dense_forward', 'backtrace',
-    'backtrace_batch1', 'constant', 'maxplus')
+    'backtrace_batch1', 'constant', 'maxplus', 'sparse_forward',
+    'sparse_backtrace')
 SOURCES = DECODE_SOURCES + (
     'lab_forward', 'lab_pipe', 'lab_mxu', 'lab_mod', 'lab_spread',
     'lab_chase')

@@ -1,2 +1,3 @@
+from . import beats
 from . import pitch
 from . import pyin

@@ -97,25 +97,18 @@ _detect_cache = {}
 _initial_gate_cache = {}
 
 
-def detect_band(transition):
-    """Detect a diagonal band (with -inf or constant-floor exterior).
-
-    transition: (states, states) log-probabilities, a tensor or array.
-
-    Returns (lo, width, floor) with python-int lo/width and floor either
-    None (exterior is -inf) or a finite python float (exterior is exactly
-    constant), or None when the banded kernel does not apply.
-    """
-    import torbi_tpu_torch
-
-    states = transition.shape[0]
-
+def transition_stats(transition):
+    """(floor, lo, hi, pairs) of a (states, states) log transition, a
+    tensor or array: its global minimum, the least and the greatest
+    diagonal offset (column - row) of the entries above it, and how many
+    entries lie above it. Computed on the host, once per live, unmodified
+    tensor: one device-to-host copy of the matrix, which band detection
+    and the sparse route's gate (``ops/sparse.py``) both read"""
     def stats():
         # Exterior entries (outside [lo, hi]) must all equal the floor
         # exactly; since floor is the global min and `above` is defined by
         # > floor, no above-floor entry lies outside [lo, hi] by
-        # construction. Computed on the host, once per transition: one
-        # device-to-host copy of the matrix
+        # construction
         if isinstance(transition, torch.Tensor):
             host = transition.detach().cpu().numpy()
         else:
@@ -128,8 +121,22 @@ def detect_band(transition):
         hi = d.max() if n_above else 0
         return floor, lo, hi, n_above
 
-    floor, lo, hi, n_above = _identity_cached(
-        _detect_cache, transition, stats)
+    return _identity_cached(_detect_cache, transition, stats)
+
+
+def detect_band(transition):
+    """Detect a diagonal band (with -inf or constant-floor exterior).
+
+    transition: (states, states) log-probabilities, a tensor or array.
+
+    Returns (lo, width, floor) with python-int lo/width and floor either
+    None (exterior is -inf) or a finite python float (exterior is exactly
+    constant), or None when the banded kernel does not apply.
+    """
+    import torbi_tpu_torch
+
+    states = transition.shape[0]
+    floor, lo, hi, n_above = transition_stats(transition)
 
     result = None
     if n_above > 0:

@@ -16,6 +16,10 @@ decisions. One decode takes one of these routes:
   uniform default): a closed form of parallel torch passes around one
   kernel, K7, the scalar recurrence (ops/constant.py);
 - a banded transition: the banded forward kernel, then a chase kernel;
+- a transition no band holds whose exterior is -inf and whose positive
+  pairs are few (``sparse.detect_sparse``): the in-list route, the sparse
+  forward kernel (K9) over each destination's sources alone, then its
+  chase (K10) (ops/sparse.py);
 - any other transition: the dense forward kernel (K2), then the backtrace
   kernel (K3).
 
@@ -36,10 +40,11 @@ JAX package:
    window fits, as the JAX gate measures it), else K3.
 
 The probability->log conversion and the epsilon step fold into the banded
-forward kernels (K1, K4), which convert each value as they load it, as in
-the JAX package (its ``fold_obs``): the banded and auto-chunk routes make
-no converted copy of the observation. The constant closed form, the dense
-route, ``'scan'``, ``'lse'`` and the time-sharded route convert first
+forward kernels (K1, K4) and the sparse one (K9), which convert each value
+as they load it, as in the JAX package (its ``fold_obs``): the banded,
+auto-chunk and in-list routes make no converted copy of the observation.
+The constant closed form, the dense route, ``'scan'``, ``'lse'`` and the
+time-sharded route convert first
 (``convert``: its span ``torbi.convert`` and its counter ``convert.values``),
 as the JAX package does. ``decode.dense_reasons`` counts the decodes that
 launch the dense kernel by why the banded kernels declined them.
@@ -63,6 +68,7 @@ import torch
 from . import autochunk
 from . import band as band_ops
 from . import constant as constant_ops
+from . import sparse as sparse_ops
 from .backtrace import (
     FUSED1_MAX_STATES, backtrace_fused1, backtrace_posteriors,
     backtrace_window, window_rows)
@@ -310,6 +316,25 @@ def kernel_route(transition, band, batch):
     return _spanned('forward', *forward), _spanned('chase', *chase)
 
 
+def sparse_route(lists):
+    """The forward and the chase of the in-list route for a transition of
+    these in-lists (``sparse.detect_sparse``), as ``kernel_route`` gives
+    its own: ``forward(obs, batch_frames, initial, log_input=True,
+    apply_epsilon=False)`` gives (pointers, posterior) through K9
+    ('sparse_forward', converting the observation as it loads it), and
+    ``chase(pointers, posterior, batch_frames)`` the indices through K10
+    ('sparse_backtrace'), each inside its span"""
+    def forward(obs, bf, initial, log_input=True, apply_epsilon=False):
+        return sparse_ops.viterbi_forward_sparse(
+            obs, bf, initial, lists, log_input, apply_epsilon)
+
+    def chase(pointers, posterior, bf):
+        return sparse_ops.backtrace_sparse(pointers, posterior, bf, lists)
+
+    return (_spanned('forward', 'sparse_forward', forward),
+            _spanned('chase', 'sparse_backtrace', chase))
+
+
 def _spanned(role, name, call):
     """(name, ``call`` inside the span ``torbi.<role>.<name>``)"""
     return name, timing.spanned(f'torbi.{role}.{name}')(call)
@@ -413,9 +438,20 @@ def decode(observation, batch_frames, transition, initial, backend=None,
             if not bool(finite.all()):
                 band, reason = None, 'observation'
     constant = band is not None and band[1] == 0
-    # The banded kernels convert the observation as they load it (the JAX
-    # dispatcher's fold_obs); every other route converts first
-    fold = band is not None and backend == 'kernel' and not constant
+    # In-list route: a transition no band holds, its exterior -inf and its
+    # positive pairs few, decided from the transition alone; an observation
+    # holding NaN or +inf stays on the dense route, as on the band gate
+    lists = None
+    if band is None and backend == 'kernel':
+        lists = sparse_ops.detect_sparse(transition)
+        if (lists is not None and not finite_observation
+                and not sparse_ops.observation_holds(
+                    observation[..., :states], log_input)):
+            lists = None
+    # The banded and sparse kernels convert the observation as they load
+    # it (the JAX dispatcher's fold_obs); every other route converts first
+    fold = (band is not None and backend == 'kernel'
+            and not constant) or lists is not None
 
     # Batch-1 auto-chunking: a single long banded sequence decodes as
     # entropy-chunk rows (ops/autochunk.py); None falls through to the
@@ -437,16 +473,17 @@ def decode(observation, batch_frames, transition, initial, backend=None,
 
     # Memory guard: a decode holds the observation, a converted copy of it
     # when the conversion runs outside the kernels (or the state padding is
-    # cut off), and the posterior stream (none on the constant route), 4
-    # bytes each per state. Oversized batches split into independent row
+    # cut off), 4 bytes each per state, and the posterior stream (4 bytes a
+    # state; the in-list route's int16 pointers, 2; none on the constant
+    # route). Oversized batches split into independent row
     # groups (batch rows are independent; the result is bitwise the same). A
     # host observation is sliced before any transfer, so the device only
     # holds the groups; a device-resident one stays whole and its groups
     # queue on the stream, each freed as the next is decoded.
     copies = 1 if states_in == states and (
         fold or (log_input and not apply_epsilon)) else 2
-    row_bytes = frames * (
-        states_in * copies + (0 if constant else states)) * 4
+    stream = 0 if constant else (2 if lists is not None else 4) * states
+    row_bytes = frames * (4 * states_in * copies + stream)
     budget = int(torbi_tpu_torch.DECODE_MEMORY_BUDGET)
     if batch > 1 and batch * row_bytes > budget:
         rows = max(1, budget // row_bytes)
@@ -476,9 +513,12 @@ def decode(observation, batch_frames, transition, initial, backend=None,
     if constant:
         return constant_ops.decode_constant(
             obs, batch_frames, initial, band[2])
-    if band is None:
-        _decode_counters.dense_reasons[reason] += 1
-    (_, forward), (_, chase) = kernel_route(transition, band, batch)
+    if lists is not None:
+        (_, forward), (_, chase) = sparse_route(lists)
+    else:
+        if band is None:
+            _decode_counters.dense_reasons[reason] += 1
+        (_, forward), (_, chase) = kernel_route(transition, band, batch)
     flags = (log_input, apply_epsilon) if fold else (True, False)
     post_seq, posterior = forward(obs, batch_frames, initial, *flags)
     return chase(post_seq, posterior, batch_frames)
@@ -486,7 +526,8 @@ def decode(observation, batch_frames, transition, initial, backend=None,
 
 # Decodes that launched the dense forward kernel (K2), by the reason the
 # banded kernels declined the transition: 'width' (``detect_band`` finds no
-# band within ``BAND_MAX_FRACTION`` of the states), 'floor' (the band's
+# band within ``BAND_MAX_FRACTION`` of the states, and the in-list route
+# declined it too), 'floor' (the band's
 # exterior asks more of the initial distribution than it gives:
 # ``gate_band``), 'observation' (an observation that is not finite, or
 # not positive as probabilities) or 'backend' (``USE_BAND_KERNEL`` off)
