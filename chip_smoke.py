@@ -59,16 +59,20 @@ just after each:
   alone, ``--beats quick`` its edges alone): K9 and K10 bitwise against
   their plain versions and the route's paths equal to K2 then K3's on
   random sparse HMMs with ties at the edge shapes (``SPARSE_EDGES``: one
-  frame, one row, ragged lengths, -inf initial entries, the four
-  conversions, K9's observation ring and in-lists in shared memory or
-  not) and on a frame of -inf; madmom's beat tracker
-  (``models/beats.py``, 5617 states) at the ``dbnbeat-b16-tracks`` cell's
-  longest batch, 16 tracks of up to 42,006 frames: K9 and K10 bitwise, the
-  paths equal to K2 then K3's and to the benchmark's plain reference, the
-  path through ``from_probabilities(..., log_probs=True)`` with one K9
-  and one K10 launch, nothing else and no conversion pass; K9 and K2
-  timed in turns there, K9 at 256, 512 and 1024 threads a track, and K9
-  against K2 at the shares the gate's threshold comes from
+  frame, one row, rows of one frame, ragged lengths, -inf initial
+  entries, the four conversions, K9's observation ring and in-lists in
+  shared memory or not, more clusters than the card holds at once) and on
+  a frame of -inf, K9 there also at every cluster size its layout fits;
+  madmom's beat tracker (``models/beats.py``, 5617 states) at the
+  ``dbnbeat-b16-tracks`` cell's longest batch, 16 tracks of up to 42,006
+  frames: K9 and K10 bitwise, the paths equal to K2 then K3's and to the
+  benchmark's plain reference, the path through
+  ``from_probabilities(..., log_probs=True)`` with one K9 (one launch of
+  the planned cluster size, above 1) and one K10 launch, nothing else and
+  no conversion pass; that call timed in turns with K9 on one CTA a track,
+  at 16 tracks and on the longest track alone; K9 and K2 timed in turns
+  there, K9 at every cluster size at the shapes of ``SPARSE_SPREAD``, and
+  K9 against K2 at the shares the gate's threshold comes from
   (``SPARSE_SHARES``);
 - the batch-1 kernels: K4 (its band tile in registers, the mbarrier
   exchange, one cluster of 16 CTAs) at 1 x 10,240 and 1 x 2048, in the
@@ -268,20 +272,26 @@ PYIN_ROWS, PYIN_SEED = 512, 2 ** 32 + 7
 # in-degree of a light destination, seed: odd state counts, one frame, one
 # row; K9's observation ring in shared memory up to 11,622 states, its
 # values loaded on the frame past it (11,700: the in-lists resident; 20,000:
-# in global memory)) and the random sparse HMMs
+# in global memory); 40 rows: more clusters of 8 and 16 CTAs than the card
+# holds at once) and the random sparse HMMs
 # the gate's threshold is timed at (batch, frames, states, and the in-degree
 # of a random one, or madmom's or pYIN's transition, or madmom's with one
 # source a state: no warp-reduced in-list)
 BEATS_SEED = 2 ** 33 + 11
 SPARSE_EDGES = ((1, 1, 97, 2, 1), (1, 64, 97, 2, 2), (3, 50, 1000, 3, 3),
                 (5, 40, 5617, 2, 4), (7, 33, 2048, 1, 5), (2, 30, 9000, 3, 6),
-                (2, 20, 11700, 0, 7), (2, 20, 20000, 4, 8))
+                (2, 20, 11700, 0, 7), (2, 20, 20000, 4, 8),
+                (40, 24, 5617, 2, 9))
 SPARSE_SHARES = ((16, 2048, 5617, 'madmom'), (1, 4096, 5617, 'madmom'),
                  (16, 2048, 5617, 'chain'),
                  (16, 2048, 5617, 6), (16, 2048, 5617, 18),
                  (16, 2048, 5617, 56), (512, 861, 1202, 'pyin'))
-# K9's threads a sequence timed at the cell's longest batch
-SPARSE_THREADS = (256, 512, 1024)
+# K9 timed at every cluster size (the layout forced) at these shapes
+# (batch, frames, states, madmom's transition or the in-degree of a random
+# one): the spread rule's MIN_SLICE
+SPARSE_SPREAD = ((16, 2048, 5617, 'madmom'), (1, 4096, 5617, 'madmom'),
+                 (1, 4096, 2816, 1), (16, 2048, 2816, 1),
+                 (1, 4096, 1202, 1), (1, 4096, 97, 1))
 # Rows of the uniform path at the headline's shape held against the scan
 UNIFORM_SCAN_ROWS = 16
 # The extra decode modes: the time-sharded and associative routes at one
@@ -2272,7 +2282,8 @@ def sparse_hmm(torch, batch, frames, states, degree, seed, device):
             torch.from_numpy(init.astype(np.float32)).to(device))
 
 
-def require_pointers(torch, name, got, expected, batch_frames):
+def require_pointers(torch, name, got, expected, batch_frames,
+                     quiet=False):
     """K9's pointers against its plain version's on the rows the chase
     reads (1 <= t < batch_frames; the kernel leaves the others unwritten)"""
     frames = got.shape[1]
@@ -2282,8 +2293,35 @@ def require_pointers(torch, name, got, expected, batch_frames):
                                        expected[row, 1:top]):
             fail(f'{name}: K9\'s pointers of row {row} differ from its '
                  'plain version (tolerance: bitwise)')
-    info(f'{name}: K9\'s pointers bitwise equal to its plain version on '
-         'every frame the chase reads')
+    if not quiet:
+        info(f'{name}: K9\'s pointers bitwise equal to its plain version '
+             'on every frame the chase reads')
+
+
+def cluster_layouts(sparse, lists):
+    """K9's layout at every cluster size whose layout fits these in-lists"""
+    layouts = [sparse.forward_layout(lists.states,
+                                     sparse.slice_pairs(lists, cluster),
+                                     cluster)
+               for cluster in sparse.CLUSTER_SIZES]
+    return [layout for layout in layouts if layout['fits']]
+
+
+def require_clusters(torch, sparse, label, obs, bf, init, lists, conversion,
+                     want):
+    """K9 at every cluster size that fits, bitwise its plain version's
+    ``want`` (pointers, posterior); returns the sizes held"""
+    sizes = []
+    for layout in cluster_layouts(sparse, lists):
+        pointers, posterior = sparse.viterbi_forward_sparse(
+            obs, bf, init, lists, *conversion, layout=layout)
+        name = f'{label} at {layout["cluster"]} CTAs a sequence'
+        require_pointers(torch, name, pointers, want[0], bf, quiet=True)
+        if not torch.equal(posterior, want[1]):
+            fail(f'{name}: K9\'s posterior differs from its plain version '
+                 '(tolerance: bitwise)')
+        sizes.append(layout['cluster'])
+    return sizes
 
 
 def sparse_route_paths(torch, obs, bf, trans, init, conversion):
@@ -2325,12 +2363,18 @@ def beats_phase(torch, device, card, reset_counts, read_counts,
     import torbi_tpu_torch
 
     result = {}
+
+    def resident(states):
+        return lambda layout: sparse.resident_clusters(states, layout, device)
+
     for index, (batch, frames, states, degree, seed) in enumerate(
             SPARSE_EDGES):
         obs, bf, trans, init = sparse_hmm(
             torch, batch, frames, states, degree, seed, device)
+        if batch > 1:
+            bf[-1] = 1  # a row of one frame
         lists = sparse.in_lists(trans)
-        layout = sparse.forward_layout(states, lists.pairs)
+        layout = sparse.forward_plan(lists, batch, resident(states))
         conversions = ((True, False), (True, True), (False, False),
                        (False, True)) if index < 3 else ((True, True),)
         for conversion in conversions:
@@ -2351,7 +2395,11 @@ def beats_phase(torch, device, card, reset_counts, read_counts,
             if not torch.equal(paths, dense_paths):
                 fail(f'{label}: the in-list route\'s paths differ from K2 '
                      'then K3\'s')
-            info(f'{label}: the paths equal K2 then K3\'s')
+            sizes = require_clusters(
+                torch, sparse, label, raw, bf, init, lists, conversion,
+                (want_pointers, want_posterior))
+            info(f'{label}: the paths equal K2 then K3\'s; K9 bitwise at '
+                 f'{sizes} CTAs a sequence')
             del pointers, posterior, converted
     # A frame of -inf everywhere: every later posterior is -inf, the seed
     # 0, and K10 reads every pointer
@@ -2363,7 +2411,12 @@ def beats_phase(torch, device, card, reset_counts, read_counts,
                   sparse.backtrace_sparse_reference(pointers, posterior, bf))
     if not torch.equal(paths, dense_paths):
         fail('sparse -inf frame: the paths differ from K2 then K3\'s')
-    info('sparse -inf frame: K10 follows the pointers and equals K2 then K3')
+    lists = sparse.in_lists(trans)
+    sizes = require_clusters(
+        torch, sparse, 'sparse -inf frame', obs, bf, init, lists,
+        (True, False), sparse.sparse_forward_reference(obs, bf, init, lists))
+    info('sparse -inf frame: K10 follows the pointers and equals K2 then '
+         f'K3; K9 bitwise at {sizes} CTAs a sequence')
     if quick:
         return result
 
@@ -2389,11 +2442,18 @@ def beats_phase(torch, device, card, reset_counts, read_counts,
     if sparse.detect_sparse(torch.log(torch.from_numpy(
             pyin.transition_matrix()).to(device))) is not None:
         fail('beats: the gate took pYIN\'s transition')
-    layout = sparse.forward_layout(beats.STATES, lists.pairs)
+    layout = sparse.forward_plan(lists, len(lengths),
+                                 resident(beats.STATES))
+    held = {each['cluster']: sparse.resident_clusters(
+        beats.STATES, each, device) for each in cluster_layouts(sparse, lists)}
+    heavy = [max(len(warp) for cta in sparse.warp_lists(lists, each)
+                 for warp in cta) for each in cluster_layouts(sparse, lists)]
     info(f'beats: {len(lengths)} tracks of {min(lengths)}-{max(lengths)} '
          f'frames x {beats.STATES} states ({sum(lengths)} real frames), '
-         f'{lists.pairs} pairs; K9 layout {layout}, K10 layout '
-         f'{sparse.chase_layout(beats.STATES, lists.pairs)}')
+         f'{lists.pairs} pairs; K9 layout {layout}; clusters the card holds '
+         f'at once by size {held}; heavy in-lists a warp at most {heavy}; '
+         f'K10 layout {sparse.chase_layout(beats.STATES, lists.pairs)}')
+    result.update(plan=layout, resident_clusters=held)
 
     (pointers, posterior), k9_ms = cuda_once(
         torch, lambda: sparse.viterbi_forward_sparse(
@@ -2429,25 +2489,61 @@ def beats_phase(torch, device, card, reset_counts, read_counts,
     cuda = device.type == 'cuda'
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
+    sizes = dict(sparse.viterbi_forward_sparse.size_launches)
     decoded = call()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     counts = read_counts()
+    sizes = {size: count - sizes[size] for size, count in
+             sparse.viterbi_forward_sparse.size_launches.items()
+             if count != sizes[size]}
     if not torch.equal(decoded, paths):
         fail('beats: from_probabilities differs from K9 then K10')
     # The plain versions on the CPU count no launch
     if cuda and ((counts['sparse_forward'], counts['sparse_backtrace'])
                  != (1, 1) or any(
                      count for name, count in counts.items()
-                     if name not in ('sparse_forward', 'sparse_backtrace'))):
-        fail(f'beats: from_probabilities launched {counts}')
+                     if name not in ('sparse_forward', 'sparse_backtrace'))
+                 or sizes != {layout['cluster']: 1}
+                 or layout['cluster'] == 1):
+        fail(f'beats: from_probabilities launched {counts}, by cluster size '
+             f'{sizes} (planned {layout["cluster"]} CTAs a track, above 1)')
     if (dispatch.convert.values != values
             or dict(dispatch.decode.dense_reasons) != reasons):
         fail('beats: from_probabilities ran a conversion pass or counted a '
              'dense decode')
     info(f'beats: from_probabilities(..., log_probs=True) equals K9 then '
-         f'K10, launches {counts}, no conversion pass; peak memory '
-         f'{peak} bytes')
-    del pointers, posterior
+         f'K10, launches {counts}, K9 by cluster size {sizes}, no '
+         f'conversion pass; peak memory {peak} bytes')
+    result['size_launches'] = sizes
+    del pointers, posterior, decoded
+
+    # The call as the cell makes it, K9 on one CTA a track (the old
+    # layout) and as planned, in turns, at 16 tracks and on the longest
+    plan = sparse.forward_plan
+    longest = int(np.argmax(lengths))
+
+    def one_cta(lists, batch, resident):
+        return sparse.forward_layout(lists.states, lists.pairs)
+
+    for rows, (part, part_bf) in (
+            (len(lengths), (obs, bf)),
+            (1, (obs[longest:longest + 1], bf[longest:longest + 1]))):
+        turns = {'one_cta': [], 'planned': []}
+        for name in ('one_cta', 'planned', 'planned', 'one_cta'):
+            sparse.forward_plan = one_cta if name == 'one_cta' else plan
+            try:
+                turns[name].append(host_ms(
+                    torch, lambda: torbi_tpu_torch.from_probabilities(
+                        part, part_bf, trans, init, log_probs=True,
+                        gpu=device), calls=2)[0])
+            finally:
+                sparse.forward_plan = plan
+        chosen = plan(lists, rows, resident(beats.STATES))['cluster']
+        info(f'beats: from_probabilities at {rows} x {max(lengths)} x '
+             f'{beats.STATES}, ms in turns (one CTA, planned, planned, one '
+             f'CTA) on {card}: one CTA a track {turns["one_cta"]}, '
+             f'{chosen} CTAs a track {turns["planned"]}')
+        result[f'call_{rows}_ms'] = dict(turns, cluster=chosen)
 
     # K2 then K3 on the same batch
     converted = dispatch.convert(obs, True, True).contiguous()
@@ -2484,20 +2580,29 @@ def beats_phase(torch, device, card, reset_counts, read_counts,
     real = sum(lengths)
     least, _ = bound_ms(4 * (real * beats.STATES + lists.pairs),
                         2 * (real - len(lengths)) * lists.pairs)
-    # K9 at other threads a sequence
-    for threads in SPARSE_THREADS:
-        custom = dict(layout, threads=threads,
-                      per=-(-beats.STATES // threads))
-        got = sparse.viterbi_forward_sparse(converted, bf, init, lists,
-                                            layout=custom)
-        want = k9()
-        if not torch.equal(got[1], want[1]):
-            fail(f'beats: K9 at {threads} threads differs')
-        del got, want
-        threads_ms = cuda_ms(torch, lambda: sparse.viterbi_forward_sparse(
-            converted, bf, init, lists, layout=custom), iters=2)
-        result[f'threads_{threads}_ms'] = threads_ms
-        info(f'beats: K9 at {threads} threads a track: {threads_ms:.3f} ms')
+    # K9 at every cluster size, at the cell's batch and on its longest
+    # track
+    want = k9()
+    for rows, (part, part_bf) in (
+            (len(lengths), (converted, bf)),
+            (1, (converted[longest:longest + 1], bf[longest:longest + 1]))):
+        spread = {}
+        for each in cluster_layouts(sparse, lists):
+            got = sparse.viterbi_forward_sparse(part, part_bf, init, lists,
+                                                layout=each)
+            expected = want[1] if rows > 1 else want[1][longest:longest + 1]
+            if not torch.equal(got[1], expected):
+                fail(f'beats: K9 at {each["cluster"]} CTAs a track differs')
+            del got
+            spread[each['cluster']] = cuda_ms(
+                torch, lambda: sparse.viterbi_forward_sparse(
+                    part, part_bf, init, lists, layout=each), iters=2)
+        per_frame = {size: round(ms / max(lengths) * 1e3, 3)
+                     for size, ms in spread.items()}
+        info(f'beats: K9 at {rows} x {max(lengths)} x {beats.STATES} by CTAs '
+             f'a track, ms: {spread}; us a serial frame: {per_frame}')
+        result[f'clusters_{rows}_ms'] = spread
+    del want
     info(f'beats: ms in turns (K9, K2, K2, K9) on {card}: K9 '
          f'{times["sparse_forward"]}, K2 {times["dense_forward"]}; K10 '
          f'{k10:.3f}; the call (host clock, warm median of 3) '
@@ -2547,14 +2652,40 @@ def beats_phase(torch, device, card, reset_counts, read_counts,
                     share_obs, share_bf, dense_trans, share_init))),
                 iters=1))
         share = share_lists.pairs / states ** 2
+        chosen = sparse.forward_plan(share_lists, batch, resident(states))
         info(f'sparse gate: {batch} x {frames} x {states} at '
              f'{share_lists.pairs} pairs ({100 * share:.3f}% of S^2, '
-             f'K9 layout {sparse.forward_layout(states, share_lists.pairs)})'
-             f': K9 {turns["sparse_forward"]} ms, K2 '
+             f'K9 layout {chosen}): K9 {turns["sparse_forward"]} ms, K2 '
              f'{turns["dense_forward"]} ms in turns')
         result[f'share_{batch}x{frames}x{states}_{share_lists.pairs}'] = (
-            dict(share=share, **turns))
+            dict(share=share, cluster=chosen['cluster'], **turns))
         del share_obs, dense_trans, share_lists
+        torch.cuda.empty_cache()
+
+    # K9 at every cluster size: where spreading a sequence pays
+    for batch, frames, states, degree in SPARSE_SPREAD:
+        spread_trans = (trans if degree == 'madmom' else sparse_hmm(
+            torch, 1, 1, states, degree, 9, device)[2])
+        spread_lists = sparse.in_lists(spread_trans)
+        spread_obs = torch.log(torch.rand(
+            (batch, frames, states), device=device,
+            generator=torch.Generator(device=device).manual_seed(6)))
+        spread_bf = torch.full((batch,), frames, dtype=torch.int32,
+                               device=device)
+        spread_init = torch.zeros(states, device=device)
+        spread = {}
+        for each in cluster_layouts(sparse, spread_lists):
+            spread[each['cluster']] = cuda_ms(
+                torch, lambda: sparse.viterbi_forward_sparse(
+                    spread_obs, spread_bf, spread_init, spread_lists,
+                    layout=each), iters=2)
+        chosen = sparse.forward_plan(spread_lists, batch, resident(states))
+        info(f'sparse spread: {batch} x {frames} x {states} ({degree}, '
+             f'{spread_lists.pairs} pairs), K9 ms by CTAs a sequence '
+             f'{spread}; planned {chosen["cluster"]}')
+        result[f'spread_{batch}x{frames}x{states}_{degree}'] = dict(
+            ms=spread, planned=chosen['cluster'])
+        del spread_obs, spread_lists
         torch.cuda.empty_cache()
     return result
 

@@ -234,7 +234,8 @@ def test_memory_guard_splits_the_route(monkeypatch):
 def test_layouts():
     assert sparse.forward_layout(5617, 8934) == {
         'threads': 1024, 'per': 6, 'staged': True, 'resident': True,
-        'smem_bytes': 20 * 5617 + 6 * 8934 + 4 * 5618}
+        'smem_bytes': 20 * 5617 + 6 * 8934 + 4 * 5618, 'cluster': 1,
+        'slice': 5617, 'pairs': 8934, 'fits': True}
     assert sparse.chase_layout(5617, 8934) == {
         'threads': 256, 'resident': True, 'smem_bytes': 4 * 5618 + 2 * 8934}
     # The ring takes 12 bytes a state: past 11,622 states the values are

@@ -163,7 +163,8 @@ inline cudaError_t optin_smem(size_t* bytes) {
 }
 
 // The clusters of `cluster` blocks of `kernel` the card holds at once
-// (cudaOccupancyMaxActiveClusters), into *clusters
+// (cudaOccupancyMaxActiveClusters), into *clusters; a cluster of more than
+// 8 is allowed explicitly, as launch_cluster does
 template <typename... Params>
 cudaError_t max_active_clusters(void (*kernel)(Params...), int cluster,
                                 dim3 block, size_t smem, int* clusters) {
@@ -171,6 +172,11 @@ cudaError_t max_active_clusters(void (*kernel)(Params...), int cluster,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchAttribute attribute[1];
   attribute[0].id = cudaLaunchAttributeClusterDimension;
   attribute[0].val.clusterDim.x = cluster;
