@@ -13,10 +13,10 @@ The mix's keys:
 
 A call is ``from_probabilities(recording, None, transition,
 log_probs=True)`` on one (1, frames, states) recording, then its indices
-fetched to the host with ``.cpu()``. It passes no ``batch_frames``: the
-program caches a recording's split plan per ``batch_frames`` tensor, and
-a user decoding a new recording pays for the entropy pass and the plan on
-every call, so every call here plans afresh.
+fetched to the host with ``.cpu()``. It passes no ``batch_frames``, as a
+user decoding one whole recording does; the program plans every
+recording's split afresh (the entropy pass and the host plan), so every
+call pays for them as a user's does.
 
 The host copy of each checked call's path is compared with the
 reference's in ``counts``, outside the call's time, and every copy is

@@ -19,7 +19,7 @@ import traceback
 
 import torch
 
-from . import inputs, trace
+from . import inputs, program, trace
 
 
 class Stretch:
@@ -50,6 +50,7 @@ class Stretch:
             events = trace.complete_events(path)
         self.profile = None
         self.summary = trace.summarize(events) or {}
+        self.summary['program'] = program.summarize(events)
         self.summary.update(self.counts, calls=self.calls)
 
 

@@ -7,8 +7,10 @@ A record holds the window's counts and clock (``window_start``,
 start (``started``), and for a traced run ``stretches``: each rank's
 summary of its profiled stretch (``trace.summarize``: ``span_s``,
 ``busy_s``, ``compute_busy_s``, ``device_events``, ``device_ops``,
-``idle_gaps``; and the stretch's ``calls`` and work counts
-``operations`` and ``bytes``).
+``idle_gaps``; the program's own spans, ``program``
+(``program.summarize``: ``spans``, ``self_s``, ``idle_in_program_s``;
+None where the trace holds none); and the stretch's ``calls`` and work
+counts, such as ``operations`` and ``bytes``).
 """
 
 

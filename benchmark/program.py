@@ -13,8 +13,9 @@ of its own kernels, the gaps between them included; a range that launches
 kernels both before and after a range inside it covers that one's too.
 
 This reads the events of ``trace.complete_events``; nothing here changes
-what ``trace.summarize`` reads. A trace of a program without such spans
-gives None.
+what ``trace.summarize`` reads. ``loop.Stretch.end`` keeps its record as
+the traced stretch's ``program``, on every rank. A trace of a program
+without such spans gives None.
 """
 from benchmark import trace
 from benchmark.metrics import traced
@@ -31,6 +32,10 @@ def summarize(events):
     - spans: {name: [host_s, count, device_s]}: the host ranges' summed
       durations and count, and the summed durations of the device ranges
       of the same name;
+    - self_s: {name: host_s} of each span's self time: its host ranges
+      less the union of the ``torbi.*`` host ranges nested inside them,
+      one of its own name too (``torbi.decode`` on the memory guard's row
+      groups), so that no host time counts under two names;
     - idle_in_program_s: the part of the device's idle gaps (as
       ``trace.summarize`` finds them) that lies inside the union of the
       ``torbi.*`` host ranges.
@@ -59,8 +64,33 @@ def summarize(events):
     program = trace.busy_intervals((start, end) for _, start, end in host)
     return {
         'spans': {name: list(value) for name, value in sorted(spans.items())},
+        'self_s': self_seconds(host),
         'idle_in_program_s': overlap(gaps, program) / 1e6,
     }
+
+
+def self_seconds(host):
+    """{name: seconds} of the (name, start us, end us) ranges' self time.
+    A range opened inside another (a later start, or the same start and
+    no later end) is nested in it, clipped to its end; a range's self
+    time is its length less the union of the ranges nested directly
+    inside it, which hold the deeper ones"""
+    totals = {}
+    stack = []
+
+    def close(name, start, end, nested):
+        covered = sum(b - a for a, b in trace.busy_intervals(nested))
+        totals[name] = totals.get(name, 0.0) + (end - start - covered) / 1e6
+
+    for name, start, end in sorted(host, key=lambda r: (r[1], -r[2])):
+        while stack and stack[-1][2] <= start:
+            close(*stack.pop())
+        if stack:
+            stack[-1][3].append((start, min(end, stack[-1][2])))
+        stack.append((name, start, end, []))
+    while stack:
+        close(*stack.pop())
+    return dict(sorted(totals.items()))
 
 
 def overlap(first, second):
@@ -86,6 +116,19 @@ def device_s(stretch, *prefixes):
         return None
     return sum(device for name, (_, _, device) in program['spans'].items()
                if name.startswith(prefixes))
+
+
+def self_ms_per_call(record, *names):
+    """Rank 0's host self time of the spans ``names`` (``self_s``), a
+    call of its traced stretch, in milliseconds; None where it has none
+    of them"""
+    stretches = traced(record)
+    if not stretches or not stretches[0].get('calls') \
+            or not stretches[0].get('program'):
+        return None
+    own = stretches[0]['program']['self_s']
+    found = [own[name] for name in names if name in own]
+    return sum(found) * 1e3 / stretches[0]['calls'] if found else None
 
 
 def ms_per_call(record, *prefixes):

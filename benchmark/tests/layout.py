@@ -9,6 +9,10 @@ from pathlib import Path
 from benchmark import spec
 
 REPO = Path(__file__).resolve().parents[2]
+# The program's span metrics that every throughput cell reports, in
+# BENCHMARK.json's order
+PROGRAM_METRICS = ['dispatch_idle_share', 'dispatch_host_ms_per_call',
+                   'forward_ms_per_call', 'chase_ms_per_call']
 LENGTHS = {'median': 12, 'sigma': 0.6, 'low': 4, 'high': 40}
 TINY_CONFIG = {
     'name': 'tiny', 'states': 64, 'precision': 'float32',

@@ -12,7 +12,7 @@ import torch
 from benchmark import beats, check, inputs, roofline, run, spec, sparse_work
 from benchmark.callers import beats as caller
 from benchmark.reference import beats as reference
-from benchmark.tests.layout import REPO, tiny_layout
+from benchmark.tests.layout import PROGRAM_METRICS, REPO, tiny_layout
 
 SEED = 2 ** 33 + 29
 CELL = 'dbnbeat-b16-tracks'
@@ -99,7 +99,7 @@ def test_the_configuration_as_the_harness_reads_it():
     reported = [entry['name'] for entry in bench['end_to_end']
                 + bench['per_layer']
                 if CELL in entry.get('workloads', [])]
-    assert reported == list(NEW_METRICS)
+    assert reported == list(NEW_METRICS) + PROGRAM_METRICS
 
 
 def test_the_arrival_cell_is_the_sorted_pool_as_it_arrives():
@@ -112,7 +112,7 @@ def test_the_arrival_cell_is_the_sorted_pool_as_it_arrives():
                 + bench['per_layer']
                 if 'default-b512-arrival' in entry.get('workloads', [])]
     assert reported == ['timesteps_per_s', 'device_idle_share',
-                        'decode_roofline']
+                        'decode_roofline'] + PROGRAM_METRICS
     # Nearly every batch of 512 in the seed's order holds a row near 2000
     lengths = inputs.permuted(
         inputs.lengths(4096, **arrival.traffic['lengths']),

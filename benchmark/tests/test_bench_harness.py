@@ -282,3 +282,7 @@ def test_world_on_the_cpu_and_its_exchange_left_out(tmp_path, fault):
     assert check.passed(record['checks']) == (not fault)
     line = run.result(spec.Cell(root, 'tiny-sharded'), record, True, 'cpu')
     assert line['device']['window_s'] > 0
+    # Every rank's stretch keeps the program's record of its own spans
+    for stretch in record['stretches']:
+        assert 'torbi.decode_sharded' in stretch['program']['self_s']
+        assert ('torbi.gather' in stretch['program']['self_s']) != fault

@@ -10,7 +10,7 @@ import torch
 from benchmark import check, inputs, recordings, run, spec
 from benchmark.callers import recordings as caller
 from benchmark.reference import chunked
-from benchmark.tests.layout import REPO, tiny_layout
+from benchmark.tests.layout import PROGRAM_METRICS, REPO, tiny_layout
 
 SEED = 2 ** 33 + 19
 STATES = 128
@@ -101,7 +101,7 @@ def test_the_configuration_and_its_pool():
     reported = [entry['name'] for entry in bench['end_to_end']
                 + bench['per_layer']
                 if 'nobatch-longfile' in entry.get('workloads', [])]
-    assert reported == list(NEW_METRICS)
+    assert reported == list(NEW_METRICS) + PROGRAM_METRICS
 
 
 def test_recordings_repeat_from_the_seed_and_keep_off_the_threshold():

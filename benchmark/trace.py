@@ -1,14 +1,14 @@
 """What a ``torch.profiler`` Chrome trace says about the device.
 
-The arithmetic of ``device_busy`` and ``device_op_times`` in
-``torbi_tpu_torch/utils/profile.py``, copied so that the yardstick does
-not move with the program: device events are Kineto's kernel, memcpy and
+The only copy of the trace arithmetic, here under the benchmark so that
+the yardstick does not move with the program (``chip_smoke.py`` reads its
+traces through it too): device events are Kineto's kernel, memcpy and
 memset events; the device's busy time is the union of their intervals;
 the traced span runs from the first complete event of any kind to the
-last. Added here: the idle gaps between the device's busy intervals, each
-named by the innermost host event around its middle, which says what the
-host was doing while the device waited; and the busy time of the compute
-kernels alone, without copies, fills and the collectives (NCCL's kernels,
+last. It also gives the idle gaps between the device's busy intervals,
+each named by the innermost host event around its middle, which says what
+the host was doing while the device waited; and the busy time of the
+compute kernels alone, without copies, fills and the collectives (NCCL's kernels,
 whose time is mostly waiting for the other ranks).
 """
 import gzip
